@@ -1,0 +1,178 @@
+"""Chunk Conformer speech encoder, incremental (serving) path
+(``streamspeech_tpu/models/conformer.py``; reference
+`researches/chunk_unity/models/s2t_conformer.py:37-213`).
+
+fbank [B, T, 80] → Conv1dSubsampler (2 × stride-2 chunk-causal conv + GLU) →
+×sqrt(d) → Linear → N conformer layers (FFN·½ → rel-pos MHSA over the KV cache
+with the chunk mask → conv module → FFN·½ → LN). ``encode_block`` encodes one
+new block against the caches; the chunk mask makes that exactly the offline
+encoding's rows. The offline ``__call__`` belongs to a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from streamspeech_tpu_torch.config import EncoderConfig
+from streamspeech_tpu_torch.models.layers import (
+    ChunkCausalConv,
+    ConvolutionModule,
+    FeedForward,
+    KVCache,
+    RelPosMultiHeadAttention,
+)
+from streamspeech_tpu_torch.ops.pos_encoding import rel_pos_encoding
+
+
+@dataclasses.dataclass
+class EncoderStreamState:
+    """Incremental-encoding state: subsampler conv tails (input-rate frames),
+    per-layer depthwise-conv tails, per-layer attention KV caches, and ``pos``,
+    the encoder frames emitted so far."""
+
+    sub_ctx: List[torch.Tensor]
+    conv_ctx: List[torch.Tensor]
+    kv: List[KVCache]
+    pos: int = 0
+
+
+def _glu(x):
+    a, g = x.chunk(2, dim=-1)
+    return a * torch.sigmoid(g)
+
+
+class Conv1dSubsampler(nn.Module):
+    """2 × (chunk-causal conv stride 2 + GLU): 80 → conv_channels/2 → embed_dim
+    (`chunk_unity/modules/convolution.py:36-60`)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        n = len(cfg.conv_kernel_sizes)
+        in_ch = cfg.input_feat_per_channel * cfg.input_channels
+        for i, k in enumerate(cfg.conv_kernel_sizes):
+            out_ch = cfg.conv_channels if i < n - 1 else cfg.embed_dim * 2
+            self.add_module(f"conv_{i}", ChunkCausalConv(in_ch, out_ch, k, stride=2))
+            in_ch = out_ch // 2
+        self.n_convs = n
+
+    def convs(self) -> List[ChunkCausalConv]:
+        return [getattr(self, f"conv_{i}") for i in range(self.n_convs)]
+
+    def step(self, x_block, ctxs, conv_chunk_size, valid_len: Optional[int] = None):
+        """x_block [B, Tb, F] (Tb divisible by 4); ctxs = per-conv input tails.
+        ``valid_len`` (final partial block only): real frames in the block; the
+        frames past ceil(valid/2) of each level are zeroed, as the offline
+        conv's right zero-padding would make them (`conformer.py:97-121`)."""
+        new_ctxs = []
+        for conv, ctx in zip(self.convs(), ctxs):
+            x_block, new_ctx = conv.step(torch.cat([ctx, x_block], dim=1),
+                                         conv_chunk_size)
+            new_ctxs.append(new_ctx)
+            x_block = _glu(x_block)
+            if valid_len is not None:
+                valid_len = -(-valid_len // 2)
+                keep = torch.arange(x_block.shape[1], device=x_block.device) < valid_len
+                x_block = x_block * keep[None, :, None].to(x_block.dtype)
+        return x_block, new_ctxs
+
+
+class ConformerLayer(nn.Module):
+    """`chunk_unity/modules/conformer_layer.py:167-312` (rel-pos espnet attention)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        if cfg.pos_enc_type != "rel_pos":
+            raise NotImplementedError(f"pos_enc_type {cfg.pos_enc_type!r}: only "
+                                      "'rel_pos' is ported")
+        self.ffn1 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim)
+        self.self_attn_layer_norm = nn.LayerNorm(cfg.embed_dim)
+        self.self_attn = RelPosMultiHeadAttention(cfg.embed_dim, cfg.attention_heads)
+        self.conv_module = ConvolutionModule(cfg.embed_dim,
+                                             cfg.depthwise_conv_kernel_size)
+        self.ffn2 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim)
+        self.final_layer_norm = nn.LayerNorm(cfg.embed_dim)
+
+    def step(self, x, pos_emb, allowed, kv: KVCache, conv_ctx, q_offset: int,
+             conv_chunk_size):
+        """Incremental block step (`conformer.py:191`). Returns (y, kv, conv_ctx')."""
+        x = x + 0.5 * self.ffn1(x)
+        y, kv = self.self_attn(self.self_attn_layer_norm(x), pos_emb, allowed, kv,
+                               q_offset)
+        x = x + y
+        y, conv_ctx = self.conv_module.step(x, conv_ctx, conv_chunk_size)
+        x = x + y
+        x = x + 0.5 * self.ffn2(x)
+        return self.final_layer_norm(x), kv, conv_ctx
+
+
+class ChunkConformerEncoder(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.subsample = Conv1dSubsampler(cfg)
+        self.linear = nn.Linear(cfg.embed_dim, cfg.embed_dim)
+        for i in range(cfg.layers):
+            self.add_module(f"layers_{i}", ConformerLayer(cfg))
+        self.embed_scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
+        self._rel_tables: Dict[Tuple[int, str], torch.Tensor] = {}
+
+    def layers(self) -> List[ConformerLayer]:
+        return [getattr(self, f"layers_{i}") for i in range(self.cfg.layers)]
+
+    def init_stream_state(self, batch: int, max_frames: int,
+                          device) -> EncoderStreamState:
+        """max_frames = encoder-frame KV capacity (post-subsample)."""
+        c = self.cfg
+        dh = c.embed_dim // c.attention_heads
+        sub_ctx = []
+        in_ch = c.input_feat_per_channel * c.input_channels
+        for conv in self.subsample.convs():
+            sub_ctx.append(torch.zeros((batch, conv.kernel_size // 2, in_ch),
+                                       device=device))
+            in_ch = conv.weight.shape[0] // 2
+        pad = c.depthwise_conv_kernel_size // 2
+        conv_ctx = [torch.zeros((batch, pad, c.embed_dim), device=device)
+                    for _ in range(c.layers)]
+        kv = [KVCache.create(batch, max_frames, c.attention_heads, dh, device)
+              for _ in range(c.layers)]
+        return EncoderStreamState(sub_ctx, conv_ctx, kv, 0)
+
+    def _rel_table(self, n: int, device) -> torch.Tensor:
+        key = (n, str(device))
+        if key not in self._rel_tables:
+            self._rel_tables[key] = torch.from_numpy(
+                rel_pos_encoding(n, self.cfg.embed_dim)).to(device)
+        return self._rel_tables[key]
+
+    def encode_block(self, block: torch.Tensor, state: EncoderStreamState,
+                     chunk_size: int, conv_chunk_size: int,
+                     valid_len: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, EncoderStreamState]:
+        """Encode one new block [B, Tb, 80] (Tb = 4 × whole chunks) against the
+        caches (`conformer.py:337-402`). Returns (enc [B, Tb/4, C], state');
+        the state's tensors and caches are updated in place."""
+        c = self.cfg
+        x, state.sub_ctx = self.subsample.step(block, state.sub_ctx,
+                                               conv_chunk_size, valid_len)
+        s = x.shape[1]
+        x = self.linear(x * self.embed_scale)
+        max_frames = state.kv[0].max_len
+        pos = state.pos
+        # table row 0 ↔ relative position (pos + s - 1) (`conformer.py:367-372`)
+        start = (max_frames + s - 1) - (pos + s - 1)
+        pos_emb = self._rel_table(max_frames + s, x.device)[start:start + s + max_frames]
+        # query i (absolute pos+i) may see key j iff j < ((pos+i)//chunk + 1)*chunk
+        q_abs = pos + torch.arange(s, device=x.device)[:, None]
+        j_abs = torch.arange(max_frames, device=x.device)[None, :]
+        allowed = j_abs < (q_abs // chunk_size + 1) * chunk_size
+        for i, layer in enumerate(self.layers()):
+            x, state.kv[i], state.conv_ctx[i] = layer.step(
+                x, pos_emb, allowed, state.kv[i], state.conv_ctx[i], pos,
+                conv_chunk_size)
+        state.pos = pos + s
+        return x, state

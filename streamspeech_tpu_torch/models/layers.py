@@ -1,0 +1,341 @@
+"""Building blocks of the serving path: attention with KV caches, FFN, chunk-causal
+convolutions (the counterparts of ``streamspeech_tpu/models/layers.py``).
+
+Batch-first ``[B, T, C]``. Attention takes boolean ``allowed`` masks (True = may
+attend) and turns them into an additive NEG_INF bias. Module and parameter names
+mirror the flax tree so ``weights.py`` can carry JAX weights across by name.
+
+Unlike the JAX package, KV caches are updated in place: serving never reuses a
+cache's old state, so the port writes new keys into the preallocated buffers
+instead of copying them, and the valid length is a host integer.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from streamspeech_tpu_torch.kernels import attention as attention_kernels
+from streamspeech_tpu_torch.ops.masks import NEG_INF, causal_allowed, mask_to_bias
+
+MASKED_KERNEL_MIN_T = 256  # the TPU gate's worth-it floor (`layers.py:56-72`)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode BatchNorm over the last axis with running statistics, the form
+    that makes chunk-by-chunk encoding exact (`conformer_layer.py:23-118`)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("running_mean", torch.zeros(dim))
+        self.register_buffer("running_var", torch.ones(dim))
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+class KVCache:
+    """Fixed-capacity KV buffer: k, v [B, T_max, H, Dh]; ``index`` = valid
+    positions (host int). ``append`` writes in place."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, index: int = 0):
+        self.k, self.v, self.index = k, v, int(index)
+
+    @classmethod
+    def create(cls, batch: int, max_len: int, num_heads: int, head_dim: int,
+               device, dtype=torch.float32) -> "KVCache":
+        shape = (batch, max_len, num_heads, head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[1]
+
+    def truncate(self, new_len: int) -> "KVCache":
+        """Prune to ``new_len`` valid positions (whole-word KV truncation,
+        `agent/speech_to_speech.streamspeech.agent.py:554-574`); stale entries
+        are overwritten by the next append."""
+        self.index = min(self.index, int(new_len))
+        return self
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Write S new positions at ``index`` (`layers.py:126` ``_append_kv``).
+        Returns (k_all, v_all, valid [T_max]). Raises where JAX's
+        dynamic_update_slice would silently clamp the write position."""
+        s = k_new.shape[1]
+        end = self.index + s
+        if end > self.max_len:
+            raise ValueError(f"KV cache overflow: {self.index} + {s} > "
+                             f"capacity {self.max_len}")
+        self.k[:, self.index:end] = k_new.to(self.k.dtype)
+        self.v[:, self.index:end] = v_new.to(self.v.dtype)
+        self.index = end
+        valid = torch.arange(self.max_len, device=self.k.device) < end
+        return self.k, self.v, valid
+
+    def valid(self) -> torch.Tensor:
+        return torch.arange(self.max_len, device=self.k.device) < self.index
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """q [B,S,H,D], k/v [B,T,H,D], bias broadcastable to [B,H,S,T] → [B,S,H,D]
+    (`layers.py:153` ``_attend``)."""
+    scores = torch.einsum("bshd,bthd->bhst", q * scale, k)
+    if bias is not None:
+        scores = scores + bias
+    return torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
+
+
+def _masked_kernel_ok(t: int, head_dim: int) -> bool:
+    """The TPU route's shape gate (`layers.py:56-72` ``_masked_pallas_ok``).
+    On the card the kernel takes every head dim this admits up to 256 and
+    raises past it: the route never turns into the plain version there."""
+    return t >= MASKED_KERNEL_MIN_T and head_dim % 8 == 0
+
+
+class MultiHeadAttention(nn.Module):
+    """fairseq-style MHA, self or cross (`layers.py:192`). ``kdim`` is the width
+    of the keys' source when it differs from ``embed_dim`` (the MT decoder's
+    cross-attention reads the narrower encoder)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
+                 kdim: Optional[int] = None):
+        super().__init__()
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        kdim = embed_dim if kdim is None else kdim
+        self.q_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+        self.k_proj = nn.Linear(kdim, embed_dim, bias=bias)
+        self.v_proj = nn.Linear(kdim, embed_dim, bias=bias)
+        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+
+    def forward(self, query: torch.Tensor,
+                key_value: Optional[torch.Tensor] = None,
+                allowed: Optional[torch.Tensor] = None,
+                key_valid: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None,
+                cache_is_cross: bool = False,
+                causal: bool = False):
+        """Routes (`layers.py:240-287`): cached self-attention appends the new
+        K/V first; cached cross-attention reads a cache filled by
+        ``fill_cross_cache``; without a cache, ``causal=True`` self-attention at
+        T >= 256 goes through the causal masked-attention kernel."""
+        h = self.num_heads
+        dh = self.embed_dim // h
+        scale = dh ** -0.5
+        b, s, _ = query.shape
+        kv_in = query if key_value is None else key_value
+        q = self.q_proj(query).view(b, s, h, dh)
+
+        if cache is not None and not cache_is_cross and key_value is None:
+            k_new = self.k_proj(kv_in).view(b, s, h, dh)
+            v_new = self.v_proj(kv_in).view(b, s, h, dh)
+            k, v, valid = cache.append(k_new, v_new)
+            out = attend(q, k, v, mask_to_bias(allowed, valid), scale)
+        elif cache is not None:
+            valid = cache.valid() if key_valid is None else key_valid
+            out = attend(q, cache.k, cache.v, mask_to_bias(allowed, valid), scale)
+        else:
+            t = kv_in.shape[1]
+            k = self.k_proj(kv_in).view(b, t, h, dh)
+            v = self.v_proj(kv_in).view(b, t, h, dh)
+            if (causal and key_value is None and allowed is None
+                    and _masked_kernel_ok(t, dh)):
+                out = self._causal_kernel(q, k, v, key_valid, scale)
+            else:
+                if causal and allowed is None:
+                    allowed = causal_allowed(s, device=query.device)
+                out = attend(q, k, v, mask_to_bias(allowed, key_valid), scale)
+        out = self.out_proj(out.reshape(b, s, self.embed_dim))
+        return out, cache
+
+    @staticmethod
+    def _causal_kernel(q, k, v, key_valid, scale):
+        """`layers.py:289-323` ``_causal_pallas``: pad T to the 128 tile (padded
+        keys masked through the [B, T] bias, padded query rows sliced off) and
+        run the causal masked-attention kernel. q/k/v [B, S, H, Dh]."""
+        b, s, h, dh = q.shape
+        t_pad = -(-s // 128) * 128
+        if key_valid is None:
+            kvb = torch.zeros((b, s), dtype=torch.float32, device=q.device)
+        else:
+            kv2 = key_valid if key_valid.dim() == 2 else key_valid[None].expand(b, s)
+            kvb = torch.where(kv2, 0.0, NEG_INF).to(torch.float32)
+        kvb = F.pad(kvb, (0, t_pad - s), value=NEG_INF)
+        q, k, v = (F.pad(a, (0, 0, 0, 0, 0, t_pad - s)).transpose(1, 2).contiguous()
+                   for a in (q, k, v))
+        out = attention_kernels.masked_attention(q, k, v, kvb[:, None, :], scale)
+        return out.transpose(1, 2)[:, :s]
+
+    def fill_cross_cache(self, key_value: torch.Tensor, cache: KVCache) -> KVCache:
+        """Project encoder states once and append them to a cross-attention cache."""
+        b, t, _ = key_value.shape
+        h, dh = self.num_heads, self.embed_dim // self.num_heads
+        cache.append(self.k_proj(key_value).view(b, t, h, dh),
+                     self.v_proj(key_value).view(b, t, h, dh))
+        return cache
+
+
+class RelPosMultiHeadAttention(nn.Module):
+    """espnet RelPositionMultiHeadedAttention, cached incremental route only
+    (`layers.py:374`, :482-502). ``pos_emb`` [R, C] covers relative positions
+    (q_offset + S - 1) ... downwards; bd[i, j] is read at table row
+    rmax - (q_offset + i - j)."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        dh = embed_dim // num_heads
+        self.q_proj = nn.Linear(embed_dim, embed_dim)
+        self.k_proj = nn.Linear(embed_dim, embed_dim)
+        self.v_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.linear_pos = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, dh))
+        self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dh))
+
+    def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
+                allowed: Optional[torch.Tensor], cache: KVCache, q_offset: int):
+        h = self.num_heads
+        dh = self.embed_dim // h
+        scale = dh ** -0.5
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, h, dh)
+        k, v, valid = cache.append(self.k_proj(x).view(b, s, h, dh),
+                                   self.v_proj(x).view(b, s, h, dh))
+        t = k.shape[1]
+        p = self.linear_pos(pos_emb).view(-1, h, dh)     # [R, H, Dh]
+        r = p.shape[0]
+        rmax = q_offset + s - 1
+        ac = torch.einsum("bshd,bthd->bhst", q + self.pos_bias_u, k)
+        bd_full = torch.einsum("bshd,rhd->bhsr", q + self.pos_bias_v, p)
+        i = torch.arange(s, device=x.device)[:, None]
+        j = torch.arange(t, device=x.device)[None, :]
+        u = torch.clamp(rmax - (q_offset + i - j), 0, r - 1)
+        bd = torch.gather(bd_full, -1, u[None, None].expand(b, h, s, t))
+        scores = (ac + bd) * scale + mask_to_bias(allowed, valid)
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhst,bthd->bshd", probs, v)
+        return self.out_proj(out.reshape(b, s, self.embed_dim)), cache
+
+
+class FeedForward(nn.Module):
+    """Conformer macaron FFN: LN → W1 → swish → W2 (`conformer_layer.py:121-161`)."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(embed_dim)
+        self.w_1 = nn.Linear(embed_dim, ffn_dim)
+        self.w_2 = nn.Linear(ffn_dim, embed_dim)
+
+    def forward(self, x):
+        return self.w_2(F.silu(self.w_1(self.layer_norm(x))))
+
+
+# ---------------------------------------------------------------------------
+# Chunk-causal convolution (`researches/chunk_unity/modules/chunk_causal_conv1d.py`)
+# as a masked-tap convolution: out[t] = sum_d W[:, :, d] x[t*s - pad + d], with
+# the taps beyond t's chunk boundary masked.
+# ---------------------------------------------------------------------------
+
+
+def chunk_tap_allowed(t_out: int, kernel_size: int, stride: int,
+                      chunk_size: Optional[int], device=None) -> torch.Tensor:
+    """[t_out, K] bool: tap d of output t reads u = t*stride - pad + d and is
+    allowed iff u < (t*stride // chunk + 1) * chunk (`layers.py:628-640`)."""
+    if chunk_size is None or chunk_size >= 999:
+        return torch.ones((t_out, kernel_size), dtype=torch.bool, device=device)
+    tpos = torch.arange(t_out, device=device)[:, None] * stride
+    u = tpos - kernel_size // 2 + torch.arange(kernel_size, device=device)[None, :]
+    return u < (tpos // chunk_size + 1) * chunk_size
+
+
+def _masked_taps(xp, weight, bias, stride, t_out, allowed, depthwise):
+    """xp [B, T_pad, Cin] (padding included); weight [Cout, Cin, K] or depthwise
+    [C, 1, K] → [B, t_out, Cout]."""
+    k = weight.shape[-1]
+    win = xp.unfold(1, k, stride)[:, :t_out]               # [B, t_out, Cin, K]
+    win = win * allowed[None, :, None, :].to(xp.dtype)
+    if depthwise:
+        out = torch.einsum("btck,ck->btc", win, weight[:, 0])
+    else:
+        out = torch.einsum("btck,ock->bto", win, weight)
+    return out if bias is None else out + bias
+
+
+def chunk_causal_conv1d(x, weight, bias, stride: int, chunk_size: Optional[int],
+                        depthwise: bool = False):
+    """Offline form (`layers.py:643`): x [B, T, Cin], output length
+    floor((T + 2*pad - K)/stride) + 1."""
+    k = weight.shape[-1]
+    pad = k // 2
+    t_out = (x.shape[1] + 2 * pad - k) // stride + 1
+    xp = F.pad(x, (0, 0, pad, pad))
+    allowed = chunk_tap_allowed(t_out, k, stride, chunk_size, device=x.device)
+    return _masked_taps(xp, weight, bias, stride, t_out, allowed, depthwise)
+
+
+def chunk_causal_conv1d_step(x_ctx, weight, bias, stride: int,
+                             chunk_size: Optional[int], depthwise: bool = False):
+    """Incremental block step (`layers.py:680`). x_ctx = [left context (K//2),
+    new block of Tb frames]; the block starts on a chunk boundary and
+    Tb % stride == 0. Returns (out [B, Tb/stride, Cout], new_ctx [B, K//2, Cin])."""
+    k = weight.shape[-1]
+    pad = k // 2
+    t_out = (x_ctx.shape[1] - pad) // stride
+    new_ctx = x_ctx[:, x_ctx.shape[1] - pad:]
+    xp = F.pad(x_ctx, (0, 0, 0, pad))
+    allowed = chunk_tap_allowed(t_out, k, stride, chunk_size, device=x_ctx.device)
+    return _masked_taps(xp, weight, bias, stride, t_out, allowed, depthwise), new_ctx
+
+
+class ChunkCausalConv(nn.Module):
+    """Holds the conv parameters: weight [Cout, Cin, K], or [C, 1, K] depthwise.
+    Serving runs only the incremental ``step``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, use_bias: bool = True, depthwise: bool = False):
+        super().__init__()
+        if depthwise and in_channels != out_channels:
+            raise ValueError("depthwise conv needs in_channels == out_channels")
+        self.stride, self.depthwise, self.kernel_size = stride, depthwise, kernel_size
+        cin = 1 if depthwise else in_channels
+        self.weight = nn.Parameter(torch.zeros(out_channels, cin, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
+
+    def step(self, x_ctx, chunk_size: Optional[int]):
+        return chunk_causal_conv1d_step(x_ctx, self.weight, self.bias, self.stride,
+                                        chunk_size, self.depthwise)
+
+
+class ConvolutionModule(nn.Module):
+    """Conformer convolution module (`conformer_layer.py:23-118`): LN →
+    pointwise(2C) → GLU → chunk-causal depthwise → BatchNorm (running stats)
+    → swish → pointwise(C). Serving runs only the incremental ``step``."""
+
+    def __init__(self, embed_dim: int, depthwise_kernel_size: int = 31):
+        super().__init__()
+        c = embed_dim
+        self.layer_norm = nn.LayerNorm(c)
+        self.pointwise_conv1 = nn.Linear(c, 2 * c, bias=False)
+        self.depthwise_conv = ChunkCausalConv(c, c, depthwise_kernel_size,
+                                              use_bias=False, depthwise=True)
+        self.batch_norm = BatchNorm(c)
+        self.pointwise_conv2 = nn.Linear(c, c, bias=False)
+
+    def step(self, x_new, conv_ctx, chunk_size: Optional[int]):
+        """conv_ctx [B, K//2, C] holds the previous post-GLU activations.
+        Returns (y, new_ctx)."""
+        a, g = self.pointwise_conv1(self.layer_norm(x_new)).chunk(2, dim=-1)
+        x, new_ctx = self.depthwise_conv.step(
+            torch.cat([conv_ctx, a * torch.sigmoid(g)], dim=1), chunk_size)
+        return self.pointwise_conv2(F.silu(self.batch_norm(x))), new_ctx

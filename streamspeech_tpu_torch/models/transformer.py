@@ -1,0 +1,224 @@
+"""Transformer stacks of the serving path (``streamspeech_tpu/models/transformer.py``):
+the MT decoder (incremental steps + full-prefix features), the causal T2U encoder,
+the NAR unit-CTC decoder and the CTC heads.
+
+References: `researches/ctc_unity/modules/transformer_decoder.py:39-419`,
+`transformer_encoder.py:15-112`, `ctc_transformer_unit_decoder.py:25-267`,
+`fairseq/fairseq/models/speech_to_speech/modules/ctc_decoder.py:11`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from streamspeech_tpu_torch.config import DecoderConfig, UnitDecoderConfig
+from streamspeech_tpu_torch.models.layers import KVCache, MultiHeadAttention
+from streamspeech_tpu_torch.ops.masks import causal_allowed
+from streamspeech_tpu_torch.ops.pos_encoding import sinusoidal_embedding
+
+PAD = 1  # fairseq padding index
+
+
+def fairseq_positions(tokens: torch.Tensor, padding_idx: int = PAD) -> torch.Tensor:
+    """Non-pad tokens get padding_idx + their 1-based position among non-pads;
+    pads get padding_idx (`fairseq/fairseq/utils.py:256-266`)."""
+    mask = (tokens != padding_idx).long()
+    return torch.cumsum(mask, dim=1) * mask + padding_idx
+
+
+def _pos_table(num_positions: int, dim: int) -> torch.Tensor:
+    return torch.from_numpy(sinusoidal_embedding(num_positions, dim, PAD))
+
+
+class TransformerFFN(nn.Module):
+    def __init__(self, ffn_dim: int, embed_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(embed_dim, ffn_dim)
+        self.fc2 = nn.Linear(ffn_dim, embed_dim)
+
+    def forward(self, x):
+        return self.fc2(F.relu(self.fc1(x)))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """fairseq pre-norm encoder layer."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.self_attn_layer_norm = nn.LayerNorm(embed_dim)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim)
+        self.final_layer_norm = nn.LayerNorm(embed_dim)
+
+    def forward(self, x, allowed=None, key_valid=None):
+        y, _ = self.self_attn(self.self_attn_layer_norm(x), None, allowed, key_valid)
+        x = x + y
+        return x + self.ffn(self.final_layer_norm(x))
+
+
+class UniTransformerEncoder(nn.Module):
+    """T2U synthesizer encoder over MT decoder states: pre-norm, causal
+    (`transformer_encoder.py:15-77`)."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 num_layers: int):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"layers_{i}",
+                            TransformerEncoderLayer(embed_dim, ffn_dim, num_heads))
+        self.layer_norm = nn.LayerNorm(embed_dim)
+
+    def forward(self, x, key_valid=None):
+        allowed = causal_allowed(x.shape[1], device=x.device)
+        for i in range(self.num_layers):
+            x = getattr(self, f"layers_{i}")(x, allowed, key_valid)
+        return self.layer_norm(x)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """fairseq decoder layer (`transformer_layer.py`), pre- or post-norm."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 normalize_before: bool, enc_dim: int):
+        super().__init__()
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.self_attn_layer_norm = nn.LayerNorm(embed_dim)
+        self.encoder_attn = MultiHeadAttention(embed_dim, num_heads, kdim=enc_dim)
+        self.encoder_attn_layer_norm = nn.LayerNorm(embed_dim)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim)
+        self.final_layer_norm = nn.LayerNorm(embed_dim)
+
+    def _sublayer(self, x, ln, fn):
+        if self.normalize_before:
+            return x + fn(ln(x))
+        return ln(x + fn(x))
+
+    def forward(self, x, enc=None, allowed_cross=None, self_valid=None,
+                enc_valid=None, self_cache: Optional[KVCache] = None,
+                cross_cache: Optional[KVCache] = None, self_causal: bool = False):
+        x = self._sublayer(x, self.self_attn_layer_norm, lambda y: self.self_attn(
+            y, None, None, self_valid, self_cache, causal=self_causal)[0])
+        if cross_cache is not None:
+            cross = lambda y: self.encoder_attn(  # noqa: E731
+                y, None, allowed_cross, enc_valid, cross_cache, cache_is_cross=True)[0]
+        else:
+            cross = lambda y: self.encoder_attn(  # noqa: E731
+                y, enc, allowed_cross, enc_valid)[0]
+        x = self._sublayer(x, self.encoder_attn_layer_norm, cross)
+        return self._sublayer(x, self.final_layer_norm, self.ffn)
+
+    def fill_cross(self, enc_new: torch.Tensor, cross_cache: KVCache) -> KVCache:
+        return self.encoder_attn.fill_cross_cache(enc_new, cross_cache)
+
+
+class TransformerDecoder(nn.Module):
+    """First-pass MT text decoder (`transformer.py:483-597`); ``enc_dim`` is the
+    speech encoder's width."""
+
+    def __init__(self, cfg: DecoderConfig, enc_dim: int):
+        super().__init__()
+        if cfg.base_layers:
+            raise NotImplementedError("BASE expert layers are not ported")
+        self.cfg = cfg
+        self.embed_tokens = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.embed_dim))
+        self.register_buffer("pos_table", _pos_table(cfg.max_target_positions,
+                                                     cfg.embed_dim), persistent=False)
+        self.embed_scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
+        for i in range(cfg.layers):
+            self.add_module(f"layers_{i}", TransformerDecoderLayer(
+                cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads,
+                cfg.normalize_before, enc_dim))
+        self.layer_norm = nn.LayerNorm(cfg.embed_dim) if cfg.normalize_before else None
+
+    def layers(self) -> List[TransformerDecoderLayer]:
+        return [getattr(self, f"layers_{i}") for i in range(self.cfg.layers)]
+
+    def embed(self, tokens, positions):
+        return self.embed_scale * self.embed_tokens[tokens] + self.pos_table[positions]
+
+    def output_layer(self, x):
+        return x @ self.embed_tokens.T
+
+    def _final(self, x):
+        return x if self.layer_norm is None else self.layer_norm(x)
+
+    def extract_features(self, prev_output_tokens, enc, enc_valid=None,
+                         allowed_cross=None):
+        """Full-prefix features [B, S, C] (`transformer.py:539-560`)."""
+        x = self.embed(prev_output_tokens, fairseq_positions(prev_output_tokens))
+        self_valid = prev_output_tokens != PAD
+        for layer in self.layers():
+            x = layer(x, enc, allowed_cross, self_valid, enc_valid, self_causal=True)
+        return self._final(x)
+
+    def step(self, tokens_new, position_offset: int, self_caches, cross_caches):
+        """Incremental decode of tokens_new [B, S_new] after ``position_offset``
+        fed tokens; caches are updated in place. Returns (logits, features)
+        (`transformer.py:568-593`)."""
+        b, s = tokens_new.shape
+        positions = PAD + 1 + position_offset + torch.arange(s, device=tokens_new.device)
+        x = self.embed(tokens_new, positions[None].expand(b, s))
+        for layer, sc, cc in zip(self.layers(), self_caches, cross_caches):
+            x = layer(x, self_cache=sc, cross_cache=cc)
+        x = self._final(x)
+        return self.output_layer(x), x
+
+    def fill_cross_caches(self, enc_new, cross_caches):
+        return [layer.fill_cross(enc_new, cc)
+                for layer, cc in zip(self.layers(), cross_caches)]
+
+
+class CTCTransformerUnitDecoder(nn.Module):
+    """NAR upsampling unit decoder (`transformer.py:613-705`): repeat each T2U
+    state ×upsample, pre-norm layers with causal self-attention (the causal
+    masked-attention kernel at T >= 256) and cross-attention over the T2U
+    states (width ``enc_dim``), project to unit-CTC logits through the
+    embedding table."""
+
+    def __init__(self, cfg: UnitDecoderConfig, enc_dim: int):
+        super().__init__()
+        if cfg.n_frames_per_step != 1:
+            raise NotImplementedError("stacked units (n_frames_per_step > 1) "
+                                      "are not ported")
+        self.cfg = cfg
+        self.embed_tokens = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.embed_dim))
+        self.register_buffer("pos_table", _pos_table(cfg.max_target_positions,
+                                                     cfg.embed_dim), persistent=False)
+        for i in range(cfg.layers):
+            self.add_module(f"layers_{i}", TransformerDecoderLayer(
+                cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads, True,
+                enc_dim))
+        self.layer_norm = nn.LayerNorm(cfg.embed_dim)
+
+    def forward(self, enc: torch.Tensor, enc_valid: Optional[torch.Tensor] = None):
+        """Serving form (``serving_positions=True``, no wait-k mask): every row
+        gets the batch-1 positional embedding pe[2] (`transformer.py:674-686`).
+        Returns (unit logits [B, T_mt*up, V], features)."""
+        up = self.cfg.ctc_upsample_rate
+        x = torch.repeat_interleave(enc, up, dim=1)
+        x = x + self.pos_table[PAD + 1]
+        self_valid = (None if enc_valid is None
+                      else torch.repeat_interleave(enc_valid, up, dim=1))
+        for i in range(self.cfg.layers):
+            x = getattr(self, f"layers_{i}")(x, enc, None, self_valid, enc_valid,
+                                             self_causal=True)
+        x = self.layer_norm(x)
+        return x @ self.embed_tokens.T, x
+
+
+class CTCHead(nn.Module):
+    """Linear CTC projection over encoder states."""
+
+    def __init__(self, embed_dim: int, vocab_size: int):
+        super().__init__()
+        self.proj = nn.Linear(embed_dim, vocab_size)
+
+    def forward(self, x):
+        return self.proj(x)

@@ -1,0 +1,130 @@
+"""Where the time of the port's serving loop goes, on one CUDA card.
+
+    python3 tools/profile_torch_serving.py [--out chiprun_out/profile_serving.txt]
+
+Builds the ``chip_smoke.py`` serving setup (``full_config``, seeded random
+weights doctored so the policy writes, full-width vocoder), runs a 3 s warm-up
+utterance, then one 10 s utterance twice:
+
+1. with the host clock around each ``push_features``, ``mt_decode`` and
+   ``emit_tail`` call of the session, each fenced by device syncs;
+2. under ``torch.profiler`` (CPU + CUDA activities): device time, the
+   ``cudaLaunchKernel`` count and the masked-attention kernel's share.
+
+Prints one JSON line per run and the card's ``nvidia-smi`` name and power
+limit; the profiler's tables go to ``--out``. fp32 throughout (TF32 off).
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+from streamspeech_tpu_torch.config import full_config  # noqa: E402
+from streamspeech_tpu_torch.kernels.attention import masked_attention  # noqa: E402
+from streamspeech_tpu_torch.models.vocoder import DEFAULT_VOCODER_CFG  # noqa: E402
+
+PARTS = ("push_features", "mt_decode", "emit_tail")
+
+
+def _timed_sessions(engine, split):
+    """Wrap the engine's ``new_session`` so every session times ``PARTS``."""
+    new_session = engine.new_session
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+            split[name + "_calls"] = split.get(name + "_calls", 0) + 1
+            return out
+        return run
+
+    def make():
+        session = new_session()
+        for name in PARTS:
+            setattr(session, name, timed(name, getattr(session, name)))
+        return session
+
+    engine.new_session = make
+    return new_session
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/profile_serving.txt")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_serving: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+
+    agent = cs._build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", args.seed)
+    rng = np.random.RandomState(args.seed)
+    cs._run_utterance(agent, cs._babble(rng, 3.0))          # warm-up
+    samples = cs._babble(rng, 10.0)
+
+    split = {}
+    new_session = _timed_sessions(agent.engine, split)
+    masked_attention.launches = 0
+    stats, *_ = cs._run_utterance(agent, samples)
+    unprofiled_wall = stats["wall_s"]
+    parts = sum(split[n] for n in PARTS)
+    print(json.dumps({"run": "split", "utterance": stats, "split_s": split,
+                      "rest_s": stats["wall_s"] - parts,
+                      "masked_attention_launches": masked_attention.launches}),
+          flush=True)
+    agent.engine.new_session = new_session
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    masked_attention.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stats, *_ = cs._run_utterance(agent, samples)
+    events = prof.key_averages()
+    # device time of the kernels alone: an op's row repeats its kernels' time
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if "causal_attention_kernel" in e.key) / 1e3
+    print(json.dumps({"run": "profiled", "utterance": stats,
+                      "device_self_ms": device_ms,
+                      "device_busy_share": device_ms / 1e3 / stats["wall_s"],
+                      "device_busy_share_of_unprofiled_wall":
+                          device_ms / 1e3 / unprofiled_wall,
+                      "cudaLaunchKernel_calls": launches,
+                      "masked_attention_device_ms": kernel_ms,
+                      "masked_attention_launches": masked_attention.launches}),
+          flush=True)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(
+        events.table(sort_by="self_device_time_total", row_limit=30,
+                     max_name_column_width=70) + "\n"
+        + events.table(sort_by="self_cpu_time_total", row_limit=20,
+                       max_name_column_width=70))
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()
