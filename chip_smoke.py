@@ -7,18 +7,38 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             refuses to run without a CUDA device of capability (9, 0).
 2. build    compiles every ``streamspeech_tpu_torch/csrc/*.cu`` with nvcc
             (one process per source, started together).
-3. kernel   the causal masked-attention kernel against its plain PyTorch
-            version at the unit decoder's serving shapes (B=1, H=8, D=64,
-            T_pad in 512/896/1664/3200); max abs error and median times.
+3. kernel   each kernel against its plain PyTorch version on the same inputs:
+            causal masked attention at the unit decoder's serving shapes
+            (B=1, H=8, D=64, T_pad 512/896/1664/3200) and the forward's
+            (T_pad 640); rel-pos attention at [1|8, 4, 256, 64] and
+            [1, 4, 512, 64]; bias attention at TQ/TK 600/24 (B=1) and
+            1200/48 (B=8), H=8, D=64; the not-blank posterior at
+            [1|8, 256, 6000]. Max abs error against its tolerance; the device
+            ms of one call (CUDA-graph replay of 20 calls, median CUDA-event
+            time) of the kernel, the plain version and (attention with a mask)
+            one ``F.scaled_dot_product_attention`` call as a yardstick; the
+            kernel's eager per-call ms (host launch cost included); and the
+            bound: max(flops / 67 TFLOP/s fp32, bytes / 3.35 TB/s), each
+            input read and each output written once.
 4. serving  the full-width StreamSpeech model (``full_config``, seeded random
             weights, doctored so the policy writes) with a full-width
             CodeHiFiGAN vocoder, through the S2ST agent over three synthetic
             speech-like utterances of 3, 6 and 10 s in 320 ms segments; the
-            kernel's launch count over this phase must be > 0.
+            masked-attention kernel's launch count over this phase must be > 0.
 5. reference ``full_config`` widths with a 2-layer encoder, run on the card
             and on the CPU over the same audio: the same MT tokens and units,
             the wav within tolerance.
-Then the ``kernels`` summary line, and last the ``ok`` line.
+6. forward  the offline (teacher-forced) forward of the same ``full_config``
+            model, batch 2 (fbank lengths 1024 and 800, MT prefix 24 with the
+            second row PAD after 18, chunk 8, CTC streaming mask, n2=1) on the
+            card and on the CPU: the same CTC streaming mask, every output
+            within tolerance, and in the card run 12 rel-pos, 2 bias, 2
+            not-blank and 2 masked-attention launches. Then ``entry()``
+            (``streamspeech_tpu_torch/entry.py``) on the card: finite unit
+            logits of the expected shape; and the card forward's median time
+            at B=1 (1024 frames, MT 24) and B=8 (MT 48).
+Then the ``kernels`` summary line, the card's name and power limit, and last
+the ``ok`` line.
 
 fp32 throughout: TF32 is switched off for matmuls and cuDNN convolutions.
 """
@@ -38,10 +58,18 @@ import torch
 import streamspeech_tpu_torch  # noqa: F401  (fails at once outside a checkout)
 
 KERNEL_ATOL = 1e-5          # fp32 kernel vs fp32 plain version: summation order only
+NOT_BLANK_ATOL = 1e-6       # the not-blank posterior, values in [0, 1]
 REFERENCE_WAV_ATOL = 1e-5   # card vs CPU run of the same model, fp32
-SERVING_SHAPES = [(512, 400), (896, 800), (1664, 1600), (3200, 3200)]  # (T_pad, T)
+FORWARD_RTOL = 1e-4         # card vs CPU forward: |err| <= 1e-4 * max(1, max |ref|)
+# (T_pad, T): the unit decoder's serving buckets, then the forward's 24 x 25
+MASKED_SHAPES = [(512, 400), (896, 800), (1664, 1600), (3200, 3200), (640, 600)]
+RELPOS_SHAPES = [(1, 256), (8, 256), (1, 512)]            # (B, T); H=4, D=64
+BIAS_SHAPES = [(1, 600, 24), (8, 1200, 48)]               # (B, TQ, TK); H=8, D=64
+NOT_BLANK_SHAPES = [(1, 256, 6000), (8, 256, 6000)]       # (B, T, V)
 UTTERANCE_SECONDS = (3.0, 6.0, 10.0)
 SEED = 0
+FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
+HBM_BYTES = 3.35e12         # H100 SXM device-memory rate, B/s
 
 
 def emit(obj):
@@ -96,6 +124,8 @@ def phase_build():
 
 
 def _time_ms(fn, reps=50, warmup=5):
+    """Median CUDA-event time of one eager call: the device's time plus any
+    host launch cost the device waits for."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,36 +141,127 @@ def _time_ms(fn, reps=50, warmup=5):
     return statistics.median(times)
 
 
+def _device_ms(fn, calls=20, reps=20):
+    """Device time of one call: ``calls`` calls captured in one CUDA graph,
+    replayed ``reps`` times; the median replay's CUDA-event time / ``calls``.
+    The replay has no host launch cost, so small kernels show their own time."""
+    fn()                                     # warm up outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _time_ms(graph.replay, reps=reps, warmup=2) / calls
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the fp32 peak and the bytes over the memory rate, and which one bounds."""
+    by_ops, by_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _check_kernel(name, fn, plain, library, args, atol, bound, **shape):
+    """Run ``fn`` and ``plain`` on the same inputs, compare, time both (and the
+    library yardstick, if any); emit and return the row."""
+    got = fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    row = {"phase": "kernel", "name": name, **shape, "max_abs_err": err,
+           "atol": atol, "ms": _device_ms(lambda: fn(*args)),
+           "plain_ms": _device_ms(lambda: plain(*args)),
+           "library_ms": None if library is None else _device_ms(lambda: library(*args)),
+           "eager_call_ms": _time_ms(lambda: fn(*args)), **bound}
+    emit(row)
+    if not err <= atol:
+        raise AssertionError(f"{name} disagrees with its plain version at {shape}: "
+                             f"{err} > {atol}")
+    return row
+
+
 def phase_kernel():
-    from streamspeech_tpu_torch.kernels.attention import (
-        masked_attention,
-        masked_attention_reference,
-    )
+    import torch.nn.functional as F
+
+    from streamspeech_tpu_torch.kernels import attention as A
+    from streamspeech_tpu_torch.kernels import policy
     from streamspeech_tpu_torch.ops.masks import NEG_INF
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
-    rows = []
-    for t_pad, t in SERVING_SHAPES:
-        q, k, v = (torch.randn(1, 8, t_pad, 64, generator=gen).to(dev)
-                   for _ in range(3))
+    rows = {"masked_attention": [], "relpos_attention": [], "bias_attention": [],
+            "not_blank_probs": []}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    for t_pad, t in MASKED_SHAPES:
+        q, k, v = (randn(1, 8, t_pad, 64) for _ in range(3))
         # the unit decoder's key bias: real rows valid, tile padding masked
         kvb = torch.where(torch.arange(t_pad) < t, 0.0, NEG_INF)
         kvb = kvb.to(torch.float32).view(1, 1, t_pad).to(dev)
-        got = masked_attention(q, k, v, kvb, 0.125)
-        want = masked_attention_reference(q, k, v, kvb, 0.125)
-        torch.cuda.synchronize()
-        err = float((got - want)[..., :t, :].abs().max())
-        ms = _time_ms(lambda: masked_attention(q, k, v, kvb, 0.125))
-        plain_ms = _time_ms(lambda: masked_attention_reference(q, k, v, kvb, 0.125))
-        row = {"phase": "kernel", "name": "masked_attention", "t_pad": t_pad,
-               "t": t, "max_abs_err": err, "atol": KERNEL_ATOL, "ms": ms,
-               "plain_ms": plain_ms}
-        emit(row)
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"masked_attention disagrees at T={t_pad}: "
-                                 f"{err} > {KERNEL_ATOL}")
-        rows.append(row)
+        i = torch.arange(t_pad, device=dev)
+        mask = (kvb[:, :, None, :]
+                + torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF).float())
+        pairs = t_pad * (t_pad + 1) / 2        # the causal half the data needs
+        bound = _bound(4 * 8 * pairs * 64, _nbytes(q, k, v, kvb, q))
+        row = _check_kernel(
+            "masked_attention", lambda *a: A.masked_attention(*a, 0.125),
+            lambda *a: A.masked_attention_reference(*a, 0.125),
+            lambda q, k, v, _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              scale=0.125),
+            (q, k, v, kvb), KERNEL_ATOL, bound, b=1, h=8, t_pad=t_pad, t=t, d=64)
+        rows["masked_attention"].append(row)
+
+    for b, t in RELPOS_SHAPES:
+        qu, qv, k, v = (randn(b, 4, t, 64) for _ in range(4))
+        p = randn(4, 2 * t - 1, 64)
+        # the encoder's bias: chunk-8 mask plus key validity (last row shorter)
+        n_valid = torch.tensor([t] * (b - 1) + [t - 56], device=dev)
+        i, j = torch.arange(t, device=dev)[:, None], torch.arange(t, device=dev)[None]
+        allowed = (j < ((i // 8 + 1) * 8).clamp(max=t))[None, None] & \
+            (torch.arange(t, device=dev) < n_valid[:, None])[:, None, None, :]
+        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        bound = _bound(6 * b * 4 * t * t * 64, _nbytes(qu, qv, k, v, p, bias, qu))
+        rows["relpos_attention"].append(_check_kernel(
+            "relpos_attention", lambda *a: A.relpos_attention(*a, 0.125),
+            lambda *a: A.relpos_attention_reference(*a, 0.125), None,
+            (qu, qv, k, v, p, bias), KERNEL_ATOL, bound, b=b, h=4, t=t, d=64))
+
+    for b, tq, tk in BIAS_SHAPES:
+        q, k, v = randn(b, 8, tq, 64), randn(b, 8, tk, 64), randn(b, 8, tk, 64)
+        # the unit decoder's wait-k cross mask (n2 = 1, upsample 25), the last
+        # row with 5 padded keys
+        iq, jk = torch.arange(tq, device=dev)[:, None], torch.arange(tk, device=dev)
+        n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
+        allowed = (jk[None] < (iq // 25 + 1).clamp(max=tk))[None] & \
+            (jk[None, None, :] < n_valid[:, None, None])
+        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        bound = _bound(4 * b * 8 * tq * tk * 64, _nbytes(q, k, v, bias, q))
+        rows["bias_attention"].append(_check_kernel(
+            "bias_attention", lambda *a: A.bias_attention(*a, 0.125),
+            lambda *a: A.bias_attention_reference(*a, 0.125),
+            lambda q, k, v, bias: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias[:, None], scale=0.125),
+            (q, k, v, bias), KERNEL_ATOL, bound, b=b, h=8, tq=tq, tk=tk, d=64))
+
+    for b, t, vocab in NOT_BLANK_SHAPES:
+        logits = randn(b, t, vocab) * 4
+        # max, exp, sum and the product with the previous row: ~4 ops a logit
+        bound = _bound(4 * b * t * vocab, b * t * vocab * 4 + b * t * 4)
+        rows["not_blank_probs"].append(_check_kernel(
+            "not_blank_probs", policy.not_blank_probs,
+            policy.not_blank_probs_reference, None, (logits,), NOT_BLANK_ATOL,
+            bound, b=b, t=t, v=vocab))
     return rows
 
 
@@ -211,14 +332,31 @@ def _run_utterance(agent, samples):
         list(agent.session.mt_tokens), list(agent.units)
 
 
+def _kernel_wrappers() -> dict:
+    from streamspeech_tpu_torch.kernels import attention, policy
+
+    return {"masked_attention": attention.masked_attention,
+            "relpos_attention": attention.relpos_attention,
+            "bias_attention": attention.bias_attention,
+            "not_blank_probs": policy.not_blank_probs}
+
+
+def _zero_counts():
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+
+
 def phase_serving():
     from streamspeech_tpu_torch.config import full_config
-    from streamspeech_tpu_torch.kernels.attention import masked_attention
     from streamspeech_tpu_torch.models.vocoder import DEFAULT_VOCODER_CFG
 
     agent = _build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", SEED)
     rng = np.random.RandomState(SEED)
-    masked_attention.launches = 0
+    _zero_counts()
     for seconds in UTTERANCE_SECONDS:
         stats, wav, _, _ = _run_utterance(agent, _babble(rng, seconds))
         stats = {"phase": "serving", "seconds_audio": seconds, **stats}
@@ -227,10 +365,10 @@ def phase_serving():
             raise AssertionError(f"{seconds} s utterance wrote no units or no wav")
         if not np.isfinite(wav).all():
             raise AssertionError(f"{seconds} s utterance wrote non-finite wav")
-    launches = masked_attention.launches
-    if launches < 1:
+    launches = _read_counts()
+    emit({"phase": "serving_total", "launches": launches})
+    if launches["masked_attention"] < 1:
         raise AssertionError("serving never launched the masked-attention kernel")
-    emit({"phase": "serving_total", "masked_attention_launches": launches})
     return launches
 
 
@@ -264,20 +402,135 @@ def phase_reference():
         raise AssertionError(f"card and CPU runs disagree: {row}")
 
 
+FORWARD_LAUNCHES = {"relpos_attention": 12, "bias_attention": 2,
+                    "not_blank_probs": 2, "masked_attention": 2}
+
+
+def _forward_inputs(batch: int, lengths, mt_len: int, pad_after=None, seed=SEED):
+    rng = np.random.RandomState(seed)
+    src = torch.from_numpy(rng.randn(batch, max(lengths), 80).astype(np.float32))
+    mt = torch.from_numpy(rng.randint(4, 6000, size=(batch, mt_len)))
+    mt[:, 0] = 2                                     # EOS-prefixed, fairseq style
+    if pad_after is not None:
+        mt[-1, pad_after:] = 1                       # PAD
+    return src, torch.tensor(lengths), mt
+
+
+def _streaming_mask(model, out, mt_len: int):
+    """The CTC streaming mask the forward built from its own aux-head logits
+    (`StreamSpeechModel.forward`, k1=0, n1=1, chunk 8)."""
+    from streamspeech_tpu_torch.models.streamspeech import ctc_not_blank_probs
+    from streamspeech_tpu_torch.ops.masks import streaming_allowed_from_ctc
+
+    return streaming_allowed_from_ctc(ctc_not_blank_probs(out["asr_logits"]),
+                                      ctc_not_blank_probs(out["st_logits"]),
+                                      mt_len, 0, 1, 1, 8)
+
+
+def phase_forward():
+    """The offline forward at ``full_config``: card vs CPU at batch 2, kernel
+    launches in one card forward, then its card time at B=1 and B=8."""
+    from streamspeech_tpu_torch.config import full_config
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+    from streamspeech_tpu_torch.weights import doctor_params, random_init_
+
+    kw = dict(chunk_size=8, conv_chunk_size=8, k1=0, n1=1, k2=0, n2=1,
+              mt_mask_mode="ctc")
+    model = doctor_params(random_init_(StreamSpeechModel(full_config()), SEED)).eval()
+    src, lens, mt = _forward_inputs(2, [1024, 800], 24, pad_after=18)
+    with torch.no_grad():
+        ref = model(src, lens, mt, **kw)
+        ref_mask = _streaming_mask(model, ref, 24)
+        model.cuda()
+        dev_args = (src.cuda(), lens.cuda(), mt.cuda())
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = model(*dev_args, **kw)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        mask = _streaming_mask(model, out, 24).cpu()
+    errs = {}
+    for key, want in ref.items():
+        got = out[key].cpu()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"forward output {key}: card {got.dtype} "
+                                 f"{tuple(got.shape)} vs CPU {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        if want.dtype == torch.float32:
+            tol = FORWARD_RTOL * max(1.0, float(want.abs().max()))
+            errs[key] = [float((got - want).abs().max()), tol]
+        else:
+            errs[key] = [int((got != want).sum()), 0]
+    row = {"phase": "forward", "batch": 2, "fbank_lengths": [1024, 800],
+           "mt_len": 24, "launches": launches, "expected_launches": FORWARD_LAUNCHES,
+           "same_allowed_cross": bool(torch.equal(mask, ref_mask)),
+           "allowed_cross_differing": int((mask != ref_mask).sum()),
+           "allowed_cross_allowed_share": float(ref_mask.float().mean()),
+           "max_abs_err_and_tol": errs,
+           "finite": all(bool(torch.isfinite(v.float()).all()) for v in out.values())}
+    emit(row)
+    bad = [k for k, (e, tol) in errs.items() if not e <= tol]
+    if bad or not row["same_allowed_cross"] or not row["finite"]:
+        raise AssertionError(f"card and CPU forwards disagree: {bad} {row}")
+    if launches != FORWARD_LAUNCHES:
+        raise AssertionError(f"forward launches {launches}, want {FORWARD_LAUNCHES}")
+
+    from streamspeech_tpu_torch.entry import entry
+
+    fn, args = entry("cuda")
+    units = fn(*args)
+    emit({"phase": "entry", "unit_logits_shape": list(units.shape),
+          "finite": bool(torch.isfinite(units).all())})
+    if tuple(units.shape) != (1, 400, 1005) or not torch.isfinite(units).all():
+        raise AssertionError(f"entry() gave {tuple(units.shape)} unit logits")
+    del fn, args, units
+
+    times = {}
+    for batch, mt_len in ((1, 24), (8, 48)):
+        # measure_forward's inputs: every fbank 1024 frames, MT tokens all 4
+        s_b = torch.randn(batch, 1024, 80, generator=torch.Generator().manual_seed(SEED))
+        args = (s_b.cuda(), torch.full((batch,), 1024, device="cuda"),
+                torch.full((batch, mt_len), 4, device="cuda"))
+        with torch.no_grad():
+            times[f"b{batch}_mt{mt_len}_ms"] = _time_ms(lambda: model(*args, **kw),
+                                                        reps=20, warmup=3)
+    emit({"phase": "forward_time", "frames": 1024, **times,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    return launches, times
+
+
 def main():
     smi = phase_env()
     phase_build()
     rows = phase_kernel()
-    launches = phase_serving()
+    serving_launches = phase_serving()
     phase_reference()
-    worst = max(rows, key=lambda r: r["t_pad"])
-    emit({"kernels": [{
-        "name": "masked_attention", "route": "cuda",
-        "source": "streamspeech_tpu_torch/csrc/masked_attention.cu",
-        "replaces": "streamspeech_tpu/ops/pallas_attention.py:425",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": worst["ms"], "plain_ms": worst["plain_ms"]}]})
+    forward_launches, _ = phase_forward()
+    sources = {
+        "masked_attention": ("pallas_attention.py:425", "masked_attention.cu",
+                             lambda r: r["t_pad"] == 3200),
+        "relpos_attention": ("pallas_attention.py:95", "relpos_attention.cu",
+                             lambda r: (r["b"], r["t"]) == (1, 256)),
+        "bias_attention": ("pallas_attention.py:625", "bias_attention.cu",
+                           lambda r: (r["b"], r["tq"]) == (1, 600)),
+        "not_blank_probs": ("pallas_policy.py:99", "not_blank.cu",
+                            lambda r: r["b"] == 1),
+    }
+    kernels = []
+    for name, (replaces, source, main_shape) in sources.items():
+        row = next(r for r in rows[name] if main_shape(r))
+        by_path = {"serving": serving_launches[name], "forward": forward_launches[name]}
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"streamspeech_tpu_torch/csrc/{source}",
+            "replaces": f"streamspeech_tpu/ops/{replaces}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "shape": {k: row[k] for k in ("b", "h", "t", "t_pad", "tq", "tk", "d", "v")
+                      if k in row},
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

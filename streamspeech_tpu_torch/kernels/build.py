@@ -9,12 +9,15 @@ time: this module imports on machines without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -86,3 +89,45 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: Tuple) -> Callable[..., int]:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, typed; it returns a
+    ``cudaError_t`` code. Pointers and the stream are ``ctypes.c_void_p``."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def on_card(x: torch.Tensor, kernel: str) -> bool:
+    """Whether a wrapper launches its kernel for ``x``: True for a CUDA tensor,
+    False for a CPU one (the wrapper computes its plain version); raises for
+    any other device."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} takes CPU or CUDA tensors, got {x.device}")
+    return x.device.type == "cuda"
+
+
+@functools.lru_cache(maxsize=None)
+def _check_capability(index: int) -> None:
+    cap = torch.cuda.get_device_capability(index)
+    if cap != (9, 0):
+        raise RuntimeError("the port's kernels are built for sm_90a (Hopper); "
+                           f"device {index} has capability {cap}")
+
+
+def launch(spec: Tuple[str, str, Tuple], device: torch.device, *args) -> None:
+    """Call the entry point ``spec = (source, symbol, argtypes)`` as
+    ``fn(*args, stream)`` on the current stream of ``device``, which must be a
+    Hopper card, building the source first if needed; raise if the launch
+    reports a CUDA error."""
+    _check_capability(device.index if device.index is not None
+                      else torch.cuda.current_device())
+    kernel = spec[0]
+    fn = bind(*spec)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

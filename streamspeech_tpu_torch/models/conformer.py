@@ -1,12 +1,13 @@
-"""Chunk Conformer speech encoder, incremental (serving) path
+"""Chunk Conformer speech encoder, offline and incremental
 (``streamspeech_tpu/models/conformer.py``; reference
 `researches/chunk_unity/models/s2t_conformer.py:37-213`).
 
 fbank [B, T, 80] → Conv1dSubsampler (2 × stride-2 chunk-causal conv + GLU) →
-×sqrt(d) → Linear → N conformer layers (FFN·½ → rel-pos MHSA over the KV cache
-with the chunk mask → conv module → FFN·½ → LN). ``encode_block`` encodes one
-new block against the caches; the chunk mask makes that exactly the offline
-encoding's rows. The offline ``__call__`` belongs to a later slice.
+×sqrt(d) → Linear → N conformer layers (FFN·½ → rel-pos MHSA with the chunk
+mask → conv module → FFN·½ → LN). ``forward`` encodes a whole utterance (the
+rel-pos kernel route at T >= 256); ``encode_block`` encodes one new block
+against the caches, and the chunk mask makes that exactly the offline
+encoding's rows. Only the ``rel_pos`` encoder is ported.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from streamspeech_tpu_torch.models.layers import (
     KVCache,
     RelPosMultiHeadAttention,
 )
+from streamspeech_tpu_torch.ops.masks import chunk_allowed, lengths_to_mask
 from streamspeech_tpu_torch.ops.pos_encoding import rel_pos_encoding
 
 
@@ -63,6 +65,19 @@ class Conv1dSubsampler(nn.Module):
     def convs(self) -> List[ChunkCausalConv]:
         return [getattr(self, f"conv_{i}") for i in range(self.n_convs)]
 
+    def forward(self, x, conv_chunk_size: Optional[int]):
+        """Offline (`conformer.py:90-95`): x [B, T, F] → [B, out_length(T), C]."""
+        for conv in self.convs():
+            x = _glu(conv(x, conv_chunk_size))
+        return x
+
+    @staticmethod
+    def out_length(in_length):
+        """((L - 1) // 2 + 1), twice (`conformer.py:123-129`)."""
+        for _ in range(2):
+            in_length = (in_length - 1) // 2 + 1
+        return in_length
+
     def step(self, x_block, ctxs, conv_chunk_size, valid_len: Optional[int] = None):
         """x_block [B, Tb, F] (Tb divisible by 4); ctxs = per-conv input tails.
         ``valid_len`` (final partial block only): real frames in the block; the
@@ -97,6 +112,16 @@ class ConformerLayer(nn.Module):
         self.ffn2 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim)
         self.final_layer_norm = nn.LayerNorm(cfg.embed_dim)
 
+    def forward(self, x, pos_emb, allowed, key_valid, conv_chunk_size):
+        """Offline layer (`conformer.py:174-189`, eval mode)."""
+        x = x + 0.5 * self.ffn1(x)
+        y, _ = self.self_attn(self.self_attn_layer_norm(x), pos_emb, allowed,
+                              key_valid=key_valid)
+        x = x + y
+        x = x + self.conv_module(x, conv_chunk_size)
+        x = x + 0.5 * self.ffn2(x)
+        return self.final_layer_norm(x)
+
     def step(self, x, pos_emb, allowed, kv: KVCache, conv_ctx, q_offset: int,
              conv_chunk_size):
         """Incremental block step (`conformer.py:191`). Returns (y, kv, conv_ctx')."""
@@ -123,6 +148,27 @@ class ChunkConformerEncoder(nn.Module):
 
     def layers(self) -> List[ConformerLayer]:
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.layers)]
+
+    def forward(self, src_tokens: torch.Tensor, src_lengths: torch.Tensor,
+                chunk_size: Optional[int] = None,
+                conv_chunk_size: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Offline encoding of whole utterances (`conformer.py:249-292`, eval
+        mode): fbank [B, T, 80], lengths [B] → (encoder_out [B, T', C],
+        out_lengths [B]). Attention sees its own and earlier chunks
+        (``chunk_size`` None or >= 999: everything) and only valid frames."""
+        x = self.subsample(src_tokens, conv_chunk_size)
+        out_lengths = Conv1dSubsampler.out_length(src_lengths)
+        t = x.shape[1]
+        pos_emb = self._rel_table(t, x.device)                      # [2t-1, C]
+        x = self.linear(x * self.embed_scale)
+        allowed = None
+        if chunk_size is not None and chunk_size < 999:
+            allowed = chunk_allowed(t, chunk_size, device=x.device)
+        key_valid = lengths_to_mask(out_lengths, t)
+        for layer in self.layers():
+            x = layer(x, pos_emb, allowed, key_valid, conv_chunk_size)
+        return x, out_lengths
 
     def init_stream_state(self, batch: int, max_frames: int,
                           device) -> EncoderStreamState:

@@ -1,5 +1,6 @@
-"""Building blocks of the serving path: attention with KV caches, FFN, chunk-causal
-convolutions (the counterparts of ``streamspeech_tpu/models/layers.py``).
+"""Building blocks of the serving path and the offline forward: attention with
+KV caches and the kernel routes, FFN, chunk-causal convolutions (the
+counterparts of ``streamspeech_tpu/models/layers.py``).
 
 Batch-first ``[B, T, C]``. Attention takes boolean ``allowed`` masks (True = may
 attend) and turns them into an additive NEG_INF bias. Module and parameter names
@@ -22,6 +23,8 @@ from streamspeech_tpu_torch.kernels import attention as attention_kernels
 from streamspeech_tpu_torch.ops.masks import NEG_INF, causal_allowed, mask_to_bias
 
 MASKED_KERNEL_MIN_T = 256  # the TPU gate's worth-it floor (`layers.py:56-72`)
+BIAS_KERNEL_MIN_S = 512    # `layers.py:75-91`
+RELPOS_KERNEL_MIN_T = 256  # `layers.py:42-53`, with T % 128 == 0
 
 
 class BatchNorm(nn.Module):
@@ -103,6 +106,18 @@ def _masked_kernel_ok(t: int, head_dim: int) -> bool:
     return t >= MASKED_KERNEL_MIN_T and head_dim % 8 == 0
 
 
+def _bias_kernel_ok(s: int, head_dim: int) -> bool:
+    """The bias-attention route's gate (`layers.py:75-91` ``_bias_pallas_ok``
+    less its backend test)."""
+    return s >= BIAS_KERNEL_MIN_S and head_dim % 8 == 0
+
+
+def _relpos_kernel_ok(t: int, head_dim: int) -> bool:
+    """The rel-pos route's gate (`layers.py:42-53` ``_pallas_ok`` less its
+    backend test)."""
+    return t >= RELPOS_KERNEL_MIN_T and t % 128 == 0 and head_dim % 8 == 0
+
+
 class MultiHeadAttention(nn.Module):
     """fairseq-style MHA, self or cross (`layers.py:192`). ``kdim`` is the width
     of the keys' source when it differs from ``embed_dim`` (the MT decoder's
@@ -128,7 +143,9 @@ class MultiHeadAttention(nn.Module):
         """Routes (`layers.py:240-287`): cached self-attention appends the new
         K/V first; cached cross-attention reads a cache filled by
         ``fill_cross_cache``; without a cache, ``causal=True`` self-attention at
-        T >= 256 goes through the causal masked-attention kernel."""
+        T >= 256 goes through the causal masked-attention kernel, and a
+        per-query mask (bias [B|1, 1, S, T]) at S >= 512 through the
+        bias-attention kernel."""
         h = self.num_heads
         dh = self.embed_dim // h
         scale = dh ** -0.5
@@ -154,7 +171,14 @@ class MultiHeadAttention(nn.Module):
             else:
                 if causal and allowed is None:
                     allowed = causal_allowed(s, device=query.device)
-                out = attend(q, k, v, mask_to_bias(allowed, key_valid), scale)
+                bias = mask_to_bias(allowed, key_valid)
+                # only a genuine per-query mask, as `layers.py:274-283`: a
+                # key-valid-only [B, 1, 1, T] bias stays on the plain path
+                if (bias is not None and bias.shape[1] == 1 and bias.shape[-2] == s
+                        and _bias_kernel_ok(s, dh)):
+                    out = self._bias_kernel(q, k, v, bias, scale)
+                else:
+                    out = attend(q, k, v, bias, scale)
         out = self.out_proj(out.reshape(b, s, self.embed_dim))
         return out, cache
 
@@ -176,6 +200,16 @@ class MultiHeadAttention(nn.Module):
         out = attention_kernels.masked_attention(q, k, v, kvb[:, None, :], scale)
         return out.transpose(1, 2)[:, :s]
 
+    @staticmethod
+    def _bias_kernel(q, k, v, bias, scale):
+        """`layers.py:325-362` ``_bias_pallas``: the bias [B|1, 1, S, T] carries
+        the whole mask; the kernel masks its own ragged edges, so nothing is
+        padded. q [B, S, H, Dh], k/v [B, T, H, Dh] → [B, S, H, Dh]."""
+        b, s, _, _ = q.shape
+        b3 = bias[:, 0].expand(b, s, k.shape[1]).contiguous()
+        q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        return attention_kernels.bias_attention(q, k, v, b3, scale).transpose(1, 2)
+
     def fill_cross_cache(self, key_value: torch.Tensor, cache: KVCache) -> KVCache:
         """Project encoder states once and append them to a cross-attention cache."""
         b, t, _ = key_value.shape
@@ -186,10 +220,11 @@ class MultiHeadAttention(nn.Module):
 
 
 class RelPosMultiHeadAttention(nn.Module):
-    """espnet RelPositionMultiHeadedAttention, cached incremental route only
-    (`layers.py:374`, :482-502). ``pos_emb`` [R, C] covers relative positions
-    (q_offset + S - 1) ... downwards; bd[i, j] is read at table row
-    rmax - (q_offset + i - j)."""
+    """espnet RelPositionMultiHeadedAttention (`layers.py:374-502`). ``pos_emb``
+    [R, C] covers relative positions (q_offset + S - 1) ... downwards; bd[i, j]
+    is read at table row rmax - (q_offset + i - j). With a cache the new K/V are
+    appended first (the serving route); without one (the offline forward,
+    R = 2T-1) the rel-pos kernel takes T >= 256, T % 128 == 0."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -204,28 +239,54 @@ class RelPosMultiHeadAttention(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dh))
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
-                allowed: Optional[torch.Tensor], cache: KVCache, q_offset: int):
+                allowed: Optional[torch.Tensor], cache: Optional[KVCache] = None,
+                q_offset: int = 0, key_valid: Optional[torch.Tensor] = None):
         h = self.num_heads
         dh = self.embed_dim // h
         scale = dh ** -0.5
         b, s, _ = x.shape
         q = self.q_proj(x).view(b, s, h, dh)
-        k, v, valid = cache.append(self.k_proj(x).view(b, s, h, dh),
-                                   self.v_proj(x).view(b, s, h, dh))
+        k_new = self.k_proj(x).view(b, s, h, dh)
+        v_new = self.v_proj(x).view(b, s, h, dh)
+        if cache is not None:
+            k, v, valid = cache.append(k_new, v_new)
+            key_valid = valid if key_valid is None else key_valid
+        else:
+            k, v = k_new, v_new
         t = k.shape[1]
         p = self.linear_pos(pos_emb).view(-1, h, dh)     # [R, H, Dh]
         r = p.shape[0]
-        rmax = q_offset + s - 1
-        ac = torch.einsum("bshd,bthd->bhst", q + self.pos_bias_u, k)
-        bd_full = torch.einsum("bshd,rhd->bhsr", q + self.pos_bias_v, p)
-        i = torch.arange(s, device=x.device)[:, None]
-        j = torch.arange(t, device=x.device)[None, :]
-        u = torch.clamp(rmax - (q_offset + i - j), 0, r - 1)
-        bd = torch.gather(bd_full, -1, u[None, None].expand(b, h, s, t))
-        scores = (ac + bd) * scale + mask_to_bias(allowed, valid)
-        probs = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhst,bthd->bshd", probs, v)
+        q_u, q_v = q + self.pos_bias_u, q + self.pos_bias_v
+        bias = mask_to_bias(allowed, key_valid)
+        if cache is None and s == t and r == 2 * t - 1 and _relpos_kernel_ok(t, dh):
+            out = self._relpos_kernel(q_u, q_v, k, v, p, bias, scale)
+        else:
+            rmax = q_offset + s - 1
+            ac = torch.einsum("bshd,bthd->bhst", q_u, k)
+            bd_full = torch.einsum("bshd,rhd->bhsr", q_v, p)
+            i = torch.arange(s, device=x.device)[:, None]
+            j = torch.arange(t, device=x.device)[None, :]
+            u = torch.clamp(rmax - (q_offset + i - j), 0, r - 1)
+            bd = torch.gather(bd_full, -1, u[None, None].expand(b, h, s, t))
+            scores = (ac + bd) * scale
+            if bias is not None:
+                scores = scores + bias
+            out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
         return self.out_proj(out.reshape(b, s, self.embed_dim)), cache
+
+    @staticmethod
+    def _relpos_kernel(q_u, q_v, k, v, p, bias, scale):
+        """`layers.py:446-480`: [B, T, H, Dh] inputs to the kernel's
+        [B, H, T, Dh]; the table [R, H, Dh] to [H, R, Dh]; the bias (chunk mask +
+        key validity, [B|1, 1, T, T] or None) broadcast to [B, 1, T, T]."""
+        b, t, _, _ = q_u.shape
+        if bias is None:
+            bias = torch.zeros((1, 1, t, t), dtype=torch.float32, device=q_u.device)
+        bias = bias.expand(b, 1, t, t).contiguous()
+        q_u, q_v, k, v = (a.transpose(1, 2).contiguous() for a in (q_u, q_v, k, v))
+        out = attention_kernels.relpos_attention(
+            q_u, q_v, k, v, p.transpose(0, 1).contiguous(), bias, scale)
+        return out.transpose(1, 2)
 
 
 class FeedForward(nn.Module):
@@ -300,7 +361,8 @@ def chunk_causal_conv1d_step(x_ctx, weight, bias, stride: int,
 
 class ChunkCausalConv(nn.Module):
     """Holds the conv parameters: weight [Cout, Cin, K], or [C, 1, K] depthwise.
-    Serving runs only the incremental ``step``."""
+    ``forward`` is the offline convolution (`layers.py:746-749`), ``step`` the
+    incremental one."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, use_bias: bool = True, depthwise: bool = False):
@@ -312,6 +374,10 @@ class ChunkCausalConv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(out_channels, cin, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
+    def forward(self, x, chunk_size: Optional[int]):
+        return chunk_causal_conv1d(x, self.weight, self.bias, self.stride, chunk_size,
+                                   self.depthwise)
+
     def step(self, x_ctx, chunk_size: Optional[int]):
         return chunk_causal_conv1d_step(x_ctx, self.weight, self.bias, self.stride,
                                         chunk_size, self.depthwise)
@@ -320,7 +386,8 @@ class ChunkCausalConv(nn.Module):
 class ConvolutionModule(nn.Module):
     """Conformer convolution module (`conformer_layer.py:23-118`): LN →
     pointwise(2C) → GLU → chunk-causal depthwise → BatchNorm (running stats)
-    → swish → pointwise(C). Serving runs only the incremental ``step``."""
+    → swish → pointwise(C). ``forward`` is the offline form
+    (`layers.py:799-803`), ``step`` the incremental one."""
 
     def __init__(self, embed_dim: int, depthwise_kernel_size: int = 31):
         super().__init__()
@@ -332,10 +399,19 @@ class ConvolutionModule(nn.Module):
         self.batch_norm = BatchNorm(c)
         self.pointwise_conv2 = nn.Linear(c, c, bias=False)
 
+    def _pre(self, x):
+        a, g = self.pointwise_conv1(self.layer_norm(x)).chunk(2, dim=-1)
+        return a * torch.sigmoid(g)
+
+    def _post(self, x):
+        return self.pointwise_conv2(F.silu(self.batch_norm(x)))
+
+    def forward(self, x, chunk_size: Optional[int]):
+        return self._post(self.depthwise_conv(self._pre(x), chunk_size))
+
     def step(self, x_new, conv_ctx, chunk_size: Optional[int]):
         """conv_ctx [B, K//2, C] holds the previous post-GLU activations.
         Returns (y, new_ctx)."""
-        a, g = self.pointwise_conv1(self.layer_norm(x_new)).chunk(2, dim=-1)
         x, new_ctx = self.depthwise_conv.step(
-            torch.cat([conv_ctx, a * torch.sigmoid(g)], dim=1), chunk_size)
-        return self.pointwise_conv2(F.silu(self.batch_norm(x))), new_ctx
+            torch.cat([conv_ctx, self._pre(x_new)], dim=1), chunk_size)
+        return self._post(x), new_ctx

@@ -1,20 +1,21 @@
-"""StreamSpeech model assembly and its streaming methods
-(``streamspeech_tpu/models/streamspeech.py:185-267``; reference
+"""StreamSpeech model assembly: the offline (teacher-forced) forward and the
+streaming methods (``streamspeech_tpu/models/streamspeech.py``; reference
 `researches/ctc_unity/models/streamspeech_model.py:57-430`).
 
 Conventions: PAD=1, EOS=2; the aux CTC heads' blank is index 0, the unit CTC
-blank the last index. The offline ``__call__`` (streaming-mask training
-forward) belongs to a later slice.
+blank the last index. The forward runs in eval mode; its training-only options
+(dropout, batch statistics) belong to the training slice.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from streamspeech_tpu_torch.config import StreamSpeechConfig
+from streamspeech_tpu_torch.kernels import policy
 from streamspeech_tpu_torch.models.conformer import (
     ChunkConformerEncoder,
     EncoderStreamState,
@@ -27,9 +28,22 @@ from streamspeech_tpu_torch.models.transformer import (
     TransformerDecoder,
     UniTransformerEncoder,
 )
-from streamspeech_tpu_torch.ops.masks import lengths_to_mask
+from streamspeech_tpu_torch.ops.masks import (
+    lengths_to_mask,
+    streaming_allowed_from_ctc,
+    waitk_allowed,
+)
 
 EOS = 2
+
+
+def ctc_not_blank_probs(logits: torch.Tensor, blank: int = 0) -> torch.Tensor:
+    """P(a new token at frame t) of one aux CTC head [B, T, V] → [B, T] float32,
+    no gradient (`streamspeech.py:41-67`). Routes on the TPU gate (t >= 64,
+    v >= 512) to the not-blank kernel, else computes the plain version."""
+    if policy.nb_kernel_ok(logits.shape[1], logits.shape[-1]):
+        return policy.not_blank_probs(logits.contiguous(), blank)
+    return policy.not_blank_probs_reference(logits.detach(), blank)
 
 
 class StreamSpeechModel(nn.Module):
@@ -49,6 +63,65 @@ class StreamSpeechModel(nn.Module):
             d.embed_dim, d.ffn_embed_dim, d.attention_heads,
             cfg.synthesizer_encoder_layers)
         self.unit_decoder = CTCTransformerUnitDecoder(cfg.unit_decoder, d.embed_dim)
+
+    def encode(self, src_tokens, src_lengths, chunk_size=None, conv_chunk_size=None,
+               deterministic: bool = True, use_running_stats: bool = True):
+        """Offline encoder (`streamspeech.py:106-109`). Returns (enc, lengths)."""
+        _eval_only(deterministic, use_running_stats)
+        return self.encoder(src_tokens, src_lengths, chunk_size, conv_chunk_size)
+
+    def forward(self, src_tokens: torch.Tensor, src_lengths: torch.Tensor,
+                prev_output_tokens_mt: torch.Tensor, chunk_size: Optional[int] = 8,
+                conv_chunk_size: Optional[int] = 8, k1: int = 0, n1: int = 1,
+                k2: int = 0, n2: Optional[int] = None, streaming: bool = True,
+                mt_mask_mode: str = "ctc", deterministic: bool = True,
+                use_running_stats: bool = True) -> Dict[str, torch.Tensor]:
+        """The teacher-forced forward (`streamspeech.py:111-178`): src_tokens
+        fbank [B, T, 80], src_lengths [B], prev_output_tokens_mt [B, S].
+        ``streaming`` restricts the MT cross-attention with the CTC-derived mask
+        (``mt_mask_mode="ctc"``, k1/n1, rounded up to ``chunk_size``) or a fixed
+        wait-k mask (``"waitk"``), and the unit decoder's with wait-k k2/n2 when
+        n2 is given. Returns the JAX forward's nine outputs."""
+        _eval_only(deterministic, use_running_stats)
+        if mt_mask_mode not in ("ctc", "waitk"):
+            raise ValueError(f"mt_mask_mode must be 'ctc' or 'waitk', got {mt_mask_mode!r}")
+        enc, enc_lengths = self.encoder(src_tokens, src_lengths, chunk_size,
+                                        conv_chunk_size)
+        t_enc = enc.shape[1]
+        s = prev_output_tokens_mt.shape[1]
+        enc_valid = lengths_to_mask(enc_lengths, t_enc)
+        asr_logits = self.source_unigram_head(enc)
+        st_logits = self.ctc_target_unigram_head(enc)
+
+        allowed_cross = None
+        if streaming and mt_mask_mode == "waitk":
+            allowed_cross = waitk_allowed(s, t_enc, k1, n1, n1, device=enc.device)
+        elif streaming:
+            asr_nb = ctc_not_blank_probs(asr_logits, blank=0)
+            st_nb = ctc_not_blank_probs(st_logits, blank=0)
+            eff_chunk = chunk_size if chunk_size is not None and chunk_size < 999 else None
+            allowed_cross = streaming_allowed_from_ctc(
+                asr_nb, st_nb, s, src_wait=k1, src_step=n1, tgt_step=n1,
+                chunk_size=eff_chunk)
+
+        mt_logits, mt_feats = self.mt_decoder(prev_output_tokens_mt, enc, enc_valid,
+                                              allowed_cross)
+        mt_valid = prev_output_tokens_mt != PAD
+        t2u = self.synthesizer_encoder(mt_feats, mt_valid)
+        unit_logits, _ = self.unit_decoder(t2u, mt_valid,
+                                           src_wait=k2 if streaming else None,
+                                           src_step=n2 if streaming else None)
+        return {
+            "unit_logits": unit_logits,          # [B, S*up, V_units]
+            "mt_logits": mt_logits,              # [B, S, V_text]
+            "mt_features": mt_feats,
+            "asr_logits": asr_logits,            # [B, T', V_src]
+            "st_logits": st_logits,              # [B, T', V_tgt_text]
+            "encoder_out": enc,
+            "encoder_lengths": enc_lengths,
+            "encoder_valid": enc_valid,
+            "mt_valid": mt_valid,
+        }
 
     def encoder_stream_init(self, batch: int, max_frames: int,
                             device) -> EncoderStreamState:
@@ -103,5 +176,12 @@ class StreamSpeechModel(nn.Module):
                                                  enc_valid)
         mt_valid = prev_output_tokens_mt != PAD
         t2u = self.synthesizer_encoder(feats, mt_valid)
-        unit_logits, _ = self.unit_decoder(t2u, mt_valid)
+        unit_logits, _ = self.unit_decoder(t2u, mt_valid, serving_positions=True)
         return torch.argmax(unit_logits, dim=-1), unit_logits
+
+
+def _eval_only(deterministic: bool, use_running_stats: bool) -> None:
+    if not deterministic or not use_running_stats:
+        raise NotImplementedError("dropout and batch statistics (deterministic=False, "
+                                  "use_running_stats=False) belong to the training "
+                                  "slice, which is not ported yet")

@@ -1,6 +1,7 @@
-"""Transformer stacks of the serving path (``streamspeech_tpu/models/transformer.py``):
-the MT decoder (incremental steps + full-prefix features), the causal T2U encoder,
-the NAR unit-CTC decoder and the CTC heads.
+"""Transformer stacks (``streamspeech_tpu/models/transformer.py``): the MT decoder
+(offline forward, incremental steps, full-prefix features), the causal T2U
+encoder, the NAR unit-CTC decoder (training and serving forms) and the CTC
+heads.
 
 References: `researches/ctc_unity/modules/transformer_decoder.py:39-419`,
 `transformer_encoder.py:15-112`, `ctc_transformer_unit_decoder.py:25-267`,
@@ -18,7 +19,7 @@ from torch import nn
 
 from streamspeech_tpu_torch.config import DecoderConfig, UnitDecoderConfig
 from streamspeech_tpu_torch.models.layers import KVCache, MultiHeadAttention
-from streamspeech_tpu_torch.ops.masks import causal_allowed
+from streamspeech_tpu_torch.ops.masks import causal_allowed, waitk_allowed
 from streamspeech_tpu_torch.ops.pos_encoding import sinusoidal_embedding
 
 PAD = 1  # fairseq padding index
@@ -158,6 +159,13 @@ class TransformerDecoder(nn.Module):
             x = layer(x, enc, allowed_cross, self_valid, enc_valid, self_causal=True)
         return self._final(x)
 
+    def forward(self, prev_output_tokens, enc, enc_valid=None, allowed_cross=None):
+        """Teacher-forced decoding (`transformer.py:562-566`) with the streaming
+        mask ``allowed_cross`` ([B|1, S, T] or None) on the cross-attention.
+        Returns (logits [B, S, V], features [B, S, C])."""
+        x = self.extract_features(prev_output_tokens, enc, enc_valid, allowed_cross)
+        return self.output_layer(x), x
+
     def step(self, tokens_new, position_offset: int, self_caches, cross_caches):
         """Incremental decode of tokens_new [B, S_new] after ``position_offset``
         fed tokens; caches are updated in place. Returns (logits, features)
@@ -175,12 +183,20 @@ class TransformerDecoder(nn.Module):
                 for layer, cc in zip(self.layers(), cross_caches)]
 
 
+def unit_decoder_positions(pos_table: torch.Tensor, batch: int, time: int
+                           ) -> torch.Tensor:
+    """The reference quirk (`transformer.py:600-610`): every step of batch row b
+    gets the constant embedding pe[PAD + 1 + b]. Returns [batch, time, C]."""
+    pe = pos_table[PAD + 1:PAD + 1 + batch]
+    return pe[:, None, :].expand(batch, time, pe.shape[-1])
+
+
 class CTCTransformerUnitDecoder(nn.Module):
     """NAR upsampling unit decoder (`transformer.py:613-705`): repeat each T2U
     state ×upsample, pre-norm layers with causal self-attention (the causal
     masked-attention kernel at T >= 256) and cross-attention over the T2U
-    states (width ``enc_dim``), project to unit-CTC logits through the
-    embedding table."""
+    states (width ``enc_dim``) under the wait-k mask (the bias-attention kernel
+    at T >= 512), project to unit-CTC logits through the embedding table."""
 
     def __init__(self, cfg: UnitDecoderConfig, enc_dim: int):
         super().__init__()
@@ -197,18 +213,30 @@ class CTCTransformerUnitDecoder(nn.Module):
                 enc_dim))
         self.layer_norm = nn.LayerNorm(cfg.embed_dim)
 
-    def forward(self, enc: torch.Tensor, enc_valid: Optional[torch.Tensor] = None):
-        """Serving form (``serving_positions=True``, no wait-k mask): every row
-        gets the batch-1 positional embedding pe[2] (`transformer.py:674-686`).
-        Returns (unit logits [B, T_mt*up, V], features)."""
+    def forward(self, enc: torch.Tensor, enc_valid: Optional[torch.Tensor] = None,
+                src_wait: Optional[int] = None, src_step: Optional[int] = None,
+                allowed_cross: Optional[torch.Tensor] = None,
+                serving_positions: bool = False):
+        """`transformer.py:662-705`. enc [B, T_mt, C] T2U states, enc_valid
+        [B, T_mt]. ``src_step`` (n2) sets the wait-k cross mask, target step
+        src_step × upsample, unless ``allowed_cross`` is given. Row b gets the
+        positional embedding pe[2 + b] (the training quirk), or pe[2] for every
+        row with ``serving_positions`` (the serving form). Returns (unit logits
+        [B, T_mt*up, V], features)."""
+        b, t_mt, _ = enc.shape
         up = self.cfg.ctc_upsample_rate
         x = torch.repeat_interleave(enc, up, dim=1)
-        x = x + self.pos_table[PAD + 1]
+        t_up = x.shape[1]
+        x = x + unit_decoder_positions(self.pos_table, 1 if serving_positions else b,
+                                       t_up)
         self_valid = (None if enc_valid is None
                       else torch.repeat_interleave(enc_valid, up, dim=1))
+        if allowed_cross is None and src_step is not None:
+            allowed_cross = waitk_allowed(t_up, t_mt, src_wait or 0, src_step,
+                                          src_step * up, device=enc.device)
         for i in range(self.cfg.layers):
-            x = getattr(self, f"layers_{i}")(x, enc, None, self_valid, enc_valid,
-                                             self_causal=True)
+            x = getattr(self, f"layers_{i}")(x, enc, allowed_cross, self_valid,
+                                             enc_valid, self_causal=True)
         x = self.layer_norm(x)
         return x @ self.embed_tokens.T, x
 

@@ -41,21 +41,24 @@ def _bucket(n: int, buckets: Tuple[int, ...]) -> int:
 
 class StreamSpeechEngine:
     """Owns the model and vocoder (eval mode, on ``device``) and the serving
-    limits shared by every session."""
+    limits shared by every session. Serves on the card unless ``device`` says
+    otherwise (``device="cpu"``); raises when asked for CUDA without a card."""
 
     def __init__(
         self,
         model: StreamSpeechModel,
         vocoder: Optional[CodeGenerator] = None,
-        device=None,
+        device="cuda",
         max_enc_frames: int = 512,
         max_mt_tokens: int = 128,
         mt_buckets: Tuple[int, ...] = (16, 32, 64, 128),
         unit_buckets: Tuple[int, ...] = (64, 128, 256, 512),
         max_dur_per_unit: int = 4,
     ):
-        self.device = (torch.device(device) if device is not None
-                       else next(model.parameters()).device)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("StreamSpeechEngine: no CUDA device is available; "
+                               "pass device='cpu' to serve on the CPU")
         self.model = model.to(self.device).eval()
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
         self.max_enc_frames = max_enc_frames
