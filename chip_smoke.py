@@ -37,8 +37,29 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             (``streamspeech_tpu_torch/entry.py``) on the card: finite unit
             logits of the expected shape; and the card forward's median time
             at B=1 (1024 frames, MT 24) and B=8 (MT 48).
-Then the ``kernels`` summary line, the card's name and power limit, and last
-the ``ok`` line.
+7. kernel   (continued) the CTC alpha and beta kernels against their plain
+            versions at the train step's unit CTC [8, 1200, S=513], its fused
+            ASR + ST pair [16, 256, 65] and at [1, 1200, 513]: alpha and the
+            NLL within 1e-5·max(1, |ref|), the occupancy gradient within 1e-6,
+            and the NLL within 1e-4·max(1, |ref|) of one ``F.ctc_loss`` call
+            on the same log-probs, the library yardstick (eager CUDA-event
+            time: forward for alpha, forward + backward minus forward for beta).
+8. train    the train step at ``full_config`` (fp32, dropout 0.1) at
+            ``measure_train_step``'s shape: B=8, 1024 fbank frames, MT 48
+            (unit T 1200), 256 target units, 32 text tokens, n2=2, chunk 8,
+            conv chunk 8, Adam with warmup 10000, lr 1e-3, clip 10; one warm-up
+            step and 5 timed steps (CUDA events, synchronized): finite loss
+            components, and per step 2 alpha, 2 beta and 2 not-blank launches
+            and none of the attention kernels (training takes their plain
+            route); median step ms, peak memory, step-1 losses, parameters.
+9. train_reference  ``full_config`` widths with a 2-layer encoder and dropout
+            0, B=2 (fbank 1024 and 800, MT 24, the second row PAD after 18):
+            one train step from the same weights and batch on the card and on
+            the CPU; loss components within 1e-4·max(1, |ref|), every
+            gradient within 1e-3·max|g_ref| + 1e-7, batch statistics within
+            1e-4·max(1, |ref|).
+Then the ``kernels`` summary line (six kernels, launches by path), the card's
+name and power limit, and last the ``ok`` line.
 
 fp32 throughout: TF32 is switched off for matmuls and cuDNN convolutions.
 """
@@ -66,6 +87,14 @@ MASKED_SHAPES = [(512, 400), (896, 800), (1664, 1600), (3200, 3200), (640, 600)]
 RELPOS_SHAPES = [(1, 256), (8, 256), (1, 512)]            # (B, T); H=4, D=64
 BIAS_SHAPES = [(1, 600, 24), (8, 1200, 48)]               # (B, TQ, TK); H=8, D=64
 NOT_BLANK_SHAPES = [(1, 256, 6000), (8, 256, 6000)]       # (B, T, V)
+# (B, T, V, N, blank): the train step's unit CTC, its fused ASR + ST pair, B=1
+CTC_SHAPES = [(8, 1200, 1005, 256, 1004), (16, 256, 6000, 32, 0),
+              (1, 1200, 1005, 256, 1004)]
+CTC_RTOL = 1e-5             # alpha and NLL: |err| <= 1e-5 * max(1, |ref|)
+CTC_GRAD_ATOL = 1e-6        # the occupancy gradient, values in [-1, 0]
+CTC_LIBRARY_RTOL = 1e-4     # our NLL vs F.ctc_loss: another recursion, fp32
+TRAIN_RTOL = 1e-4           # card vs CPU train step: loss components, batch stats
+TRAIN_GRAD_RTOL = 1e-3      # card vs CPU gradients, of max |g_ref| per tensor
 UTTERANCE_SECONDS = (3.0, 6.0, 10.0)
 SEED = 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
@@ -262,7 +291,111 @@ def phase_kernel():
             "not_blank_probs", policy.not_blank_probs,
             policy.not_blank_probs_reference, None, (logits,), NOT_BLANK_ATOL,
             bound, b=b, t=t, v=vocab))
+    rows["ctc_alpha"], rows["ctc_beta"] = [], []
+    for shape in CTC_SHAPES:
+        alpha_row, beta_row = _check_ctc(dev, gen, *shape)
+        rows["ctc_alpha"].append(alpha_row)
+        rows["ctc_beta"].append(beta_row)
     return rows
+
+
+def _scaled_err(got, want):
+    """(max |got - want| over reachable states, max |got - want| / max(1, |want|))."""
+    from streamspeech_tpu_torch.kernels.ctc import NNEG
+
+    err = (got - want).abs()
+    reachable = want > NNEG / 2
+    return (float(err[reachable].max()) if reachable.any() else 0.0,
+            float((err / want.abs().clamp(min=1.0)).max()))
+
+
+def _check_ctc(dev, gen, b, t, vocab, n, blank):
+    """B8 and B9 against their plain versions on one CTC head's DP inputs:
+    numpy-free seeded logits, labels that avoid the blank, the last row with
+    1/8 of its frames padded and 5 labels fewer. Returns the two rows."""
+    import torch.nn.functional as F
+
+    from streamspeech_tpu_torch.kernels import ctc
+
+    logits = (torch.randn(b, t, vocab, generator=gen) * 2).to(dev)
+    labels = torch.randint(4, blank if blank > 0 else vocab, (b, n), generator=gen).to(dev)
+    lengths = torch.tensor([t] * (b - 1) + [t - t // 8], device=dev)
+    lab_len = torch.tensor([n] * (b - 1) + [n - 5], device=dev)
+    parts = {k: v.contiguous() for k, v in
+             ctc.ext_and_masks(logits, lengths, labels, lab_len, blank).items()}
+    lp, init, end, skip, valid = (parts[k] for k in ("lp_ext", "initmask", "endmask",
+                                                       "skipmask", "validmask"))
+    s = lp.shape[2]
+    shape = {"b": b, "t": t, "s": s, "v": vocab, "serial_steps": t}
+
+    alpha = ctc.ctc_alpha(lp, init, skip, valid)
+    want = ctc.ctc_alpha_reference(lp, init, skip, valid)
+    nll, logz = ctc.nll_from_alpha(alpha, end)
+    want_nll, _ = ctc.nll_from_alpha(want, end)
+    zbias = torch.where(logz > ctc.NNEG / 2, -logz, torch.full_like(logz, ctc.NNEG))
+    grad = ctc.ctc_beta_grad(lp, end, skip, zbias, valid, alpha)
+    want_grad = ctc.ctc_beta_grad_reference(lp, end, skip, zbias, valid, alpha)
+    # the library yardstick on the same log-probs (the port never calls it)
+    log_probs = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+    lib_args = (labels, lengths, lab_len)
+
+    def library(x):
+        return F.ctc_loss(x, *lib_args, blank=blank, reduction="none",
+                          zero_infinity=True)
+
+    lib_nll = library(log_probs)
+    torch.cuda.synchronize()
+    alpha_abs, alpha_scaled = _scaled_err(alpha, want)
+    _, nll_scaled = _scaled_err(nll, want_nll)
+    _, lib_scaled = _scaled_err(nll, lib_nll)
+    grad_err = float((grad - want_grad).abs().max())
+
+    x_req = log_probs.detach().requires_grad_()
+
+    def library_fwd_bwd():
+        torch.autograd.grad(library(x_req).sum(), x_req)
+
+    lib_fwd_ms = _time_ms(lambda: library(log_probs), reps=10, warmup=2)
+    lib_fwd_bwd_ms = _time_ms(library_fwd_bwd, reps=10, warmup=2)
+    n_el = b * t * s
+    alpha_row = {
+        "phase": "kernel", "name": "ctc_alpha", **shape, "max_abs_err": alpha_abs,
+        "max_scaled_err": alpha_scaled, "nll_max_scaled_err": nll_scaled,
+        "library_nll_max_scaled_err": lib_scaled, "tol": f"{CTC_RTOL}*max(1,|ref|)",
+        "ms": _device_ms(lambda: ctc.ctc_alpha(lp, init, skip, valid), calls=5, reps=10),
+        "plain_ms": _device_ms(lambda: ctc.ctc_alpha_reference(lp, init, skip, valid),
+                               calls=1, reps=3),
+        "library_ms": lib_fwd_ms, "library_timing": "eager, F.ctc_loss forward",
+        "eager_call_ms": _time_ms(lambda: ctc.ctc_alpha(lp, init, skip, valid), reps=10),
+        # lse3 of three terms, the add of lp and the select: ~14 ops a state
+        **_bound(14 * n_el, _nbytes(lp, init, skip, valid, alpha))}
+    alpha_row["ms_per_serial_step"] = alpha_row["ms"] / t
+    emit(alpha_row)
+    beta_row = {
+        "phase": "kernel", "name": "ctc_beta", **shape, "max_abs_err": grad_err,
+        "atol": CTC_GRAD_ATOL,
+        "ms": _device_ms(lambda: ctc.ctc_beta_grad(lp, end, skip, zbias, valid, alpha),
+                         calls=5, reps=10),
+        "plain_ms": _device_ms(lambda: ctc.ctc_beta_grad_reference(
+            lp, end, skip, zbias, valid, alpha), calls=1, reps=3),
+        "library_ms": lib_fwd_bwd_ms - lib_fwd_ms,
+        "library_timing": "eager, F.ctc_loss forward+backward minus forward",
+        "eager_call_ms": _time_ms(lambda: ctc.ctc_beta_grad(lp, end, skip, zbias, valid,
+                                                            alpha), reps=10),
+        # lse3 (~14 ops) and the occupancy exp(min(a + b + z, 0)) (~5) a state
+        **_bound(19 * n_el, _nbytes(lp, end, skip, zbias, valid, alpha, grad))}
+    beta_row["ms_per_serial_step"] = beta_row["ms"] / t
+    emit(beta_row)
+    if not (alpha_scaled <= CTC_RTOL and nll_scaled <= CTC_RTOL):
+        raise AssertionError(f"ctc_alpha disagrees with its plain version at {shape}: "
+                             f"alpha {alpha_scaled}, nll {nll_scaled} > {CTC_RTOL}")
+    if not grad_err <= CTC_GRAD_ATOL:
+        raise AssertionError(f"ctc_beta disagrees with its plain version at {shape}: "
+                             f"{grad_err} > {CTC_GRAD_ATOL}")
+    if not lib_scaled <= CTC_LIBRARY_RTOL:
+        raise AssertionError(f"CTC NLL disagrees with F.ctc_loss at {shape}: "
+                             f"{lib_scaled} > {CTC_LIBRARY_RTOL}")
+    return alpha_row, beta_row
 
 
 def _dicts(text_vocab: int, code_size: int):
@@ -333,12 +466,14 @@ def _run_utterance(agent, samples):
 
 
 def _kernel_wrappers() -> dict:
-    from streamspeech_tpu_torch.kernels import attention, policy
+    from streamspeech_tpu_torch.kernels import attention, ctc, policy
 
     return {"masked_attention": attention.masked_attention,
             "relpos_attention": attention.relpos_attention,
             "bias_attention": attention.bias_attention,
-            "not_blank_probs": policy.not_blank_probs}
+            "not_blank_probs": policy.not_blank_probs,
+            "ctc_alpha": ctc.ctc_alpha,
+            "ctc_beta": ctc.ctc_beta_grad}
 
 
 def _zero_counts():
@@ -403,7 +538,12 @@ def phase_reference():
 
 
 FORWARD_LAUNCHES = {"relpos_attention": 12, "bias_attention": 2,
-                    "not_blank_probs": 2, "masked_attention": 2}
+                    "not_blank_probs": 2, "masked_attention": 2, "ctc_alpha": 0,
+                    "ctc_beta": 0}
+# one train step: the attention kernels are forward-only, so training takes
+# their plain route; the unit CTC and the fused aux pair each launch B8 and B9
+TRAIN_LAUNCHES = {"relpos_attention": 0, "bias_attention": 0, "not_blank_probs": 2,
+                  "masked_attention": 0, "ctc_alpha": 2, "ctc_beta": 2}
 
 
 def _forward_inputs(batch: int, lengths, mt_len: int, pad_after=None, seed=SEED):
@@ -499,6 +639,122 @@ def phase_forward():
     return launches, times
 
 
+def _train_setup(cfg, device, seed):
+    from streamspeech_tpu_torch.config import OptimizationConfig
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+    from streamspeech_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+    from streamspeech_tpu_torch.weights import random_init_
+
+    model = random_init_(StreamSpeechModel(cfg), seed).to(device)
+    # measure_train_step's optimizer (`benchmarks.py:258-259`)
+    tx = make_optimizer(OptimizationConfig(update_freq=1, warmup_updates=10000, lr=1e-3,
+                                           clip_norm=10.0))
+    step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1)
+    return model, step, TrainState.create(model, tx)
+
+
+LOSS_KEYS = ("loss", "unit_ctc_loss", "mt_loss", "mt_nll_loss", "asr_ctc_loss",
+             "st_ctc_loss")
+
+
+def phase_train():
+    """The default train step at ``full_config`` and ``measure_train_step``'s
+    shape: a warm-up step, then 5 timed steps."""
+    from streamspeech_tpu_torch.config import full_config
+    from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
+
+    cfg = full_config()
+    model, step, state = _train_setup(cfg, "cuda", SEED)
+    batch = batch_to_tensors(synthetic_batch(cfg, batch=8, frames=1024, mt_len=48,
+                                             units_len=256, text_len=32), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    step_ms, per_step, losses = [], [], []
+    for _ in range(6):
+        before = _read_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch, gen, 8, 8)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        after = _read_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append({k: float(metrics[k]) for k in LOSS_KEYS + ("grad_norm",)})
+    launches = _read_counts()
+    row = {"phase": "train", "batch": 8, "frames": 1024, "mt_len": 48, "unit_t": 1200,
+           "units_len": 256, "text_len": 32, "dropout": cfg.encoder.dropout,
+           "params": sum(p.numel() for p in model.parameters()),
+           "warmup_step_ms": step_ms[0], "step_ms": step_ms[1:],
+           "median_step_ms": statistics.median(step_ms[1:]),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "step1_losses": losses[0], "last_losses": losses[-1],
+           "launches_per_step": per_step[0], "expected_launches": TRAIN_LAUNCHES,
+           "launches": launches}
+    emit(row)
+    bad = [i for i, loss in enumerate(losses)
+           if not all(np.isfinite(v) for v in loss.values())]
+    if bad:
+        raise AssertionError(f"train steps {bad} gave non-finite losses: {losses}")
+    if any(p != TRAIN_LAUNCHES for p in per_step):
+        raise AssertionError(f"train launches per step {per_step}, want {TRAIN_LAUNCHES}")
+    return launches
+
+
+def phase_train_reference():
+    """One train step from the same weights and batch on the card and on the
+    CPU: ``full_config`` widths, a 2-layer encoder, dropout 0, B=2."""
+    from streamspeech_tpu_torch.config import full_config
+    from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
+
+    cfg = full_config()
+    cfg.encoder.layers = 2
+    cfg.encoder.dropout = cfg.mt_decoder.dropout = cfg.unit_decoder.dropout = 0.0
+    nb = synthetic_batch(cfg, batch=2, frames=1024, mt_len=24, units_len=128,
+                         text_len=16, seed=SEED + 3)
+    nb["src_lengths"] = np.array([1024, 800], np.int32)
+    nb["prev_output_tokens_mt"][1, 18:] = 1                  # PAD
+    nb["mt_targets"][1, 17:] = 1
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model, step, state = _train_setup(cfg, device, SEED + 4)
+        _zero_counts()
+        state, metrics = step(state, batch_to_tensors(nb, device), None, 8, 8)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = ({k: float(metrics[k]) for k in LOSS_KEYS + ("grad_norm",)},
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                        {n: b.cpu() for n, b in state.batch_stats.items()},
+                        _read_counts())
+    (ref_m, ref_g, ref_s, _), (m, g, st, launches) = runs["cpu"], runs["cuda"]
+    loss_err = {k: [abs(m[k] - v), TRAIN_RTOL * max(1.0, abs(v))] for k, v in ref_m.items()}
+    grad_err = {n: [float((g[n] - want).abs().max()),
+                    TRAIN_GRAD_RTOL * float(want.abs().max()) + 1e-7]
+                for n, want in ref_g.items()}
+    stat_err = {n: [float((st[n] - want).abs().max()),
+                    TRAIN_RTOL * max(1.0, float(want.abs().max()))]
+                for n, want in ref_s.items()}
+    worst = max(grad_err, key=lambda n: grad_err[n][0] / grad_err[n][1])
+    row = {"phase": "train_reference", "batch": 2, "fbank_lengths": [1024, 800],
+           "mt_len": 24, "losses_cpu": ref_m, "loss_err_and_tol": loss_err,
+           "grad_tensors": len(grad_err), "worst_grad": [worst, *grad_err[worst]],
+           "batch_stat_err_and_tol": stat_err, "launches": launches}
+    emit(row)
+    bad = [k for d in (loss_err, grad_err, stat_err) for k, (e, tol) in d.items()
+           if not e <= tol]
+    if bad:
+        raise AssertionError(f"card and CPU train steps disagree: {bad}")
+    if launches != TRAIN_LAUNCHES:
+        raise AssertionError(f"train_reference launches {launches}, want {TRAIN_LAUNCHES}")
+
+
 def main():
     smi = phase_env()
     phase_build()
@@ -506,6 +762,8 @@ def main():
     serving_launches = phase_serving()
     phase_reference()
     forward_launches, _ = phase_forward()
+    train_launches = phase_train()
+    phase_train_reference()
     sources = {
         "masked_attention": ("pallas_attention.py:425", "masked_attention.cu",
                              lambda r: r["t_pad"] == 3200),
@@ -515,19 +773,22 @@ def main():
                            lambda r: (r["b"], r["tq"]) == (1, 600)),
         "not_blank_probs": ("pallas_policy.py:99", "not_blank.cu",
                             lambda r: r["b"] == 1),
+        "ctc_alpha": ("pallas_ctc.py:108", "ctc.cu", lambda r: (r["b"], r["t"]) == (8, 1200)),
+        "ctc_beta": ("pallas_ctc.py:127", "ctc.cu", lambda r: (r["b"], r["t"]) == (8, 1200)),
     }
     kernels = []
     for name, (replaces, source, main_shape) in sources.items():
         row = next(r for r in rows[name] if main_shape(r))
-        by_path = {"serving": serving_launches[name], "forward": forward_launches[name]}
+        by_path = {"serving": serving_launches[name], "forward": forward_launches[name],
+                   "train": train_launches[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"streamspeech_tpu_torch/csrc/{source}",
             "replaces": f"streamspeech_tpu/ops/{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
-            "shape": {k: row[k] for k in ("b", "h", "t", "t_pad", "tq", "tk", "d", "v")
-                      if k in row},
+            "shape": {k: row[k] for k in ("b", "h", "t", "t_pad", "tq", "tk", "d", "v",
+                                          "s") if k in row},
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})

@@ -1,4 +1,4 @@
-"""Model-architecture dataclasses for the serving slice, without any YAML loader.
+"""Model-architecture and training dataclasses, without any YAML loader.
 
 Field for field the same as ``streamspeech_tpu/config.py`` (a test holds names
 and defaults equal); the data/multitask YAML parsers stay in the JAX package.
@@ -8,7 +8,7 @@ and defaults equal); the data/multitask YAML parsers stay in the JAX package.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -116,6 +116,45 @@ class StreamSpeechConfig:
         cfg.encoder.unidirectional = True
         cfg.unit_decoder.ctc_upsample_rate = 25
         return cfg
+
+
+@dataclass
+class OptimizationConfig:
+    """train.simul-s2st.sh: Adam(0.9,0.98) lr 1e-3 inverse_sqrt warmup 10k, clip 10."""
+
+    lr: float = 1e-3
+    adam_betas: tuple = (0.9, 0.98)
+    adam_eps: float = 1e-8
+    weight_decay: float = 0.0
+    warmup_updates: int = 10000
+    warmup_init_lr: float = 1e-7
+    lr_scheduler: str = "inverse_sqrt"
+    clip_norm: float = 10.0
+    max_update: int = 100000
+    update_freq: int = 2
+    max_tokens: int = 22000
+    label_smoothing: float = 0.1
+    dtype: str = "bfloat16"  # compute dtype for the train step; the port runs fp32
+
+
+@dataclass
+class TrainingConfig:
+    model: StreamSpeechConfig = field(default_factory=StreamSpeechConfig.simul_s2st)
+    optimization: OptimizationConfig = field(default_factory=OptimizationConfig)
+    seed: int = 1
+    save_dir: str = "checkpoints"
+    save_interval_updates: int = 1000
+    keep_last_checkpoints: int = 10
+    log_interval: int = 100
+    # streaming-mask training (train.simul-s2st.sh: --k1 0 --k2 0 --n1 1 --n2 -1)
+    k1: int = 0
+    k2: int = 0
+    n1: int = 1
+    n2: int = -1
+    multichunk: bool = True
+    # parallelism
+    mesh_shape: Dict[str, int] = field(default_factory=lambda: {"data": 1})
+    fsdp: bool = False
 
 
 def tiny_config(vocab_text: int = 32, vocab_units: int = 24,

@@ -12,6 +12,9 @@
 
 For CPU tensors each wrapper computes its ``*_reference``; for CUDA tensors it
 launches its kernel or raises. There is no fallback. Each counts its launches.
+The kernels are forward-only (their backwards, B2/B4/B6, are not ported yet):
+on either device a wrapper raises when autograd would need a gradient through
+it, instead of returning a result with no ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -72,6 +75,15 @@ def relpos_attention_reference(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Te
     return torch.einsum("bhst,bhtd->bhsd", probs, v)
 
 
+def _forward_only(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would have to differentiate through ``kernel``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} is forward-only: its backward kernel is a later slice of the "
+            "port. Call it under torch.no_grad(), or train with deterministic=False, "
+            "which takes the plain attention route")
+
+
 def _check_inputs(named, device):
     for name, x in named:
         if x.dtype != torch.float32:
@@ -107,6 +119,7 @@ def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T a multiple of 64, D a multiple of 8 up to 256; kv_bias [B, 1, T] float32 (0 valid,
     NEG_INF masked). Returns [B, H, T, D] float32. Every row must have one
     allowed key, which key 0 gives on the serving path."""
+    _forward_only("masked_attention", q, k, v, kv_bias)
     if not build.on_card(q, "masked_attention"):
         return masked_attention_reference(q, k, v, kv_bias, scale)
     _check(q, k, v, kv_bias)
@@ -137,6 +150,7 @@ def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention under an additive bias that carries the whole mask. q
     [B, H, TQ, D], k/v [B, H, TK, D], bias [B, TQ, TK], float32, any TQ and TK,
     D a multiple of 8 up to 256. Returns [B, H, TQ, D] float32."""
+    _forward_only("bias_attention", q, k, v, bias)
     if not build.on_card(q, "bias_attention"):
         return bias_attention_reference(q, k, v, bias, scale)
     _check_bias(q, k, v, bias)
@@ -174,6 +188,7 @@ def relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor,
     """Rel-pos self-attention softmax(((q_u Kᵀ) + shear(q_v Pᵀ))·scale + bias)·V.
     q_u/q_v/k/v [B, H, T, D] float32, T a multiple of 64, D a multiple of 8 up
     to 256; p [H, R >= 2T-1, D]; bias [B, 1|H, T, T]. Returns [B, H, T, D]."""
+    _forward_only("relpos_attention", q_u, q_v, k, v, p, bias)
     if not build.on_card(q_u, "relpos_attention"):
         return relpos_attention_reference(q_u, q_v, k, v, p, bias, scale)
     _check_relpos(q_u, q_v, k, v, p, bias)

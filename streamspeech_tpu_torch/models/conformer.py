@@ -5,9 +5,10 @@
 fbank [B, T, 80] → Conv1dSubsampler (2 × stride-2 chunk-causal conv + GLU) →
 ×sqrt(d) → Linear → N conformer layers (FFN·½ → rel-pos MHSA with the chunk
 mask → conv module → FFN·½ → LN). ``forward`` encodes a whole utterance (the
-rel-pos kernel route at T >= 256); ``encode_block`` encodes one new block
-against the caches, and the chunk mask makes that exactly the offline
-encoding's rows. Only the ``rel_pos`` encoder is ported.
+rel-pos kernel route at T >= 256 in eval mode; dropout and batch statistics in
+training); ``encode_block`` encodes one new block against the caches, and the
+chunk mask makes that exactly the offline encoding's rows. Only the
+``rel_pos`` encoder is ported.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from streamspeech_tpu_torch.models.layers import (
     FeedForward,
     KVCache,
     RelPosMultiHeadAttention,
+    dropout,
 )
 from streamspeech_tpu_torch.ops.masks import chunk_allowed, lengths_to_mask
 from streamspeech_tpu_torch.ops.pos_encoding import rel_pos_encoding
@@ -104,22 +106,28 @@ class ConformerLayer(nn.Module):
         if cfg.pos_enc_type != "rel_pos":
             raise NotImplementedError(f"pos_enc_type {cfg.pos_enc_type!r}: only "
                                       "'rel_pos' is ported")
-        self.ffn1 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim)
+        self.dropout = cfg.dropout
+        self.ffn1 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim, cfg.dropout)
         self.self_attn_layer_norm = nn.LayerNorm(cfg.embed_dim)
-        self.self_attn = RelPosMultiHeadAttention(cfg.embed_dim, cfg.attention_heads)
+        self.self_attn = RelPosMultiHeadAttention(cfg.embed_dim, cfg.attention_heads,
+                                                  cfg.dropout)
         self.conv_module = ConvolutionModule(cfg.embed_dim,
-                                             cfg.depthwise_conv_kernel_size)
-        self.ffn2 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim)
+                                             cfg.depthwise_conv_kernel_size, cfg.dropout)
+        self.ffn2 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim, cfg.dropout)
         self.final_layer_norm = nn.LayerNorm(cfg.embed_dim)
 
-    def forward(self, x, pos_emb, allowed, key_valid, conv_chunk_size):
-        """Offline layer (`conformer.py:174-189`, eval mode)."""
-        x = x + 0.5 * self.ffn1(x)
+    def forward(self, x, pos_emb, allowed, key_valid, conv_chunk_size,
+                deterministic: bool = True, use_running_stats: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """Offline layer (`conformer.py:174-189`)."""
+        drop = dict(deterministic=deterministic, generator=generator)
+        x = x + 0.5 * self.ffn1(x, **drop)
         y, _ = self.self_attn(self.self_attn_layer_norm(x), pos_emb, allowed,
-                              key_valid=key_valid)
-        x = x + y
-        x = x + self.conv_module(x, conv_chunk_size)
-        x = x + 0.5 * self.ffn2(x)
+                              key_valid=key_valid, **drop)
+        x = x + dropout(y, self.dropout, **drop)                  # self_attn_dropout
+        x = x + self.conv_module(x, conv_chunk_size, use_running_stats=use_running_stats,
+                                 **drop)
+        x = x + 0.5 * self.ffn2(x, **drop)
         return self.final_layer_norm(x)
 
     def step(self, x, pos_emb, allowed, kv: KVCache, conv_ctx, q_offset: int,
@@ -151,23 +159,29 @@ class ChunkConformerEncoder(nn.Module):
 
     def forward(self, src_tokens: torch.Tensor, src_lengths: torch.Tensor,
                 chunk_size: Optional[int] = None,
-                conv_chunk_size: Optional[int] = None
+                conv_chunk_size: Optional[int] = None, deterministic: bool = True,
+                use_running_stats: bool = True,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Offline encoding of whole utterances (`conformer.py:249-292`, eval
-        mode): fbank [B, T, 80], lengths [B] → (encoder_out [B, T', C],
-        out_lengths [B]). Attention sees its own and earlier chunks
-        (``chunk_size`` None or >= 999: everything) and only valid frames."""
+        """Offline encoding of whole utterances (`conformer.py:249-292`):
+        fbank [B, T, 80], lengths [B] → (encoder_out [B, T', C], out_lengths
+        [B]). Attention sees its own and earlier chunks (``chunk_size`` None or
+        >= 999: everything) and only valid frames. ``deterministic=False``
+        turns dropout on (keep masks from ``generator``);
+        ``use_running_stats=False`` takes BatchNorm's batch statistics."""
         x = self.subsample(src_tokens, conv_chunk_size)
         out_lengths = Conv1dSubsampler.out_length(src_lengths)
         t = x.shape[1]
         pos_emb = self._rel_table(t, x.device)                      # [2t-1, C]
-        x = self.linear(x * self.embed_scale)
+        x = dropout(self.linear(x * self.embed_scale), self.cfg.dropout, deterministic,
+                    generator)
         allowed = None
         if chunk_size is not None and chunk_size < 999:
             allowed = chunk_allowed(t, chunk_size, device=x.device)
         key_valid = lengths_to_mask(out_lengths, t)
         for layer in self.layers():
-            x = layer(x, pos_emb, allowed, key_valid, conv_chunk_size)
+            x = layer(x, pos_emb, allowed, key_valid, conv_chunk_size, deterministic,
+                      use_running_stats, generator)
         return x, out_lengths
 
     def init_stream_state(self, batch: int, max_frames: int,

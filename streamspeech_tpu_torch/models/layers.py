@@ -1,6 +1,6 @@
-"""Building blocks of the serving path and the offline forward: attention with
-KV caches and the kernel routes, FFN, chunk-causal convolutions (the
-counterparts of ``streamspeech_tpu/models/layers.py``).
+"""Building blocks of the serving path, the offline forward and the train step:
+attention with KV caches and the kernel routes, FFN, chunk-causal convolutions,
+dropout and BatchNorm (the counterparts of ``streamspeech_tpu/models/layers.py``).
 
 Batch-first ``[B, T, C]``. Attention takes boolean ``allowed`` masks (True = may
 attend) and turns them into an additive NEG_INF bias. Module and parameter names
@@ -9,6 +9,12 @@ mirror the flax tree so ``weights.py`` can carry JAX weights across by name.
 Unlike the JAX package, KV caches are updated in place: serving never reuses a
 cache's old state, so the port writes new keys into the preallocated buffers
 instead of copying them, and the valid length is a host integer.
+
+Training options follow flax: ``deterministic=False`` turns dropout on (its
+keep masks drawn from an explicit ``torch.Generator``, the counterpart of
+``rngs={"dropout": ...}``) and sends attention down the plain route, since the
+attention kernels have no backward yet; BatchNorm's ``use_running_stats=False``
+normalises with the batch statistics and updates the running ones.
 """
 
 from __future__ import annotations
@@ -27,21 +33,52 @@ BIAS_KERNEL_MIN_S = 512    # `layers.py:75-91`
 RELPOS_KERNEL_MIN_T = 256  # `layers.py:42-53`, with T % 128 == 0
 
 
-class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis with running statistics, the form
-    that makes chunk-by-chunk encoding exact (`conformer_layer.py:23-118`)."""
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate, drawn
+    as ``bernoulli(1 - rate)`` from ``generator`` (on x's device), and scale
+    the kept ones by 1 / (1 - rate). Identity when ``deterministic`` or rate 0."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout with deterministic=False needs a torch.Generator")
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """BatchNorm over the last axis with flax ``nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5)`` semantics (`layers.py:781`, `:793-794`). With running
+    statistics (eval) it is the form that makes chunk-by-chunk encoding exact
+    (`conformer_layer.py:23-118`). With ``use_running_stats=False`` it
+    normalises with the statistics over every leading position (padded frames
+    included), the biased variance mean(x²) - mean(x)², and updates the running
+    buffers in place to 0.9·running + 0.1·batch (the biased variance, where
+    ``F.batch_norm`` would write the unbiased one)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
-    def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    def forward(self, x, use_running_stats: bool = True):
+        if use_running_stats:
+            mean, var = self.running_mean, self.running_var
+        else:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class KVCache:
@@ -90,13 +127,17 @@ class KVCache:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           bias: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+           bias: Optional[torch.Tensor], scale: float, rate: float = 0.0,
+           deterministic: bool = True,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """q [B,S,H,D], k/v [B,T,H,D], bias broadcastable to [B,H,S,T] → [B,S,H,D]
-    (`layers.py:153` ``_attend``)."""
+    (`layers.py:153` ``_attend``), with dropout of rate ``rate`` on the
+    attention probabilities (fairseq MHA)."""
     scores = torch.einsum("bshd,bthd->bhst", q * scale, k)
     if bias is not None:
         scores = scores + bias
-    return torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
+    probs = dropout(torch.softmax(scores, dim=-1), rate, deterministic, generator)
+    return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
 def _masked_kernel_ok(t: int, head_dim: int) -> bool:
@@ -121,12 +162,13 @@ def _relpos_kernel_ok(t: int, head_dim: int) -> bool:
 class MultiHeadAttention(nn.Module):
     """fairseq-style MHA, self or cross (`layers.py:192`). ``kdim`` is the width
     of the keys' source when it differs from ``embed_dim`` (the MT decoder's
-    cross-attention reads the narrower encoder)."""
+    cross-attention reads the narrower encoder); ``dropout`` is the rate on the
+    attention probabilities."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
-                 kdim: Optional[int] = None):
+                 kdim: Optional[int] = None, dropout: float = 0.0):
         super().__init__()
-        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
         kdim = embed_dim if kdim is None else kdim
         self.q_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
         self.k_proj = nn.Linear(kdim, embed_dim, bias=bias)
@@ -139,13 +181,15 @@ class MultiHeadAttention(nn.Module):
                 key_valid: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None,
                 cache_is_cross: bool = False,
-                causal: bool = False):
+                causal: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """Routes (`layers.py:240-287`): cached self-attention appends the new
         K/V first; cached cross-attention reads a cache filled by
-        ``fill_cross_cache``; without a cache, ``causal=True`` self-attention at
-        T >= 256 goes through the causal masked-attention kernel, and a
-        per-query mask (bias [B|1, 1, S, T]) at S >= 512 through the
-        bias-attention kernel."""
+        ``fill_cross_cache``; without a cache and with ``deterministic``,
+        ``causal=True`` self-attention at T >= 256 goes through the causal
+        masked-attention kernel, and a per-query mask (bias [B|1, 1, S, T]) at
+        S >= 512 through the bias-attention kernel. ``deterministic=False``
+        takes the plain route with dropout (the kernels are forward-only)."""
         h = self.num_heads
         dh = self.embed_dim // h
         scale = dh ** -0.5
@@ -165,7 +209,7 @@ class MultiHeadAttention(nn.Module):
             t = kv_in.shape[1]
             k = self.k_proj(kv_in).view(b, t, h, dh)
             v = self.v_proj(kv_in).view(b, t, h, dh)
-            if (causal and key_value is None and allowed is None
+            if (causal and key_value is None and allowed is None and deterministic
                     and _masked_kernel_ok(t, dh)):
                 out = self._causal_kernel(q, k, v, key_valid, scale)
             else:
@@ -175,10 +219,11 @@ class MultiHeadAttention(nn.Module):
                 # only a genuine per-query mask, as `layers.py:274-283`: a
                 # key-valid-only [B, 1, 1, T] bias stays on the plain path
                 if (bias is not None and bias.shape[1] == 1 and bias.shape[-2] == s
-                        and _bias_kernel_ok(s, dh)):
+                        and deterministic and _bias_kernel_ok(s, dh)):
                     out = self._bias_kernel(q, k, v, bias, scale)
                 else:
-                    out = attend(q, k, v, bias, scale)
+                    out = attend(q, k, v, bias, scale, self.dropout, deterministic,
+                                 generator)
         out = self.out_proj(out.reshape(b, s, self.embed_dim))
         return out, cache
 
@@ -224,11 +269,13 @@ class RelPosMultiHeadAttention(nn.Module):
     [R, C] covers relative positions (q_offset + S - 1) ... downwards; bd[i, j]
     is read at table row rmax - (q_offset + i - j). With a cache the new K/V are
     appended first (the serving route); without one (the offline forward,
-    R = 2T-1) the rel-pos kernel takes T >= 256, T % 128 == 0."""
+    R = 2T-1) and with ``deterministic`` the rel-pos kernel takes T >= 256,
+    T % 128 == 0. ``dropout`` is the rate on the attention probabilities of the
+    plain route (`layers.py:499`)."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
-        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
         dh = embed_dim // num_heads
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
@@ -240,7 +287,9 @@ class RelPosMultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, pos_emb: torch.Tensor,
                 allowed: Optional[torch.Tensor], cache: Optional[KVCache] = None,
-                q_offset: int = 0, key_valid: Optional[torch.Tensor] = None):
+                q_offset: int = 0, key_valid: Optional[torch.Tensor] = None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         h = self.num_heads
         dh = self.embed_dim // h
         scale = dh ** -0.5
@@ -258,7 +307,8 @@ class RelPosMultiHeadAttention(nn.Module):
         r = p.shape[0]
         q_u, q_v = q + self.pos_bias_u, q + self.pos_bias_v
         bias = mask_to_bias(allowed, key_valid)
-        if cache is None and s == t and r == 2 * t - 1 and _relpos_kernel_ok(t, dh):
+        if (cache is None and deterministic and s == t and r == 2 * t - 1
+                and _relpos_kernel_ok(t, dh)):
             out = self._relpos_kernel(q_u, q_v, k, v, p, bias, scale)
         else:
             rmax = q_offset + s - 1
@@ -271,7 +321,9 @@ class RelPosMultiHeadAttention(nn.Module):
             scores = (ac + bd) * scale
             if bias is not None:
                 scores = scores + bias
-            out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
+            probs = dropout(torch.softmax(scores, dim=-1), self.dropout, deterministic,
+                            generator)
+            out = torch.einsum("bhst,bthd->bshd", probs, v)
         return self.out_proj(out.reshape(b, s, self.embed_dim)), cache
 
     @staticmethod
@@ -290,16 +342,21 @@ class RelPosMultiHeadAttention(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """Conformer macaron FFN: LN → W1 → swish → W2 (`conformer_layer.py:121-161`)."""
+    """Conformer macaron FFN: LN → W1 → swish → drop → W2 → drop
+    (`conformer_layer.py:121-161`, `layers.py:602-620`)."""
 
-    def __init__(self, embed_dim: int, ffn_dim: int):
+    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.layer_norm = nn.LayerNorm(embed_dim)
         self.w_1 = nn.Linear(embed_dim, ffn_dim)
         self.w_2 = nn.Linear(ffn_dim, embed_dim)
 
-    def forward(self, x):
-        return self.w_2(F.silu(self.w_1(self.layer_norm(x))))
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        x = F.silu(self.w_1(self.layer_norm(x)))
+        x = self.w_2(dropout(x, self.dropout, deterministic, generator))
+        return dropout(x, self.dropout, deterministic, generator)
 
 
 # ---------------------------------------------------------------------------
@@ -385,13 +442,16 @@ class ChunkCausalConv(nn.Module):
 
 class ConvolutionModule(nn.Module):
     """Conformer convolution module (`conformer_layer.py:23-118`): LN →
-    pointwise(2C) → GLU → chunk-causal depthwise → BatchNorm (running stats)
-    → swish → pointwise(C). ``forward`` is the offline form
-    (`layers.py:799-803`), ``step`` the incremental one."""
+    pointwise(2C) → GLU → chunk-causal depthwise → BatchNorm → swish →
+    pointwise(C) → dropout. ``forward`` is the offline form
+    (`layers.py:799-803`; batch statistics with ``use_running_stats=False``),
+    ``step`` the incremental one (running statistics, no dropout)."""
 
-    def __init__(self, embed_dim: int, depthwise_kernel_size: int = 31):
+    def __init__(self, embed_dim: int, depthwise_kernel_size: int = 31,
+                 dropout: float = 0.0):
         super().__init__()
         c = embed_dim
+        self.dropout = dropout
         self.layer_norm = nn.LayerNorm(c)
         self.pointwise_conv1 = nn.Linear(c, 2 * c, bias=False)
         self.depthwise_conv = ChunkCausalConv(c, c, depthwise_kernel_size,
@@ -403,11 +463,14 @@ class ConvolutionModule(nn.Module):
         a, g = self.pointwise_conv1(self.layer_norm(x)).chunk(2, dim=-1)
         return a * torch.sigmoid(g)
 
-    def _post(self, x):
-        return self.pointwise_conv2(F.silu(self.batch_norm(x)))
+    def _post(self, x, use_running_stats: bool = True):
+        return self.pointwise_conv2(F.silu(self.batch_norm(x, use_running_stats)))
 
-    def forward(self, x, chunk_size: Optional[int]):
-        return self._post(self.depthwise_conv(self._pre(x), chunk_size))
+    def forward(self, x, chunk_size: Optional[int], deterministic: bool = True,
+                use_running_stats: bool = True,
+                generator: Optional[torch.Generator] = None):
+        x = self._post(self.depthwise_conv(self._pre(x), chunk_size), use_running_stats)
+        return dropout(x, self.dropout, deterministic, generator)
 
     def step(self, x_new, conv_ctx, chunk_size: Optional[int]):
         """conv_ctx [B, K//2, C] holds the previous post-GLU activations.

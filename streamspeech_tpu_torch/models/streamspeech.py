@@ -3,8 +3,10 @@ streaming methods (``streamspeech_tpu/models/streamspeech.py``; reference
 `researches/ctc_unity/models/streamspeech_model.py:57-430`).
 
 Conventions: PAD=1, EOS=2; the aux CTC heads' blank is index 0, the unit CTC
-blank the last index. The forward runs in eval mode; its training-only options
-(dropout, batch statistics) belong to the training slice.
+blank the last index. The forward takes flax's training options:
+``deterministic=False`` (dropout, with an explicit ``torch.Generator``, and the
+plain attention routes) and ``use_running_stats=False`` (BatchNorm's batch
+statistics).
 """
 
 from __future__ import annotations
@@ -61,32 +63,53 @@ class StreamSpeechModel(nn.Module):
         self.mt_decoder = TransformerDecoder(d, e.embed_dim)
         self.synthesizer_encoder = UniTransformerEncoder(
             d.embed_dim, d.ffn_embed_dim, d.attention_heads,
-            cfg.synthesizer_encoder_layers)
+            cfg.synthesizer_encoder_layers, d.dropout)
         self.unit_decoder = CTCTransformerUnitDecoder(cfg.unit_decoder, d.embed_dim)
 
+    def _check_generator(self, deterministic: bool,
+                         generator: Optional[torch.Generator]) -> None:
+        if deterministic or generator is not None:
+            return
+        c = self.cfg
+        if max(c.encoder.dropout, c.mt_decoder.dropout, c.unit_decoder.dropout) > 0:
+            raise ValueError("deterministic=False with dropout > 0 needs a "
+                             "torch.Generator on the model's device (generator=...)")
+
     def encode(self, src_tokens, src_lengths, chunk_size=None, conv_chunk_size=None,
-               deterministic: bool = True, use_running_stats: bool = True):
+               deterministic: bool = True, use_running_stats: bool = True,
+               generator: Optional[torch.Generator] = None):
         """Offline encoder (`streamspeech.py:106-109`). Returns (enc, lengths)."""
-        _eval_only(deterministic, use_running_stats)
-        return self.encoder(src_tokens, src_lengths, chunk_size, conv_chunk_size)
+        self._check_generator(deterministic, generator)
+        return self.encoder(src_tokens, src_lengths, chunk_size, conv_chunk_size,
+                            deterministic, use_running_stats, generator)
 
     def forward(self, src_tokens: torch.Tensor, src_lengths: torch.Tensor,
                 prev_output_tokens_mt: torch.Tensor, chunk_size: Optional[int] = 8,
                 conv_chunk_size: Optional[int] = 8, k1: int = 0, n1: int = 1,
                 k2: int = 0, n2: Optional[int] = None, streaming: bool = True,
                 mt_mask_mode: str = "ctc", deterministic: bool = True,
-                use_running_stats: bool = True) -> Dict[str, torch.Tensor]:
+                use_running_stats: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """The teacher-forced forward (`streamspeech.py:111-178`): src_tokens
         fbank [B, T, 80], src_lengths [B], prev_output_tokens_mt [B, S].
         ``streaming`` restricts the MT cross-attention with the CTC-derived mask
         (``mt_mask_mode="ctc"``, k1/n1, rounded up to ``chunk_size``) or a fixed
         wait-k mask (``"waitk"``), and the unit decoder's with wait-k k2/n2 when
-        n2 is given. Returns the JAX forward's nine outputs."""
-        _eval_only(deterministic, use_running_stats)
+        n2 is given. Returns the JAX forward's nine outputs.
+
+        Training (`trainer.py:106-112`): ``deterministic=False`` turns dropout
+        on, its keep masks drawn from ``generator`` (required when any dropout
+        is above 0), and takes the plain attention routes;
+        ``use_running_stats=False`` normalises with batch statistics and
+        updates BatchNorm's running buffers in place. The not-blank kernel still
+        builds the CTC mask, which carries no gradient."""
         if mt_mask_mode not in ("ctc", "waitk"):
             raise ValueError(f"mt_mask_mode must be 'ctc' or 'waitk', got {mt_mask_mode!r}")
+        self._check_generator(deterministic, generator)
+        drop = dict(deterministic=deterministic, generator=generator)
         enc, enc_lengths = self.encoder(src_tokens, src_lengths, chunk_size,
-                                        conv_chunk_size)
+                                        conv_chunk_size,
+                                        use_running_stats=use_running_stats, **drop)
         t_enc = enc.shape[1]
         s = prev_output_tokens_mt.shape[1]
         enc_valid = lengths_to_mask(enc_lengths, t_enc)
@@ -105,12 +128,12 @@ class StreamSpeechModel(nn.Module):
                 chunk_size=eff_chunk)
 
         mt_logits, mt_feats = self.mt_decoder(prev_output_tokens_mt, enc, enc_valid,
-                                              allowed_cross)
+                                              allowed_cross, **drop)
         mt_valid = prev_output_tokens_mt != PAD
-        t2u = self.synthesizer_encoder(mt_feats, mt_valid)
-        unit_logits, _ = self.unit_decoder(t2u, mt_valid,
-                                           src_wait=k2 if streaming else None,
-                                           src_step=n2 if streaming else None)
+        t2u = self.synthesizer_encoder(mt_feats, mt_valid, **drop)
+        unit_logits, _ = self.unit_decoder(
+            t2u, mt_valid, src_wait=k2 if streaming else None,
+            src_step=int(n2) if streaming and n2 is not None else None, **drop)
         return {
             "unit_logits": unit_logits,          # [B, S*up, V_units]
             "mt_logits": mt_logits,              # [B, S, V_text]
@@ -179,9 +202,3 @@ class StreamSpeechModel(nn.Module):
         unit_logits, _ = self.unit_decoder(t2u, mt_valid, serving_positions=True)
         return torch.argmax(unit_logits, dim=-1), unit_logits
 
-
-def _eval_only(deterministic: bool, use_running_stats: bool) -> None:
-    if not deterministic or not use_running_stats:
-        raise NotImplementedError("dropout and batch statistics (deterministic=False, "
-                                  "use_running_stats=False) belong to the training "
-                                  "slice, which is not ported yet")

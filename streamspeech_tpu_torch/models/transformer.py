@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from streamspeech_tpu_torch.config import DecoderConfig, UnitDecoderConfig
-from streamspeech_tpu_torch.models.layers import KVCache, MultiHeadAttention
+from streamspeech_tpu_torch.models.layers import KVCache, MultiHeadAttention, dropout
 from streamspeech_tpu_torch.ops.masks import causal_allowed, waitk_allowed
 from streamspeech_tpu_torch.ops.pos_encoding import sinusoidal_embedding
 
@@ -37,63 +37,83 @@ def _pos_table(num_positions: int, dim: int) -> torch.Tensor:
 
 
 class TransformerFFN(nn.Module):
-    def __init__(self, ffn_dim: int, embed_dim: int):
+    """fc1 → relu → activation dropout → fc2 → dropout (`transformer.py:126-139`)."""
+
+    def __init__(self, ffn_dim: int, embed_dim: int, dropout: float = 0.0,
+                 activation_dropout: float = 0.0):
         super().__init__()
+        self.dropout, self.activation_dropout = dropout, activation_dropout
         self.fc1 = nn.Linear(embed_dim, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, embed_dim)
 
-    def forward(self, x):
-        return self.fc2(F.relu(self.fc1(x)))
+    def forward(self, x, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        x = dropout(F.relu(self.fc1(x)), self.activation_dropout, deterministic, generator)
+        return dropout(self.fc2(x), self.dropout, deterministic, generator)
 
 
 class TransformerEncoderLayer(nn.Module):
-    """fairseq pre-norm encoder layer."""
+    """fairseq pre-norm encoder layer (`transformer.py:142-180`): attention
+    dropout, residual dropout and the FFN's two dropouts all at ``dropout``."""
 
-    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout=dropout)
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim)
-        self.ffn = TransformerFFN(ffn_dim, embed_dim)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim, dropout, dropout)
         self.final_layer_norm = nn.LayerNorm(embed_dim)
 
-    def forward(self, x, allowed=None, key_valid=None):
-        y, _ = self.self_attn(self.self_attn_layer_norm(x), None, allowed, key_valid)
-        x = x + y
-        return x + self.ffn(self.final_layer_norm(x))
+    def forward(self, x, allowed=None, key_valid=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        drop = dict(deterministic=deterministic, generator=generator)
+        y, _ = self.self_attn(self.self_attn_layer_norm(x), None, allowed, key_valid,
+                              **drop)
+        x = x + dropout(y, self.dropout, **drop)
+        return x + self.ffn(self.final_layer_norm(x), **drop)
 
 
 class UniTransformerEncoder(nn.Module):
     """T2U synthesizer encoder over MT decoder states: pre-norm, causal
-    (`transformer_encoder.py:15-77`)."""
+    (`transformer_encoder.py:15-77`; `transformer.py:183-209`)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
-                 num_layers: int):
+                 num_layers: int, dropout: float = 0.0):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
-            self.add_module(f"layers_{i}",
-                            TransformerEncoderLayer(embed_dim, ffn_dim, num_heads))
+            self.add_module(f"layers_{i}", TransformerEncoderLayer(
+                embed_dim, ffn_dim, num_heads, dropout))
         self.layer_norm = nn.LayerNorm(embed_dim)
 
-    def forward(self, x, key_valid=None):
+    def forward(self, x, key_valid=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         allowed = causal_allowed(x.shape[1], device=x.device)
         for i in range(self.num_layers):
-            x = getattr(self, f"layers_{i}")(x, allowed, key_valid)
+            x = getattr(self, f"layers_{i}")(x, allowed, key_valid, deterministic,
+                                             generator)
         return self.layer_norm(x)
 
 
 class TransformerDecoderLayer(nn.Module):
-    """fairseq decoder layer (`transformer_layer.py`), pre- or post-norm."""
+    """fairseq decoder layer (`transformer_layer.py`; `transformer.py:265-333`),
+    pre- or post-norm. ``dropout`` follows each attention sublayer and the
+    FFN; ``attention_dropout`` is on both attentions' probabilities,
+    ``activation_dropout`` after the FFN's relu."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
-                 normalize_before: bool, enc_dim: int):
+                 normalize_before: bool, enc_dim: int, dropout: float = 0.0,
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
         super().__init__()
-        self.normalize_before = normalize_before
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads)
+        self.normalize_before, self.dropout = normalize_before, dropout
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads,
+                                            dropout=attention_dropout)
         self.self_attn_layer_norm = nn.LayerNorm(embed_dim)
-        self.encoder_attn = MultiHeadAttention(embed_dim, num_heads, kdim=enc_dim)
+        self.encoder_attn = MultiHeadAttention(embed_dim, num_heads, kdim=enc_dim,
+                                               dropout=attention_dropout)
         self.encoder_attn_layer_norm = nn.LayerNorm(embed_dim)
-        self.ffn = TransformerFFN(ffn_dim, embed_dim)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim, dropout, activation_dropout)
         self.final_layer_norm = nn.LayerNorm(embed_dim)
 
     def _sublayer(self, x, ln, fn):
@@ -103,17 +123,27 @@ class TransformerDecoderLayer(nn.Module):
 
     def forward(self, x, enc=None, allowed_cross=None, self_valid=None,
                 enc_valid=None, self_cache: Optional[KVCache] = None,
-                cross_cache: Optional[KVCache] = None, self_causal: bool = False):
-        x = self._sublayer(x, self.self_attn_layer_norm, lambda y: self.self_attn(
-            y, None, None, self_valid, self_cache, causal=self_causal)[0])
-        if cross_cache is not None:
-            cross = lambda y: self.encoder_attn(  # noqa: E731
-                y, None, allowed_cross, enc_valid, cross_cache, cache_is_cross=True)[0]
-        else:
-            cross = lambda y: self.encoder_attn(  # noqa: E731
-                y, enc, allowed_cross, enc_valid)[0]
+                cross_cache: Optional[KVCache] = None, self_causal: bool = False,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        drop = dict(deterministic=deterministic, generator=generator)
+
+        def self_attn(y):
+            y, _ = self.self_attn(y, None, None, self_valid, self_cache,
+                                  causal=self_causal, **drop)
+            return dropout(y, self.dropout, **drop)
+
+        def cross(y):
+            if cross_cache is not None:
+                y, _ = self.encoder_attn(y, None, allowed_cross, enc_valid, cross_cache,
+                                         cache_is_cross=True, **drop)
+            else:
+                y, _ = self.encoder_attn(y, enc, allowed_cross, enc_valid, **drop)
+            return dropout(y, self.dropout, **drop)
+
+        x = self._sublayer(x, self.self_attn_layer_norm, self_attn)
         x = self._sublayer(x, self.encoder_attn_layer_norm, cross)
-        return self._sublayer(x, self.final_layer_norm, self.ffn)
+        return self._sublayer(x, self.final_layer_norm, lambda y: self.ffn(y, **drop))
 
     def fill_cross(self, enc_new: torch.Tensor, cross_cache: KVCache) -> KVCache:
         return self.encoder_attn.fill_cross_cache(enc_new, cross_cache)
@@ -132,10 +162,10 @@ class TransformerDecoder(nn.Module):
         self.register_buffer("pos_table", _pos_table(cfg.max_target_positions,
                                                      cfg.embed_dim), persistent=False)
         self.embed_scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
-        for i in range(cfg.layers):
+        for i in range(cfg.layers):      # no attention or activation dropout (:498-502)
             self.add_module(f"layers_{i}", TransformerDecoderLayer(
                 cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads,
-                cfg.normalize_before, enc_dim))
+                cfg.normalize_before, enc_dim, cfg.dropout))
         self.layer_norm = nn.LayerNorm(cfg.embed_dim) if cfg.normalize_before else None
 
     def layers(self) -> List[TransformerDecoderLayer]:
@@ -151,19 +181,25 @@ class TransformerDecoder(nn.Module):
         return x if self.layer_norm is None else self.layer_norm(x)
 
     def extract_features(self, prev_output_tokens, enc, enc_valid=None,
-                         allowed_cross=None):
+                         allowed_cross=None, deterministic: bool = True,
+                         generator: Optional[torch.Generator] = None):
         """Full-prefix features [B, S, C] (`transformer.py:539-560`)."""
         x = self.embed(prev_output_tokens, fairseq_positions(prev_output_tokens))
+        x = dropout(x, self.cfg.dropout, deterministic, generator)
         self_valid = prev_output_tokens != PAD
         for layer in self.layers():
-            x = layer(x, enc, allowed_cross, self_valid, enc_valid, self_causal=True)
+            x = layer(x, enc, allowed_cross, self_valid, enc_valid, self_causal=True,
+                      deterministic=deterministic, generator=generator)
         return self._final(x)
 
-    def forward(self, prev_output_tokens, enc, enc_valid=None, allowed_cross=None):
+    def forward(self, prev_output_tokens, enc, enc_valid=None, allowed_cross=None,
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """Teacher-forced decoding (`transformer.py:562-566`) with the streaming
         mask ``allowed_cross`` ([B|1, S, T] or None) on the cross-attention.
         Returns (logits [B, S, V], features [B, S, C])."""
-        x = self.extract_features(prev_output_tokens, enc, enc_valid, allowed_cross)
+        x = self.extract_features(prev_output_tokens, enc, enc_valid, allowed_cross,
+                                  deterministic, generator)
         return self.output_layer(x), x
 
     def step(self, tokens_new, position_offset: int, self_caches, cross_caches):
@@ -207,16 +243,17 @@ class CTCTransformerUnitDecoder(nn.Module):
         self.embed_tokens = nn.Parameter(torch.zeros(cfg.vocab_size, cfg.embed_dim))
         self.register_buffer("pos_table", _pos_table(cfg.max_target_positions,
                                                      cfg.embed_dim), persistent=False)
-        for i in range(cfg.layers):
+        for i in range(cfg.layers):      # every dropout at cfg.dropout (:636-641)
             self.add_module(f"layers_{i}", TransformerDecoderLayer(
                 cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads, True,
-                enc_dim))
+                enc_dim, cfg.dropout, cfg.dropout, cfg.dropout))
         self.layer_norm = nn.LayerNorm(cfg.embed_dim)
 
     def forward(self, enc: torch.Tensor, enc_valid: Optional[torch.Tensor] = None,
                 src_wait: Optional[int] = None, src_step: Optional[int] = None,
                 allowed_cross: Optional[torch.Tensor] = None,
-                serving_positions: bool = False):
+                serving_positions: bool = False, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """`transformer.py:662-705`. enc [B, T_mt, C] T2U states, enc_valid
         [B, T_mt]. ``src_step`` (n2) sets the wait-k cross mask, target step
         src_step × upsample, unless ``allowed_cross`` is given. Row b gets the
@@ -229,6 +266,7 @@ class CTCTransformerUnitDecoder(nn.Module):
         t_up = x.shape[1]
         x = x + unit_decoder_positions(self.pos_table, 1 if serving_positions else b,
                                        t_up)
+        x = dropout(x, self.cfg.dropout, deterministic, generator)
         self_valid = (None if enc_valid is None
                       else torch.repeat_interleave(enc_valid, up, dim=1))
         if allowed_cross is None and src_step is not None:
@@ -236,7 +274,9 @@ class CTCTransformerUnitDecoder(nn.Module):
                                           src_step * up, device=enc.device)
         for i in range(self.cfg.layers):
             x = getattr(self, f"layers_{i}")(x, enc, allowed_cross, self_valid,
-                                             enc_valid, self_causal=True)
+                                             enc_valid, self_causal=True,
+                                             deterministic=deterministic,
+                                             generator=generator)
         x = self.layer_norm(x)
         return x @ self.embed_tokens.T, x
 

@@ -148,13 +148,17 @@ def test_ctc_streaming_mask_matches_jax(models):
 
 
 def test_training_options_raise(models):
+    """Dropout in training mode needs an explicit generator (the counterpart
+    of flax's dropout rng), checked before anything runs; the mask mode is
+    checked too."""
     _, _, pmodel = models
     src, lens, mt = (_t(a).long() if a.dtype != np.float32 else _t(a)
                      for a in _inputs())
-    for kw in (dict(deterministic=False), dict(use_running_stats=False)):
-        with pytest.raises(NotImplementedError, match="training slice"):
+    for kw in (dict(deterministic=False), dict(deterministic=False,
+                                               use_running_stats=False)):
+        with pytest.raises(ValueError, match="torch.Generator"):
             pmodel(src, lens, mt, **kw)
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(ValueError, match="torch.Generator"):
             pmodel.encode(src, lens, 8, 8, **kw)
     with pytest.raises(ValueError):
         pmodel(src, lens, mt, mt_mask_mode="fixed")

@@ -1,4 +1,4 @@
-"""The port stands alone: it never imports jax, flax or the JAX package, and its
+"""The port stands alone: it never imports jax, flax, optax or the JAX package, and its
 yaml-free configs keep the JAX package's fields and defaults.
 
 ``chip_smoke.py`` drives the port on a machine that has neither jax nor the
@@ -57,16 +57,50 @@ sys.exit(1 if bad else 0)
 """
 
 
-def test_port_runs_without_jax_or_the_jax_package():
+_TRAIN_STEP = r"""
+import sys
+import torch
+from streamspeech_tpu_torch.config import OptimizationConfig, tiny_config
+from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
+from streamspeech_tpu_torch.train.trainer import (TrainState, make_optimizer,
+                                                  make_train_step)
+from streamspeech_tpu_torch.weights import random_init_
+
+cfg = tiny_config()
+model = random_init_(StreamSpeechModel(cfg), 0)
+tx = make_optimizer(OptimizationConfig(update_freq=1, warmup_updates=10))
+step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1,
+                       specaugment_cfg={}, rdrop_alpha=0.5)
+state, metrics = step(TrainState.create(model, tx), batch_to_tensors(synthetic_batch(cfg)),
+                      torch.Generator().manual_seed(0), 4, 8)
+assert torch.isfinite(metrics["loss_mean"]) and state.step == 1
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "streamspeech_tpu"))
+print("FOREIGN", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _run_alone(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", _SESSION_STEP], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "FOREIGN []" in proc.stdout
 
 
+def test_port_runs_without_jax_or_the_jax_package():
+    _run_alone(_SESSION_STEP)
+
+
+def test_port_trains_without_jax_or_the_jax_package():
+    """A train step with SpecAugment and R-Drop imports nothing of JAX."""
+    _run_alone(_TRAIN_STEP)
+
+
 def test_port_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|streamspeech_tpu)\b",
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|streamspeech_tpu)\b",
                          re.M)
     files = sorted((REPO / "streamspeech_tpu_torch").rglob("*.py")) + \
         [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("profile_torch_*.py"))
@@ -76,7 +110,8 @@ def test_port_sources_import_no_jax():
 
 @pytest.mark.parametrize("name", ["EncoderConfig", "DecoderConfig",
                                   "UnitDecoderConfig", "MultitaskTaskConfig",
-                                  "StreamSpeechConfig"])
+                                  "StreamSpeechConfig", "OptimizationConfig",
+                                  "TrainingConfig"])
 def test_config_fields_and_defaults_match(name):
     port_cls, jax_cls = getattr(port_config, name), getattr(jax_config, name)
     port_fields = [(f.name, f.type) for f in dataclasses.fields(port_cls)]

@@ -71,16 +71,18 @@ def test_cuda_kernel_other_head_dims(hopper, d):
 
 @pytest.mark.gpu
 def test_causal_route_launches_the_kernel_at_an_odd_head_dim(hopper):
-    """T=300 and head dim 24 pass the TPU gate, so the card runs the kernel."""
+    """T=300 and head dim 24 pass the TPU gate, so the card runs the kernel
+    (forward-only: under ``no_grad``, as the serving path and the forward run)."""
     from streamspeech_tpu_torch.models.layers import MultiHeadAttention
 
     torch.manual_seed(0)
     mha = MultiHeadAttention(48, 2).to(hopper)
     x = torch.randn(1, 300, 48, device=hopper)
     before = attention.masked_attention.launches
-    got, _ = mha(x, causal=True)
-    assert attention.masked_attention.launches == before + 1
-    want, _ = mha.cpu()(x.cpu(), causal=True)
+    with torch.no_grad():
+        got, _ = mha(x, causal=True)
+        assert attention.masked_attention.launches == before + 1
+        want, _ = mha.cpu()(x.cpu(), causal=True)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
 
@@ -214,3 +216,100 @@ def test_offline_forward_on_the_card_matches_the_cpu(hopper):
     assert [a - c for a, c in zip(after, counts)] == [2, 1, 1, 2]
     for key, ref in want.items():
         torch.testing.assert_close(got[key].cpu(), ref, atol=1e-4, rtol=0, msg=key)
+
+
+def _ctc_parts(b, t, v, n, seed, device, n_valid=None, label_lengths=None, blank=0):
+    """The DP inputs of one CTC head (``kernels.ctc.ext_and_masks``) from
+    numpy-seeded logits and labels."""
+    from streamspeech_tpu_torch.kernels import ctc
+
+    rng = np.random.RandomState(seed)
+    logits = torch.from_numpy(rng.randn(b, t, v).astype(np.float32) * 2).to(device)
+    labels = torch.from_numpy(rng.randint(1, v, size=(b, n))).to(device)
+    lengths = torch.tensor(n_valid if n_valid is not None else [t] * b, device=device)
+    lab_len = torch.tensor(label_lengths if label_lengths is not None else [n] * b,
+                           device=device)
+    return ctc.ext_and_masks(logits, lengths, labels, lab_len, blank)
+
+
+def _within(got, want, rel):
+    """|got - want| <= rel * max(1, |want|), elementwise."""
+    err = (got - want).abs()
+    return bool((err <= rel * want.abs().clamp(min=1.0)).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,v,n,n_valid,label_lengths", [
+    (8, 1200, 1005, 256, None, None),              # the train step's unit CTC
+    (16, 256, 6000, 32, None, None),               # the fused ASR + ST pair
+    (1, 1200, 1005, 256, None, None),
+    (2, 300, 900, 800, [300, 290], [800, 700]),    # S = 1601 > 1024
+    (3, 37, 40, 5, [37, 20, 1], [5, 0, 2]),        # odd T, padded frames, empty labels
+    (1, 3, 8, 4, [3], [4]),                        # more labels than frames
+])
+def test_ctc_kernels_match_plain_versions(hopper, b, t, v, n, n_valid, label_lengths):
+    from streamspeech_tpu_torch.kernels import ctc
+
+    parts = _ctc_parts(b, t, v, n, seed=t + n, device=hopper, n_valid=n_valid,
+                       label_lengths=label_lengths)
+    lp, init, end, skip, valid = (parts[k].contiguous() for k in (
+        "lp_ext", "initmask", "endmask", "skipmask", "validmask"))
+    before = (ctc.ctc_alpha.launches, ctc.ctc_beta_grad.launches)
+    alpha = ctc.ctc_alpha(lp, init, skip, valid)
+    want_alpha = ctc.ctc_alpha_reference(lp, init, skip, valid)
+    ok, err = _within(alpha, want_alpha, 1e-5)
+    assert ok, f"alpha differs by {err}"
+    nll, logz = ctc.nll_from_alpha(alpha, end)
+    want_nll, _ = ctc.nll_from_alpha(want_alpha, end)
+    ok, err = _within(nll, want_nll, 1e-5)
+    assert ok, f"nll differs by {err}"
+    zbias = torch.where(logz > ctc.NNEG / 2, -logz, torch.full_like(logz, ctc.NNEG))
+    grad = ctc.ctc_beta_grad(lp, end, skip, zbias, valid, alpha)
+    torch.cuda.synchronize()
+    assert (ctc.ctc_alpha.launches, ctc.ctc_beta_grad.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_grad = ctc.ctc_beta_grad_reference(lp, end, skip, zbias, valid, want_alpha)
+    torch.testing.assert_close(grad, want_grad, atol=1e-6, rtol=0)
+    if t < n:                                          # impossible: grad exactly 0
+        assert float(nll.min()) > 1e29 and not grad.any()
+
+
+@pytest.mark.gpu
+def test_ctc_autograd_function_matches_the_plain_path(hopper):
+    """d loss / d logits through CTCNll (alpha and beta kernels) against
+    autograd through the scan form, both on the card."""
+    from streamspeech_tpu_torch.kernels import ctc
+    from streamspeech_tpu_torch.ops.ctc import ctc_neg_log_likelihood
+
+    rng = np.random.RandomState(5)
+    logits = torch.from_numpy(rng.randn(4, 60, 30).astype(np.float32)).to(hopper)
+    labels = torch.from_numpy(rng.randint(1, 30, size=(4, 12))).to(hopper)
+    lengths = torch.tensor([60, 51, 40, 3], device=hopper)
+    lab_len = torch.tensor([12, 7, 0, 12], device=hopper)
+    grads, values = [], []
+    for fn in (ctc.ctc_neg_log_likelihood_kernel, ctc_neg_log_likelihood):
+        x = logits.clone().requires_grad_()
+        nll = fn(x, lengths, labels, lab_len, 0)
+        keep = torch.isfinite(nll) & (nll < 1e29)
+        torch.where(keep, nll, torch.zeros_like(nll)).sum().backward()
+        grads.append(x.grad)
+        values.append(torch.where(keep, nll, torch.zeros_like(nll)))
+    torch.testing.assert_close(values[0], values[1], rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(grads[0], grads[1], rtol=2e-4, atol=2e-5)
+    assert not grads[0][3].any()                       # 12 labels in 3 frames
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_under_autograd(hopper):
+    q = torch.zeros(1, 2, 256, 64, device=hopper, requires_grad=True)
+    kvb = torch.zeros(1, 1, 256, device=hopper)
+    with pytest.raises(RuntimeError, match="masked_attention is forward-only"):
+        attention.masked_attention(q, q, q, kvb, 0.125)
+    with pytest.raises(RuntimeError, match="bias_attention is forward-only"):
+        attention.bias_attention(q, q, q, torch.zeros(1, 256, 256, device=hopper), 0.125)
+    p = torch.zeros(2, 511, 64, device=hopper)
+    with pytest.raises(RuntimeError, match="relpos_attention is forward-only"):
+        attention.relpos_attention(q, q, q, q, p, kvb[:, :, None].expand(1, 1, 256, 256)
+                                   .contiguous(), 0.125)
+    with torch.no_grad():
+        attention.masked_attention(q, q, q, kvb, 0.125)
