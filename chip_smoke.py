@@ -58,7 +58,33 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             the CPU; loss components within 1e-4·max(1, |ref|), every
             gradient within 1e-3·max|g_ref| + 1e-7, batch statistics within
             1e-4·max(1, |ref|).
-Then the ``kernels`` summary line (six kernels, launches by path), the card's
+10. kernel  (continued) the training forms of the three attention kernels at
+            the kernel train route's shapes: rel-pos [8, 4, 256, 64], causal
+            [8, 8, 1280, 64] (1200 valid), bias [8, 8, 1200 x 48, 64], and one
+            ragged shape each, at dropout 0 and 0.1: the mask the kernels draw
+            equals ``dropout_keep_reference`` exactly and keeps 1 - rate of the
+            elements (3 sigma); the forward with dropout and the backward
+            (dq, dK, dV; rel-pos dq_u, dq_v, dP) within 1e-4·max|ref| of the
+            plain forward and the plain backward under the same mask; two
+            backward calls with one seed equal bit for bit; device ms of the
+            forward, the backward, the plain backward, autograd through the
+            plain forward, and (causal, bias)
+            ``F.scaled_dot_product_attention`` under the same float mask with
+            the same ``dropout_p``: forward, and forward + backward minus forward.
+11. train_kernels  phase 8's model, batch and optimizer with
+            ``make_train_step(..., kernel_attention=True)``: per step 12/2/2
+            rel-pos/causal/bias forward launches and as many backward calls,
+            32 of them drawing the mask (``mask_draws``), 2 not-blank, 2 alpha,
+            2 beta; the same row as phase 8, so the two routes read side by side.
+12. train_kernels_reference  phase 9's setup with the kernel route on, card
+            against CPU (the plain versions), at dropout 0 and at attention
+            dropout 0.1. The CUDA and the CPU ``torch.Generator`` hand out
+            different numbers, so the per-call seeds are passed explicitly
+            (call n gets seed 1000 + n on both devices); tolerances as phase 9,
+            but the two tensors of ``TRAIN_KERNEL_GRAD_LOOSE`` within
+            5e-3·max|g_ref| and the gradients' norm within 1e-3 of itself.
+Then the ``kernels`` summary line (ten kernels, launches by path; the mask's
+own kernel runs on no path, so its entry carries the draws by path), the card's
 name and power limit, and last the ``ok`` line.
 
 fp32 throughout: TF32 is switched off for matmuls and cuDNN convolutions.
@@ -95,6 +121,26 @@ CTC_GRAD_ATOL = 1e-6        # the occupancy gradient, values in [-1, 0]
 CTC_LIBRARY_RTOL = 1e-4     # our NLL vs F.ctc_loss: another recursion, fp32
 TRAIN_RTOL = 1e-4           # card vs CPU train step: loss components, batch stats
 TRAIN_GRAD_RTOL = 1e-3      # card vs CPU gradients, of max |g_ref| per tensor
+# the attention kernels' training forms vs their plain versions under the same
+# mask: |err| <= 1e-4 * max |ref| per tensor (fp32 both sides, another summation
+# order; a mask that differed in one element would show as an error of order 1)
+ATTN_TRAIN_RTOL = 1e-4
+# card vs CPU on the kernel route: TRAIN_GRAD_RTOL for every gradient but these
+# two of 274. At dropout 0 one ReLU unit of this FFN (row 113) has a
+# preactivation within rounding of 0 at one position. The causal forward
+# kernel's output is 1e-6 off the plain version's, as any two fp32 forwards
+# are, and lands that unit on the other side than the CPU's step: its row of
+# fc1.weight and its element of fc1.bias move by 2.1e-3 and 1.6e-3 of
+# max |g_ref|, every other row by under 5e-4 (tools/check_torch_train_precision.py,
+# where a float64 causal forward moves the same rows against either device).
+# A ReLU network's gradient is not continuous there, whatever the rounding.
+TRAIN_KERNEL_GRAD_LOOSE = {"unit_decoder.layers_0.ffn.fc1.weight": 5e-3,
+                           "unit_decoder.layers_0.ffn.fc1.bias": 5e-3}
+ATTN_DROPOUT = 0.1
+# (B, T_pad, valid): the unit decoder's train shape (1200 padded to the 128 tile), ragged
+MASKED_TRAIN_SHAPES = [(8, 1280, 1200), (2, 384, 300)]
+RELPOS_TRAIN_SHAPES = [(8, 256, 256), (2, 384, 300)]      # (B, T, valid keys of the last row)
+BIAS_TRAIN_SHAPES = [(8, 1200, 48), (2, 650, 30)]         # (B, TQ, TK)
 UTTERANCE_SECONDS = (3.0, 6.0, 10.0)
 SEED = 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
@@ -127,14 +173,15 @@ def phase_env():
 
 def _ptxas_summary(log: str) -> dict:
     """``-Xptxas -v`` output → {entry: [registers, spill store bytes]}; a
-    template instance ``...ILi64E...`` is keyed by its argument, ``<64>``."""
+    template instance ``...9dq_kernelILi64E...`` is keyed by its kernel and
+    head dim, ``dq_kernel<64>``."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            arg = re.search(r"ILi(\d+)E", m.group(1))
-            entry = f"<{arg.group(1)}>" if arg else m.group(1)
-            out[entry] = [None, 0]
+            arg = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", m.group(1))
+            entry = f"{arg.group(1)}<{arg.group(2)}>" if arg else m.group(1)
+            out[entry] = out.get(entry, [None, 0])
         elif entry and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[entry][1] = int(m.group(1))
         elif entry and (m := re.search(r"Used (\d+) registers", line)):
@@ -398,6 +445,209 @@ def _check_ctc(dev, gen, b, t, vocab, n, blank):
     return alpha_row, beta_row
 
 
+def _fwd_bwd_ms(fn, xs, g, calls=3, reps=5):
+    """Device ms of ``fn(*xs)`` and its backward for d loss / d out = g."""
+    def run():
+        leaves = [x.detach().requires_grad_() for x in xs]
+        torch.autograd.grad(fn(*leaves), leaves, g)
+    return _device_ms(run, calls=calls, reps=reps)
+
+
+def _rel_err(got, want):
+    """(max |got - want|, the same over max |want|)."""
+    err = float((got - want).abs().max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def _check_train_kernel(family, A, diff, const, g, scale, keep_shape, library_mask,
+                        fwd_bound, bwd_bound, timed, **shape):
+    """One attention family at one shape, at dropout 0 and ATTN_DROPOUT: mask,
+    forward with dropout and backward against the plain versions; timed on the
+    main shape. Returns (forward rows, backward rows, mask rows)."""
+    import torch.nn.functional as F
+
+    fwd = getattr(A, f"{family}_attention_forward")
+    bwd = getattr(A, f"{family}_attention_backward")
+    ref = getattr(A, f"{family}_attention_reference")
+    ref_bwd = getattr(A, f"{family}_attention_backward_reference")
+    public = getattr(A, f"{family}_attention")
+    names = ["dq_u", "dq_v", "dk", "dv", "dp"] if family == "relpos" else ["dq", "dk", "dv"]
+    seed = torch.tensor([SEED + 20 + keep_shape[2]], dtype=torch.int64, device=g.device)
+    fwd_rows, bwd_rows, mask_rows = [], [], []
+    for rate in (0.0, ATTN_DROPOUT):
+        keep, sd = None, None
+        if rate > 0:
+            sd = seed
+            keep = A.dropout_keep_reference(sd, *keep_shape, rate)
+            drawn = A.dropout_keep(sd, *keep_shape, rate)
+            share, n = float(keep.float().mean()), keep.numel()
+            differing = int((drawn != keep).sum())
+            mask_row = {"phase": "kernel", "name": "dropout_keep", "for": family, **shape,
+                        "rate": rate, "elements": n, "differing": differing,
+                        "max_abs_err": float(differing), "keep_share": share,
+                        "three_sigma": 3 * (rate * (1 - rate) / n) ** 0.5}
+            del drawn
+            emit(mask_row)
+            mask_rows.append(mask_row)
+            if mask_row["differing"] != 0 or \
+                    abs(share - (1 - rate)) > mask_row["three_sigma"]:
+                raise AssertionError(f"dropout mask of {family} at {shape}: {mask_row}")
+        out, stats = fwd(*diff, *const, scale, rate, sd, True)
+        want = ref(*diff, *const, scale, keep, rate)
+        got_grads = bwd(*diff, *const, g, out, stats, sd, scale, rate)
+        again = bwd(*diff, *const, g, out, stats, sd, scale, rate)
+        want_grads = ref_bwd(*diff, *const, g, scale, keep, rate)
+        xs = [x.detach().requires_grad_() for x in diff]
+        auto_grads = torch.autograd.grad(public(*xs, *const, scale, rate, sd), xs, g)
+        torch.cuda.synchronize()
+        out_err, out_rel = _rel_err(out, want)
+        grad_errs = {n: _rel_err(a, w) for n, a, w in zip(names, got_grads, want_grads)}
+        same = all(torch.equal(a, b) for a, b in zip(got_grads, again)) and \
+            all(torch.equal(a, b) for a, b in zip(got_grads, auto_grads))
+        del want, want_grads, again, auto_grads, xs
+        base = {"phase": "kernel", **shape, "rate": rate, "rtol": ATTN_TRAIN_RTOL}
+        fwd_row = {**base, "name": f"{family}_attention", "form": "training forward",
+                   "max_abs_err": out_err, "max_rel_err": out_rel, **fwd_bound}
+        bwd_row = {**base, "name": f"{family}_attention_bwd",
+                   "max_abs_err": max(e for e, _ in grad_errs.values()),
+                   "max_rel_err": max(r for _, r in grad_errs.values()),
+                   "rel_err_by_grad": {n: r for n, (_, r) in grad_errs.items()},
+                   "bit_identical_twice": same, **bwd_bound}
+        if timed:
+            fwd_row["ms"] = _device_ms(lambda: fwd(*diff, *const, scale, rate, sd, True),
+                                       calls=5, reps=10)
+            fwd_row["plain_ms"] = _device_ms(lambda: ref(*diff, *const, scale, keep, rate),
+                                             calls=3, reps=5)
+            bwd_row["ms"] = _device_ms(
+                lambda: bwd(*diff, *const, g, out, stats, sd, scale, rate), calls=5, reps=10)
+            bwd_row["plain_ms"] = _device_ms(
+                lambda: ref_bwd(*diff, *const, g, scale, keep, rate), calls=3, reps=5)
+            bwd_row["plain_autograd_fwd_bwd_ms"] = _fwd_bwd_ms(
+                lambda *xs: ref(*xs, *const, scale, keep, rate), diff, g)
+            bwd_row["kernel_fwd_bwd_ms"] = _fwd_bwd_ms(
+                lambda *xs: public(*xs, *const, scale, rate, sd), diff, g, calls=5, reps=10)
+            fwd_row["library_ms"] = bwd_row["library_ms"] = None
+            if library_mask is not None:
+                def sdpa(q, k, v):
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=library_mask,
+                                                          dropout_p=rate, scale=scale)
+                fwd_row["library_ms"] = _device_ms(lambda: sdpa(*diff), calls=5, reps=10)
+                both = _fwd_bwd_ms(sdpa, diff, g, calls=5, reps=10)
+                bwd_row["library_fwd_bwd_ms"] = both
+                bwd_row["library_ms"] = both - fwd_row["library_ms"]
+                bwd_row["library_timing"] = ("SDPA forward + backward minus forward, "
+                                             "the same float mask and dropout_p")
+        emit(fwd_row)
+        emit(bwd_row)
+        fwd_rows.append(fwd_row)
+        bwd_rows.append(bwd_row)
+        if not (out_rel <= ATTN_TRAIN_RTOL and bwd_row["max_rel_err"] <= ATTN_TRAIN_RTOL
+                and same):
+            raise AssertionError(f"{family} attention's training form disagrees with "
+                                 f"its plain version at {shape}: {fwd_row} {bwd_row}")
+        del out, stats, got_grads, keep
+    return fwd_rows, bwd_rows, mask_rows
+
+
+def phase_kernel_train():
+    """B1/B3/B5 with dropout and row statistics, B2/B4/B6 and B10 against their
+    plain versions at the kernel train route's shapes."""
+    from streamspeech_tpu_torch.kernels import attention as A
+    from streamspeech_tpu_torch.ops.masks import NEG_INF
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rows = {k: [] for k in ("masked_attention_train", "masked_attention_bwd",
+                            "relpos_attention_train", "relpos_attention_bwd",
+                            "bias_attention_train", "bias_attention_bwd", "dropout_keep")}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def collect(family, result):
+        rows[f"{family}_attention_train"] += result[0]
+        rows[f"{family}_attention_bwd"] += result[1]
+        rows["dropout_keep"] += result[2]
+
+    for n, (b, t, valid) in enumerate(RELPOS_TRAIN_SHAPES):
+        qu, qv, k, v, g = (randn(b, 4, t, 64) for _ in range(5))
+        p = randn(4, 2 * t - 1, 64)
+        # the encoder's bias: chunk-8 mask plus key validity (last row shorter, so
+        # its frames past `valid` are wholly masked rows)
+        n_valid = torch.tensor([t] * (b - 1) + [valid], device=dev)
+        i, j = torch.arange(t, device=dev)[:, None], torch.arange(t, device=dev)[None]
+        allowed = (j < ((i // 8 + 1) * 8).clamp(max=t))[None, None] & \
+            (torch.arange(t, device=dev) < n_valid[:, None])[:, None, None, :]
+        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        pairs = b * 4 * t * t * 64
+        stats_bytes = b * 4 * t * 8
+        collect("relpos", _check_train_kernel(
+            "relpos", A, (qu, qv, k, v, p), (bias,), g, 0.125, (b, 4, t, t), None,
+            _bound(6 * pairs, _nbytes(qu, qv, k, v, p, bias, qu) + stats_bytes + 8),
+            # ac, bd and g.v recomputed; dq_u, dq_v, dK, dV, dP: 8 products
+            _bound(16 * pairs, _nbytes(qu, qv, k, v, p, bias, g, qu, qu, qv, k, v, p)
+                   + stats_bytes + 8),
+            timed=n == 0, b=b, h=4, t=t, d=64, valid=valid))
+
+    for n, (b, t_pad, t) in enumerate(MASKED_TRAIN_SHAPES):
+        q, k, v, g = (randn(b, 8, t_pad, 64) for _ in range(4))
+        kvb = torch.where(torch.arange(t_pad) < t, 0.0, NEG_INF)
+        kvb = kvb.to(torch.float32).view(1, 1, t_pad).expand(b, 1, t_pad).contiguous().to(dev)
+        i = torch.arange(t_pad, device=dev)
+        mask = (kvb[:, :, None, :]
+                + torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF).float())
+        pairs = b * 8 * (t_pad * (t_pad + 1) / 2) * 64   # the causal half the data needs
+        stats_bytes = b * 8 * t_pad * 8
+        collect("masked", _check_train_kernel(
+            "masked", A, (q, k, v), (kvb,), g, 0.125, (b, 8, t_pad, t_pad),
+            mask if n == 0 else None,
+            _bound(4 * pairs, _nbytes(q, k, v, kvb, q) + stats_bytes + 8),
+            # q.k and g.v recomputed; dq, dK, dV: 5 products
+            _bound(10 * pairs, _nbytes(q, k, v, kvb, g, q, q, k, v) + stats_bytes + 8),
+            timed=n == 0, b=b, h=8, t_pad=t_pad, t=t, d=64))
+        del mask
+
+    for n, (b, tq, tk) in enumerate(BIAS_TRAIN_SHAPES):
+        q, g = randn(b, 8, tq, 64), randn(b, 8, tq, 64)
+        k, v = randn(b, 8, tk, 64), randn(b, 8, tk, 64)
+        # the unit decoder's wait-k cross mask (n2 = 2, upsample 25), the last
+        # row with 5 padded keys
+        iq, jk = torch.arange(tq, device=dev)[:, None], torch.arange(tk, device=dev)
+        n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
+        allowed = (jk[None] < ((iq // 25 + 1) * 2).clamp(max=tk))[None] & \
+            (jk[None, None, :] < n_valid[:, None, None])
+        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        pairs = b * 8 * tq * tk * 64
+        stats_bytes = b * 8 * tq * 8
+        collect("bias", _check_train_kernel(
+            "bias", A, (q, k, v), (bias,), g, 0.125, (b, 8, tq, tk),
+            bias[:, None] if n == 0 else None,
+            _bound(4 * pairs, _nbytes(q, k, v, bias, q) + stats_bytes + 8),
+            _bound(10 * pairs, _nbytes(q, k, v, bias, g, q, q, k, v) + stats_bytes + 8),
+            timed=n == 0, b=b, h=8, tq=tq, tk=tk, d=64))
+
+    # B10 alone: the mask of the unit decoder's causal attention, written out
+    shape = (8, 8, 1280, 1280)
+    seed = torch.tensor([SEED + 11], dtype=torch.int64, device=dev)
+    n_el = shape[0] * shape[1] * shape[2] * shape[3]
+    row = {"phase": "kernel", "name": "dropout_keep", "for": "timing", "b": shape[0],
+           "h": shape[1], "tq": shape[2], "tk": shape[3], "rate": ATTN_DROPOUT,
+           "max_abs_err": float(max(r["differing"] for r in rows["dropout_keep"])),
+           "ms": _device_ms(lambda: A.dropout_keep(seed, *shape, ATTN_DROPOUT), calls=5,
+                            reps=10),
+           "plain_ms": _device_ms(lambda: A.dropout_keep_reference(seed, *shape,
+                                                                   ATTN_DROPOUT),
+                                  calls=1, reps=3),
+           "library_ms": None,
+           # Philox-4x32-10 is ~70 integer operations per 4 elements, plus the
+           # shift, convert, multiply and compare: ~22 an element, held against
+           # the fp32 rate (the card's int32 rate is no higher); one byte written
+           **_bound(22 * n_el, n_el + 8)}
+    emit(row)
+    rows["dropout_keep"].append(row)
+    return rows
+
+
 def _dicts(text_vocab: int, code_size: int):
     from streamspeech_tpu_torch.dictionary import Dictionary
 
@@ -473,16 +723,28 @@ def _kernel_wrappers() -> dict:
             "bias_attention": attention.bias_attention,
             "not_blank_probs": policy.not_blank_probs,
             "ctc_alpha": ctc.ctc_alpha,
-            "ctc_beta": ctc.ctc_beta_grad}
+            "ctc_beta": ctc.ctc_beta_grad,
+            "relpos_attention_bwd": attention.relpos_attention_backward,
+            "masked_attention_bwd": attention.masked_attention_backward,
+            "bias_attention_bwd": attention.bias_attention_backward,
+            "dropout_keep": attention.dropout_keep}
 
 
 def _zero_counts():
+    from streamspeech_tpu_torch.kernels import attention
+
     for fn in _kernel_wrappers().values():
         fn.launches = 0
+    attention.mask_draws = 0
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    """Each wrapper's launches, and ``mask_draws``: the attention launches
+    that drew the dropout mask inside their own kernels."""
+    from streamspeech_tpu_torch.kernels import attention
+
+    return {**{name: fn.launches for name, fn in _kernel_wrappers().items()},
+            "mask_draws": attention.mask_draws}
 
 
 def phase_serving():
@@ -537,13 +799,23 @@ def phase_reference():
         raise AssertionError(f"card and CPU runs disagree: {row}")
 
 
+_NO_BACKWARD = {"relpos_attention_bwd": 0, "masked_attention_bwd": 0,
+                "bias_attention_bwd": 0, "dropout_keep": 0, "mask_draws": 0}
 FORWARD_LAUNCHES = {"relpos_attention": 12, "bias_attention": 2,
                     "not_blank_probs": 2, "masked_attention": 2, "ctc_alpha": 0,
-                    "ctc_beta": 0}
-# one train step: the attention kernels are forward-only, so training takes
-# their plain route; the unit CTC and the fused aux pair each launch B8 and B9
+                    "ctc_beta": 0, **_NO_BACKWARD}
+# one train step on the default route: attention takes its plain version; the
+# unit CTC and the fused aux pair each launch B8 and B9
 TRAIN_LAUNCHES = {"relpos_attention": 0, "bias_attention": 0, "not_blank_probs": 2,
-                  "masked_attention": 0, "ctc_alpha": 2, "ctc_beta": 2}
+                  "masked_attention": 0, "ctc_alpha": 2, "ctc_beta": 2, **_NO_BACKWARD}
+# one train step on the kernel route: 12 encoder layers (rel-pos), the unit
+# decoder's 2 layers (causal self-attention, bias cross-attention), each with
+# one forward launch and one backward call, all 32 drawing the dropout mask in
+# their own kernels (the kernel that writes the mask out alone runs on no path)
+TRAIN_KERNEL_LAUNCHES = {**TRAIN_LAUNCHES, "relpos_attention": 12, "masked_attention": 2,
+                         "bias_attention": 2, "relpos_attention_bwd": 12,
+                         "masked_attention_bwd": 2, "bias_attention_bwd": 2,
+                         "mask_draws": 32}
 
 
 def _forward_inputs(batch: int, lengths, mt_len: int, pad_after=None, seed=SEED):
@@ -639,7 +911,7 @@ def phase_forward():
     return launches, times
 
 
-def _train_setup(cfg, device, seed):
+def _train_setup(cfg, device, seed, kernel_attention=False):
     from streamspeech_tpu_torch.config import OptimizationConfig
     from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
     from streamspeech_tpu_torch.train.trainer import (
@@ -653,7 +925,8 @@ def _train_setup(cfg, device, seed):
     # measure_train_step's optimizer (`benchmarks.py:258-259`)
     tx = make_optimizer(OptimizationConfig(update_freq=1, warmup_updates=10000, lr=1e-3,
                                            clip_norm=10.0))
-    step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1)
+    step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1,
+                           kernel_attention=kernel_attention)
     return model, step, TrainState.create(model, tx)
 
 
@@ -661,14 +934,17 @@ LOSS_KEYS = ("loss", "unit_ctc_loss", "mt_loss", "mt_nll_loss", "asr_ctc_loss",
              "st_ctc_loss")
 
 
-def phase_train():
-    """The default train step at ``full_config`` and ``measure_train_step``'s
-    shape: a warm-up step, then 5 timed steps."""
+def phase_train(kernel_attention=False):
+    """The train step at ``full_config`` and ``measure_train_step``'s shape, on
+    the default route or (phase ``train_kernels``) the kernel route: a warm-up
+    step, then 5 timed steps."""
     from streamspeech_tpu_torch.config import full_config
     from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 
+    name = "train_kernels" if kernel_attention else "train"
+    expected = TRAIN_KERNEL_LAUNCHES if kernel_attention else TRAIN_LAUNCHES
     cfg = full_config()
-    model, step, state = _train_setup(cfg, "cuda", SEED)
+    model, step, state = _train_setup(cfg, "cuda", SEED, kernel_attention)
     batch = batch_to_tensors(synthetic_batch(cfg, batch=8, frames=1024, mt_len=48,
                                              units_len=256, text_len=32), "cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -689,29 +965,45 @@ def phase_train():
         per_step.append({k: after[k] - before[k] for k in after})
         losses.append({k: float(metrics[k]) for k in LOSS_KEYS + ("grad_norm",)})
     launches = _read_counts()
-    row = {"phase": "train", "batch": 8, "frames": 1024, "mt_len": 48, "unit_t": 1200,
+    row = {"phase": name, "batch": 8, "frames": 1024, "mt_len": 48, "unit_t": 1200,
            "units_len": 256, "text_len": 32, "dropout": cfg.encoder.dropout,
            "params": sum(p.numel() for p in model.parameters()),
            "warmup_step_ms": step_ms[0], "step_ms": step_ms[1:],
            "median_step_ms": statistics.median(step_ms[1:]),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "step1_losses": losses[0], "last_losses": losses[-1],
-           "launches_per_step": per_step[0], "expected_launches": TRAIN_LAUNCHES,
+           "launches_per_step": per_step[0], "expected_launches": expected,
            "launches": launches}
     emit(row)
     bad = [i for i, loss in enumerate(losses)
            if not all(np.isfinite(v) for v in loss.values())]
     if bad:
-        raise AssertionError(f"train steps {bad} gave non-finite losses: {losses}")
-    if any(p != TRAIN_LAUNCHES for p in per_step):
-        raise AssertionError(f"train launches per step {per_step}, want {TRAIN_LAUNCHES}")
+        raise AssertionError(f"{name} steps {bad} gave non-finite losses: {losses}")
+    if any(p != expected for p in per_step):
+        raise AssertionError(f"{name} launches per step {per_step}, want {expected}")
+    del model, step, state
+    torch.cuda.empty_cache()
     return launches
 
 
-def phase_train_reference():
-    """One train step from the same weights and batch on the card and on the
-    CPU: ``full_config`` widths, a 2-layer encoder, dropout 0, B=2."""
+def _kernel_route_attention(model):
+    """The attention modules whose training route is a kernel at these shapes:
+    the encoder's rel-pos self-attention and both of the unit decoder's."""
+    from streamspeech_tpu_torch.models.layers import (
+        MultiHeadAttention,
+        RelPosMultiHeadAttention,
+    )
+
+    return [m for name, m in model.named_modules()
+            if isinstance(m, RelPosMultiHeadAttention)
+            or (isinstance(m, MultiHeadAttention) and name.startswith("unit_decoder."))]
+
+
+def _reference_step(device, kernel_attention=False, attention_dropout=0.0):
+    """One train step of the reference phases' model and batch on ``device``:
+    (losses and grad_norm, gradients, batch statistics, launch counts)."""
     from streamspeech_tpu_torch.config import full_config
+    from streamspeech_tpu_torch.kernels import attention
     from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 
     cfg = full_config()
@@ -722,27 +1014,61 @@ def phase_train_reference():
     nb["src_lengths"] = np.array([1024, 800], np.int32)
     nb["prev_output_tokens_mt"][1, 18:] = 1                  # PAD
     nb["mt_targets"][1, 17:] = 1
-    runs = {}
-    for device in ("cpu", "cuda"):
-        model, step, state = _train_setup(cfg, device, SEED + 4)
-        _zero_counts()
-        state, metrics = step(state, batch_to_tensors(nb, device), None, 8, 8)
-        if device == "cuda":
-            torch.cuda.synchronize()
-        runs[device] = ({k: float(metrics[k]) for k in LOSS_KEYS + ("grad_norm",)},
-                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
-                        {n: b.cpu() for n, b in state.batch_stats.items()},
-                        _read_counts())
+    model, step, state = _train_setup(cfg, device, SEED + 4, kernel_attention)
+    gen = None
+    real_draw_seed = attention.draw_seed
+    if attention_dropout > 0:
+        for module in _kernel_route_attention(model):
+            module.dropout = attention_dropout
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        calls = iter(range(1000, 2000))
+        attention.draw_seed = lambda _, dev: torch.tensor(    # noqa: E731
+            [next(calls)], dtype=torch.int64, device=dev)
+    _zero_counts()
+    try:
+        state, metrics = step(state, batch_to_tensors(nb, device), gen, 8, 8)
+    finally:
+        attention.draw_seed = real_draw_seed
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return ({k: float(metrics[k]) for k in LOSS_KEYS + ("grad_norm",)},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in state.batch_stats.items()}, _read_counts())
+
+
+def phase_train_reference(kernel_attention=False, attention_dropout=0.0):
+    """One train step from the same weights and batch on the card and on the
+    CPU: ``full_config`` widths, a 2-layer encoder, dropout 0, B=2. With
+    ``kernel_attention`` the step takes the kernel route (the card launches
+    the kernels, the CPU computes their plain versions); ``attention_dropout``
+    then sets the rate of the attention modules on that route only, the mask
+    drawn from explicit per-call seeds that are the same on both devices."""
+    name = "train_kernels_reference" if kernel_attention else "train_reference"
+    expected = dict(TRAIN_LAUNCHES)
+    if kernel_attention:     # 2 encoder layers, 2 unit-decoder layers
+        expected.update({k: 2 for k in TRAIN_KERNEL_LAUNCHES if "attention" in k},
+                        mask_draws=12 if attention_dropout > 0 else 0)
+    runs = {device: _reference_step(device, kernel_attention, attention_dropout)
+            for device in ("cpu", "cuda")}
     (ref_m, ref_g, ref_s, _), (m, g, st, launches) = runs["cpu"], runs["cuda"]
+    loose = TRAIN_KERNEL_GRAD_LOOSE if kernel_attention else {}
     loss_err = {k: [abs(m[k] - v), TRAIN_RTOL * max(1.0, abs(v))] for k, v in ref_m.items()}
+    if kernel_attention:
+        # a function of the gradients, held to their tolerance: it reads 9.9e-5
+        # and 1.3e-4 of itself here, 2.3e-5 on the default route
+        loss_err["grad_norm"][1] = TRAIN_GRAD_RTOL * max(1.0, abs(ref_m["grad_norm"]))
     grad_err = {n: [float((g[n] - want).abs().max()),
-                    TRAIN_GRAD_RTOL * float(want.abs().max()) + 1e-7]
+                    loose.get(n, TRAIN_GRAD_RTOL) * float(want.abs().max()) + 1e-7]
                 for n, want in ref_g.items()}
     stat_err = {n: [float((st[n] - want).abs().max()),
                     TRAIN_RTOL * max(1.0, float(want.abs().max()))]
                 for n, want in ref_s.items()}
     worst = max(grad_err, key=lambda n: grad_err[n][0] / grad_err[n][1])
-    row = {"phase": "train_reference", "batch": 2, "fbank_lengths": [1024, 800],
+    row = {"phase": name, "batch": 2, "fbank_lengths": [1024, 800],
+           "attention_dropout": attention_dropout, "grad_rtol": TRAIN_GRAD_RTOL,
+           "grad_rtol_loose": loose,
+           "loose_grad_err_over_max": {
+               n: grad_err[n][0] / max(float(ref_g[n].abs().max()), 1e-30) for n in loose},
            "mt_len": 24, "losses_cpu": ref_m, "loss_err_and_tol": loss_err,
            "grad_tensors": len(grad_err), "worst_grad": [worst, *grad_err[worst]],
            "batch_stat_err_and_tol": stat_err, "launches": launches}
@@ -750,9 +1076,9 @@ def phase_train_reference():
     bad = [k for d in (loss_err, grad_err, stat_err) for k, (e, tol) in d.items()
            if not e <= tol]
     if bad:
-        raise AssertionError(f"card and CPU train steps disagree: {bad}")
-    if launches != TRAIN_LAUNCHES:
-        raise AssertionError(f"train_reference launches {launches}, want {TRAIN_LAUNCHES}")
+        raise AssertionError(f"{name}: card and CPU train steps disagree: {bad}")
+    if launches != expected:
+        raise AssertionError(f"{name} launches {launches}, want {expected}")
 
 
 def main():
@@ -764,6 +1090,11 @@ def main():
     forward_launches, _ = phase_forward()
     train_launches = phase_train()
     phase_train_reference()
+    rows.update(phase_kernel_train())
+    train_kernel_launches = phase_train(kernel_attention=True)
+    phase_train_reference(kernel_attention=True)
+    phase_train_reference(kernel_attention=True, attention_dropout=ATTN_DROPOUT)
+    train_shape = lambda r: r.get("ms") is not None and r["rate"] == ATTN_DROPOUT  # noqa: E731
     sources = {
         "masked_attention": ("pallas_attention.py:425", "masked_attention.cu",
                              lambda r: r["t_pad"] == 3200),
@@ -775,18 +1106,51 @@ def main():
                             lambda r: r["b"] == 1),
         "ctc_alpha": ("pallas_ctc.py:108", "ctc.cu", lambda r: (r["b"], r["t"]) == (8, 1200)),
         "ctc_beta": ("pallas_ctc.py:127", "ctc.cu", lambda r: (r["b"], r["t"]) == (8, 1200)),
+        # the backward kernels and the mask: the kernel train route's shapes, dropout 0.1
+        "relpos_attention_bwd": ("pallas_attention.py:243", "relpos_attention_bwd.cu",
+                                 train_shape),
+        "masked_attention_bwd": ("pallas_attention.py:508", "masked_attention_bwd.cu",
+                                 train_shape),
+        "bias_attention_bwd": ("pallas_attention.py:712", "bias_attention_bwd.cu",
+                               train_shape),
+        "dropout_keep": ("pallas_attention.py:36", "dropout.cuh",
+                         lambda r: r.get("ms") is not None),
     }
+    # sources a kernel is built from beside the one named in its entry
+    also = {"relpos_attention_bwd": ["relpos_attention_dp.cu", "attention_bwd.cuh"],
+            "masked_attention_bwd": ["attention_bwd.cuh"],
+            "bias_attention_bwd": ["attention_bwd.cuh"], "dropout_keep": ["dropout.cu"]}
+    paths = {"serving": serving_launches, "forward": forward_launches,
+             "train": train_launches, "train_kernels": train_kernel_launches}
     kernels = []
     for name, (replaces, source, main_shape) in sources.items():
         row = next(r for r in rows[name] if main_shape(r))
-        by_path = {"serving": serving_launches[name], "forward": forward_launches[name],
-                   "train": train_launches[name]}
+        by_path = {k: v[name] for k, v in paths.items()}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"streamspeech_tpu_torch/csrc/{source}",
+            "also_built_from": [f"streamspeech_tpu_torch/csrc/{s}"
+                                for s in also.get(name, [])],
             "replaces": f"streamspeech_tpu/ops/{replaces}",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            # B10 runs inside the six attention kernels: the launches of theirs
+            # that drew the mask. Its own kernel, which writes the mask out
+            # alone and is what ms times, is launched on no path
+            **({"draws_by_path": {k: v["mask_draws"] for k, v in paths.items()}}
+               if name == "dropout_keep" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            # the forward kernels' training form at the train shape with dropout
+            "training_form": next(
+                ({k: r.get(k) for k in ("rate", "ms", "plain_ms", "library_ms", "bound_ms",
+                                        "bound_by", "max_rel_err")}
+                 for r in rows.get(f"{name}_train", []) if train_shape(r)), None),
+            # the backward kernels at the same shape without dropout
+            "without_dropout": next(
+                ({k: r.get(k) for k in ("ms", "plain_ms", "library_ms",
+                                        "plain_autograd_fwd_bwd_ms", "kernel_fwd_bwd_ms",
+                                        "library_fwd_bwd_ms")}
+                 for r in rows[name] if r.get("rate") == 0.0 and r.get("ms") is not None),
+                None),
             "shape": {k: row[k] for k in ("b", "h", "t", "t_pad", "tq", "tk", "d", "v",
                                           "s") if k in row},
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

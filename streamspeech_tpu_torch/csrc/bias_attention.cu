@@ -20,9 +20,15 @@
 // TK weigh 0), so TQ and TK need no padding; the TPU pads TK = 24 to 128.
 //
 // Head dims: every multiple of 8 from 8 to 256, as masked_attention.cu.
+//
+// Training adds dropout (rate > 0, `_bias_kernel` :614-617) and the row
+// statistics output (stats != null), both exactly as in masked_attention.cu;
+// bias_attention_bwd.cu reads the statistics.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -41,7 +47,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
-                      float* __restrict__ out, int H, int TQ, int TK, float scale) {
+                      float* __restrict__ out, const long long* __restrict__ seed,
+                      float rate, float* __restrict__ stats, int H, int TQ, int TK,
+                      float scale) {
   constexpr int LD = D + 1;   // padded row stride: column reads hit distinct banks
   constexpr int LP = kBK + 1;
   constexpr int DC = (D + 15) / 16;  // output channels per thread
@@ -60,6 +68,9 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vh = v + bh * (size_t)TK * D;
   const float* bb = bias + (size_t)b * TQ * TK;
   const int q0 = qt * kBQ;
+  const bool drop = rate > 0.f;
+  const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
+  const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -83,6 +94,9 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       ks[r * LD + c] = in ? kh[(size_t)(k0 + r) * D + c] : 0.f;
       vs[r * LD + c] = in ? vh[(size_t)(k0 + r) * D + c] : 0.f;
     }
+    if (drop)
+      dropout::fill_keep_tile<kBQ, kBK>(ps, LP, sd, b, h, q0, k0, rate, inv_keep, tid,
+                                        kThreads);
     __syncthreads();
 
     float s[4][4];
@@ -129,7 +143,8 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_use);
-        ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
+        float* slot = &ps[(ty * 4 + i) * LP + tx + 16 * j];
+        *slot = drop ? p * *slot : p;
         sum += p;
       }
 #pragma unroll
@@ -167,13 +182,18 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       if (D % 16 == 0 || tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c] * inv;
+    if (stats != nullptr && tx == 0) {
+      float* st = stats + (bh * (size_t)TQ + row) * 2;
+      st[0] = m[i];
+      st[1] = inv;
+    }
   }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* out, int B, int H, int TQ, int TK, float scale,
-           cudaStream_t stream) {
+           float* out, const long long* seed, float rate, float* stats, int B, int H,
+           int TQ, int TK, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // the dynamic shared-memory limit is raised once per device and head dim
   static bool raised[kMaxDevices] = {};
@@ -187,24 +207,29 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
     if (dev < kMaxDevices) raised[dev] = true;
   }
   const dim3 grid((TQ + kBQ - 1) / kBQ, H, B);
-  bias_attention_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, bias, out, H,
-                                                              TQ, TK, scale);
+  bias_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, bias, out, seed, rate, stats, H, TQ, TK, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, out: [B, H, TQ, D]; k, v: [B, H, TK, D]; bias: [B, TQ, TK]; all contiguous
-// fp32. D a multiple of 8 from 8 to 256; TQ, TK >= 1.
+// fp32. D a multiple of 8 from 8 to 256; TQ, TK >= 1. rate in [0, 1): with
+// rate > 0, seed points at one int64 on the device; stats: null, or
+// [B, H, TQ, 2] fp32 to receive each row's max and 1 / sum.
 // Launches on `stream` without synchronising; returns the cudaError_t code.
 extern "C" int bias_attention_f32(const float* q, const float* k, const float* v,
-                                  const float* bias, float* out, int B, int H,
-                                  int TQ, int TK, int D, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || TQ <= 0 || TK <= 0 || H > 65535 || B > 65535)
+                                  const float* bias, float* out, const long long* seed,
+                                  float* stats, int B, int H, int TQ, int TK, int D,
+                                  float scale, float rate, void* stream) {
+  if (B <= 0 || H <= 0 || TQ <= 0 || TK <= 0 || H > 65535 || B > 65535 ||
+      !(rate >= 0.f && rate < 1.f) || (rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(d) \
-  case d: return launch<d>(q, k, v, bias, out, B, H, TQ, TK, scale, s);
+  case d: \
+    return launch<d>(q, k, v, bias, out, seed, rate, stats, B, H, TQ, TK, scale, s);
   switch (D) {
     CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64)
     CASE(72) CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120) CASE(128)

@@ -24,9 +24,20 @@
 // Head dims: every multiple of 8 from 8 to 256, the TPU route's gate
 // (head_dim % 8 == 0) up to the largest D whose three [64, D + 1] tiles fit
 // one block's shared memory (214 KB at D = 256). Any other D is refused.
+//
+// Training adds two options (`_causal_kernel` :414-417 and the backward's
+// residual). rate > 0 drops attention probabilities after the softmax: the
+// keep factors of dropout.cuh are staged into the probability tile while the
+// K/V tile loads and multiply each tile's un-normalised weights in the V
+// accumulation only, never in the running sum. stats != null writes each
+// row's max and 1 / sum, [B, H, T, 2], which masked_attention_bwd.cu reads
+// instead of recomputing whole rows. (Two numbers, not one log-sum-exp: a
+// wholly masked row sits at -1e9, where fp32 cannot carry log(sum).)
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -46,7 +57,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ kvb,
-                        float* __restrict__ out, int H, int T, float scale) {
+                        float* __restrict__ out, const long long* __restrict__ seed,
+                        float rate, float* __restrict__ stats, int H, int T,
+                        float scale) {
   constexpr int LD = D + 1;   // padded row stride: column reads hit distinct banks
   constexpr int LP = kBK + 1;
   constexpr int DC = (D + 15) / 16;  // output channels per thread
@@ -66,6 +79,9 @@ causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* vh = v + head;
   const float* kb = kvb + (size_t)b * T;
   const int q0 = qt * kBQ;
+  const bool drop = rate > 0.f;
+  const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
+  const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -90,6 +106,9 @@ causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
       vs[r * LD + c] = vh[(size_t)(k0 + r) * D + c];
     }
     if (tid < kBK) bs[tid] = kb[k0 + tid];
+    if (drop)
+      dropout::fill_keep_tile<kBQ, kBK>(ps, LP, sd, b, h, q0, k0, rate, inv_keep, tid,
+                                        kThreads);
     __syncthreads();
 
     float s[4][4];
@@ -132,7 +151,8 @@ causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_new);
-        ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
+        float* slot = &ps[(ty * 4 + i) * LP + tx + 16 * j];
+        *slot = drop ? p * *slot : p;
         sum += p;
       }
 #pragma unroll
@@ -167,12 +187,18 @@ causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       if (D % 16 == 0 || tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c] * inv;
+    if (stats != nullptr && tx == 0) {
+      float* st = stats + (((size_t)b * H + h) * T + q0 + ty * 4 + i) * 2;
+      st[0] = m[i];
+      st[1] = inv;
+    }
   }
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* kvb,
-           float* out, int B, int H, int T, float scale, cudaStream_t stream) {
+           float* out, const long long* seed, float rate, float* stats, int B, int H,
+           int T, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // the dynamic shared-memory limit is raised once per device and head dim
   static bool raised[kMaxDevices] = {};
@@ -186,8 +212,8 @@ int launch(const float* q, const float* k, const float* v, const float* kvb,
     if (dev < kMaxDevices) raised[dev] = true;
   }
   const dim3 grid(T / kBQ, H, B);
-  causal_attention_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, kvb, out,
-                                                                H, T, scale);
+  causal_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
+      q, k, v, kvb, out, seed, rate, stats, H, T, scale);
   return (int)cudaGetLastError();
 }
 
@@ -195,17 +221,20 @@ int launch(const float* q, const float* k, const float* v, const float* kvb,
 
 // q, k, v, out: [B, H, T, D] contiguous fp32; kvb: [B, T] fp32 additive key
 // bias (0 valid, -1e9 masked). T must be a multiple of 64; D a multiple of 8
-// from 8 to 256.
+// from 8 to 256. rate in [0, 1): with rate > 0, seed points at one int64 on the
+// device; stats: null, or [B, H, T, 2] fp32 to receive each row's max and 1 / sum.
 // Launches on `stream` without synchronising; returns the cudaError_t code.
 extern "C" int masked_attention_f32(const float* q, const float* k,
                                     const float* v, const float* kvb,
-                                    float* out, int B, int H, int T, int D,
-                                    float scale, void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || T % kBQ != 0 || H > 65535 || B > 65535)
+                                    float* out, const long long* seed, float* stats,
+                                    int B, int H, int T, int D, float scale,
+                                    float rate, void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || T % kBQ != 0 || H > 65535 || B > 65535 ||
+      !(rate >= 0.f && rate < 1.f) || (rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(d) \
-  case d: return launch<d>(q, k, v, kvb, out, B, H, T, scale, s);
+  case d: return launch<d>(q, k, v, kvb, out, seed, rate, stats, B, H, T, scale, s);
   switch (D) {
     CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64)
     CASE(72) CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120) CASE(128)

@@ -27,6 +27,11 @@
 // B = 1, H = 4, T = 256 the grid is only 16 blocks for 132 SMs, so most of the
 // card is idle: recorded, not fixed here.
 //
+// Training adds dropout (rate > 0, `_kernel` :84-87) and the row statistics
+// output (stats != null, [B, H, T, 2]: max and 1 / sum), both exactly as in
+// masked_attention.cu; relpos_attention_bwd.cu and relpos_attention_dp.cu read
+// the statistics.
+//
 // Shared memory: q_u, q_v, K, V tiles [64, D+1], the P window [127, D+1] and
 // the probability tile: 113 KB at D = 64. Tiles are 64 rows up to the largest
 // D that fits 227 KB (D = 136) and 32 rows above it. Head dims: every multiple
@@ -34,6 +39,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "dropout.cuh"
 
 namespace {
 
@@ -56,8 +63,9 @@ __global__ void __launch_bounds__(kThreads)
 relpos_attention_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
                         const float* __restrict__ k, const float* __restrict__ v,
                         const float* __restrict__ p, const float* __restrict__ bias,
-                        float* __restrict__ out, int H, int T, int R, int bias_heads,
-                        float scale) {
+                        float* __restrict__ out, const long long* __restrict__ seed,
+                        float rate, float* __restrict__ stats, int H, int T, int R,
+                        int bias_heads, float scale) {
   constexpr int BQ = tile_rows<D>();
   constexpr int BK = BQ;
   constexpr int RQ = BQ / 16;        // query rows per thread
@@ -84,6 +92,9 @@ relpos_attention_kernel(const float* __restrict__ qu, const float* __restrict__ 
   const float* ph = p + (size_t)h * R * D;
   const float* bh = bias + ((size_t)b * bias_heads + (bias_heads > 1 ? h : 0)) * T * T;
   const int q0 = qt * BQ;
+  const bool drop = rate > 0.f;
+  const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
+  const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
 
   for (int i = tid; i < BQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -113,6 +124,9 @@ relpos_attention_kernel(const float* __restrict__ qu, const float* __restrict__ 
       const int r = i / D, c = i % D;
       pw[r * LD + c] = ph[(size_t)(u0 + r) * D + c];
     }
+    if (drop)
+      dropout::fill_keep_tile<BQ, BK>(ps, LP, sd, b, h, q0, k0, rate, inv_keep, tid,
+                                      kThreads);
     __syncthreads();
 
     float ac[RQ][RK], bd[RQ][RK];
@@ -162,7 +176,8 @@ relpos_attention_kernel(const float* __restrict__ qu, const float* __restrict__ 
 #pragma unroll
       for (int j = 0; j < RK; ++j) {
         const float pr = expf(ac[i][j] - m_new);
-        ps[(ty * RQ + i) * LP + tx + 16 * j] = pr;
+        float* slot = &ps[(ty * RQ + i) * LP + tx + 16 * j];
+        *slot = drop ? pr * *slot : pr;
         sum += pr;
       }
 #pragma unroll
@@ -197,13 +212,19 @@ relpos_attention_kernel(const float* __restrict__ qu, const float* __restrict__ 
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       if (D % 16 == 0 || tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c] * inv;
+    if (stats != nullptr && tx == 0) {
+      float* st = stats + (((size_t)b * H + h) * T + q0 + ty * RQ + i) * 2;
+      st[0] = m[i];
+      st[1] = inv;
+    }
   }
 }
 
 template <int D>
 int launch(const float* qu, const float* qv, const float* k, const float* v,
-           const float* p, const float* bias, float* out, int B, int H, int T, int R,
-           int bias_heads, float scale, cudaStream_t stream) {
+           const float* p, const float* bias, float* out, const long long* seed,
+           float rate, float* stats, int B, int H, int T, int R, int bias_heads,
+           float scale, cudaStream_t stream) {
   constexpr int BQ = tile_rows<D>();
   constexpr size_t smem = smem_bytes(D, BQ);
   if (T % BQ != 0) return (int)cudaErrorInvalidValue;
@@ -220,7 +241,7 @@ int launch(const float* qu, const float* qv, const float* k, const float* v,
   }
   const dim3 grid(T / BQ, H, B);
   relpos_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qu, qv, k, v, p, bias, out, H, T, R, bias_heads, scale);
+      qu, qv, k, v, p, bias, out, seed, rate, stats, H, T, R, bias_heads, scale);
   return (int)cudaGetLastError();
 }
 
@@ -229,17 +250,23 @@ int launch(const float* qu, const float* qv, const float* k, const float* v,
 // q_u, q_v, k, v, out: [B, H, T, D]; p: [H, R, D] with R >= 2T-1 (row u <->
 // relative position T-1-u); bias: [B, bias_heads, T, T] with bias_heads 1 or H;
 // all contiguous fp32. T a multiple of 64; D a multiple of 8 from 8 to 256.
+// rate in [0, 1): with rate > 0, seed points at one int64 on the device; stats:
+// null, or [B, H, T, 2] fp32 to receive each row's max and 1 / sum.
 // Launches on `stream` without synchronising; returns the cudaError_t code.
 extern "C" int relpos_attention_f32(const float* qu, const float* qv, const float* k,
                                     const float* v, const float* p, const float* bias,
-                                    float* out, int B, int H, int T, int D, int R,
-                                    int bias_heads, float scale, void* stream) {
+                                    float* out, const long long* seed, float* stats,
+                                    int B, int H, int T, int D, int R, int bias_heads,
+                                    float scale, float rate, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || T % 64 != 0 || R < 2 * T - 1 || H > 65535 ||
-      B > 65535 || !(bias_heads == 1 || bias_heads == H))
+      B > 65535 || !(bias_heads == 1 || bias_heads == H) ||
+      !(rate >= 0.f && rate < 1.f) || (rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(d) \
-  case d: return launch<d>(qu, qv, k, v, p, bias, out, B, H, T, R, bias_heads, scale, s);
+  case d:                                                                          \
+    return launch<d>(qu, qv, k, v, p, bias, out, seed, rate, stats, B, H, T, R, \
+                     bias_heads, scale, s);
   switch (D) {
     CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64)
     CASE(72) CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120) CASE(128)

@@ -1,87 +1,291 @@
 """Attention kernels: the CUDA kernels' wrappers and their plain versions.
 
 - ``masked_attention``: causal self-attention with a key bias; replaces the TPU
-  kernel ``masked_attention`` (`streamspeech_tpu/ops/pallas_attention.py:425`,
-  body ``_causal_kernel`` :399); ``csrc/masked_attention.cu``.
+  kernels ``masked_attention`` (`streamspeech_tpu/ops/pallas_attention.py:425`,
+  body ``_causal_kernel`` :399) and ``_masked_bwd`` (:508);
+  ``csrc/masked_attention.cu``, ``csrc/masked_attention_bwd.cu``.
 - ``bias_attention``: attention under an arbitrary [B, TQ, TK] additive bias;
   replaces ``bias_attention`` (`pallas_attention.py:625`, ``_bias_kernel``
-  :602); ``csrc/bias_attention.cu``.
+  :602) and ``_bias_bwd_rule`` (:712); ``csrc/bias_attention.cu``,
+  ``csrc/bias_attention_bwd.cu``.
 - ``relpos_attention``: Transformer-XL rel-pos self-attention; replaces
-  ``relpos_attention`` (`pallas_attention.py:95`, ``_kernel`` :53);
-  ``csrc/relpos_attention.cu``.
+  ``relpos_attention`` (`pallas_attention.py:95`, ``_kernel`` :53) and
+  ``_relpos_bwd`` (:243); ``csrc/relpos_attention.cu``,
+  ``csrc/relpos_attention_bwd.cu``, ``csrc/relpos_attention_dp.cu``.
+- ``dropout_keep``: the keep mask the six kernels draw inside their tile loops
+  (``_dropout_keep``, `pallas_attention.py:36`); ``csrc/dropout.cuh``, written
+  out by ``csrc/dropout.cu``.
 
-For CPU tensors each wrapper computes its ``*_reference``; for CUDA tensors it
-launches its kernel or raises. There is no fallback. Each counts its launches.
-The kernels are forward-only (their backwards, B2/B4/B6, are not ported yet):
-on either device a wrapper raises when autograd would need a gradient through
-it, instead of returning a result with no ``grad_fn``.
+The three attention functions are differentiable (the counterparts of the
+``*_trainable`` functions): the forward saves q, k, v, the bias, the output,
+each row's softmax statistics and the seed, never a [B, H, TQ, TK] tensor, and
+the backward recomputes the probabilities and regenerates the dropout mask.
+The bias and the seed get no gradient.
+
+For CPU tensors each wrapper computes its plain version (``*_reference``,
+``*_backward_reference``, ``dropout_keep_reference``); for CUDA tensors it
+launches its kernel or raises. There is no fallback. Each counts its launches:
+``f.launches`` for a forward, ``f_backward.launches`` once per backward call
+(which launches three or four CUDA kernels), ``dropout_keep.launches`` for the
+kernel that writes the mask out alone. ``mask_draws`` counts the forward
+launches and backward calls that drew the mask inside their own kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple, Union
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from streamspeech_tpu_torch.kernels import build
 from streamspeech_tpu_torch.ops.masks import NEG_INF
 
-MAX_HEAD_DIM = 256  # head dims: multiples of 8 up to this (every csrc/*attention.cu)
+MAX_HEAD_DIM = 256  # head dims: multiples of 8 up to this (every csrc/*attention*.cu)
 TILE = 64  # query/key tile of the causal and rel-pos kernels; T must be a multiple
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (source, C entry point, argument types) of each kernel; the stream comes last
-_MASKED = ("masked_attention", "masked_attention_f32", (_P,) * 5 + (_I,) * 4 + (_F, _P))
-_BIAS = ("bias_attention", "bias_attention_f32", (_P,) * 5 + (_I,) * 5 + (_F, _P))
-_RELPOS = ("relpos_attention", "relpos_attention_f32", (_P,) * 7 + (_I,) * 6 + (_F, _P))
+_MASKED = ("masked_attention", "masked_attention_f32", (_P,) * 7 + (_I,) * 4 + (_F, _F, _P))
+_BIAS = ("bias_attention", "bias_attention_f32", (_P,) * 7 + (_I,) * 5 + (_F, _F, _P))
+_RELPOS = ("relpos_attention", "relpos_attention_f32",
+           (_P,) * 9 + (_I,) * 6 + (_F, _F, _P))
+_MASKED_BWD = ("masked_attention_bwd", "masked_attention_bwd_f32",
+               (_P,) * 12 + (_I,) * 4 + (_F, _F, _P))
+_BIAS_BWD = ("bias_attention_bwd", "bias_attention_bwd_f32",
+             (_P,) * 12 + (_I,) * 5 + (_F, _F, _P))
+_RELPOS_BWD = ("relpos_attention_bwd", "relpos_attention_bwd_f32",
+               (_P,) * 15 + (_I,) * 6 + (_F, _F, _P))
+_RELPOS_DP = ("relpos_attention_dp", "relpos_attention_dp_f32",
+              (_P,) * 12 + (_I,) * 6 + (_F, _F, _P))
+_KEEP = ("dropout", "dropout_keep_u8", (_P, _P) + (_I,) * 4 + (_F, _P))
+
+Seed = Union[int, torch.Tensor]
 
 
-def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, kv_bias: torch.Tensor,
-                               scale: float) -> torch.Tensor:
-    """Plain PyTorch version (`pallas_attention.py:570-583`): q/k/v [B, H, T, D],
-    kv_bias [B, 1, T] additive → [B, H, T, D] float32."""
+# ---------------------------------------------------------------------------
+# The dropout mask
+# ---------------------------------------------------------------------------
+
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+_M32 = 0xFFFFFFFF
+
+
+def _mulhilo32(m: int, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32 bits of m·x for a 32-bit constant and int64 x < 2³²; the
+    product is split at x's 16-bit limbs so that nothing passes 2⁶³."""
+    lo_part, hi_part = m * (x & 0xFFFF), m * (x >> 16)
+    low = (lo_part + ((hi_part & 0xFFFF) << 16)) & _M32
+    high = (hi_part + (lo_part >> 16)) >> 16
+    return high, low
+
+
+def philox4x32_10(counter, key):
+    """Philox-4x32-10 on int64 tensors holding 32-bit words: ``counter`` four
+    tensors (broadcastable), ``key`` two ints or tensors → four tensors."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _M32, (k1 + _PHILOX_W1) & _M32
+    return c0, c1, c2, c3
+
+
+def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """One attention call's dropout seed: a one-element int64 tensor on
+    ``device``, drawn there from ``generator`` in [0, 2³¹ - 1) without a host
+    synchronisation (the counterpart of `layers.py:316-318`)."""
+    if generator is None:
+        raise ValueError("attention dropout needs a torch.Generator")
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator, device=device,
+                         dtype=torch.int64)
+
+
+def dropout_keep_reference(seed: Seed, b: int, h: int, tq: int, tk: int, rate: float,
+                           device=None) -> torch.Tensor:
+    """The plain version of ``csrc/dropout.cuh``, bit for bit: bool
+    [b, h, tq, tk], True = keep.
+    bits = Philox-4x32-10(key = seed, counter = (b, h, query row, key col // 4)),
+    u = (bits[col % 4] >> 8)·2⁻²⁴, keep = u >= rate in float32. An element's
+    bit depends on its own (b, h, row, col) alone, not on the shape asked for."""
+    if isinstance(seed, torch.Tensor):
+        device = seed.device if device is None else device
+        seed = seed.to(device=device, dtype=torch.int64).reshape(())
+        key = (seed & _M32, (seed >> 32) & _M32)
+    else:
+        key = (int(seed) & _M32, (int(seed) >> 32) & _M32)
+    def ar(n):
+        return torch.arange(n, device=device, dtype=torch.int64)
+
+    groups = -(-tk // 4)                                          # of 4 key columns
+    counter = (ar(b)[:, None, None, None].expand(b, h, tq, groups),
+               ar(h)[None, :, None, None], ar(tq)[None, None, :, None],
+               ar(groups)[None, None, None, :])
+    bits = torch.stack(philox4x32_10(counter, key), dim=-1)       # [b, h, tq, g, 4]
+    u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    keep = u >= torch.full((), rate, dtype=torch.float32, device=device)
+    return keep.reshape(b, h, tq, groups * 4)[..., :tk]
+
+
+def dropout_keep(seed: torch.Tensor, b: int, h: int, tq: int, tk: int,
+                 rate: float) -> torch.Tensor:
+    """The mask the attention kernels draw, written out: bool [b, h, tq, tk].
+    ``seed`` is a one-element int64 tensor; on the card ``csrc/dropout.cu``
+    stores what the kernels' own device functions give."""
+    if not build.on_card(seed, "dropout_keep"):
+        return dropout_keep_reference(seed, b, h, tq, tk, rate)
+    _check_seed(seed, seed.device, rate)
+    out = torch.empty((b, h, tq, tk), dtype=torch.uint8, device=seed.device)
+    build.launch(_KEEP, seed.device, seed.data_ptr(), out.data_ptr(), b, h, tq, tk,
+                 float(rate))
+    dropout_keep.launches += 1
+    return out.bool()
+
+
+def _keep_or_none(seed, b, h, tq, tk, rate):
+    return None if rate == 0.0 else dropout_keep_reference(seed, b, h, tq, tk, rate)
+
+
+def _drop(probs: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """Dropout after the softmax (`pallas_attention.py:84-87`)."""
+    if keep is None:
+        return probs
+    return torch.where(keep, probs * (1.0 / (1.0 - rate)), torch.zeros_like(probs))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: forwards
+# ---------------------------------------------------------------------------
+
+
+def _masked_probs(q, k, kv_bias, scale):
     t = q.shape[2]
     scores = torch.einsum("bhsd,bhtd->bhst", q, k) * scale
     scores = scores + kv_bias[:, :, None, :]
     i = torch.arange(t, device=q.device)
     causal = torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF)
-    probs = torch.softmax(scores + causal.to(torch.float32), dim=-1)
+    return torch.softmax(scores + causal.to(torch.float32), dim=-1)
+
+
+def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, kv_bias: torch.Tensor,
+                               scale: float, keep: Optional[torch.Tensor] = None,
+                               rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version (`pallas_attention.py:570-583`): q/k/v [B, H, T, D],
+    kv_bias [B, 1, T] additive → [B, H, T, D] float32. ``keep`` [B, H, T, T]
+    bool drops probabilities after the softmax at ``rate``."""
+    probs = _drop(_masked_probs(q, k, kv_bias, scale), keep, rate)
     return torch.einsum("bhst,bhtd->bhsd", probs, v)
 
 
-def bias_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """Plain PyTorch version (`pallas_attention.py:818-825`): q [B, H, TQ, D],
-    k/v [B, H, TK, D], bias [B, TQ, TK] additive → [B, H, TQ, D] float32."""
+def _bias_probs(q, k, bias, scale):
     scores = torch.einsum("bhsd,bhtd->bhst", q, k) * scale + bias[:, None]
-    return torch.einsum("bhst,bhtd->bhsd", torch.softmax(scores, dim=-1), v)
+    return torch.softmax(scores, dim=-1)
+
+
+def bias_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias: torch.Tensor, scale: float,
+                             keep: Optional[torch.Tensor] = None,
+                             rate: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version (`pallas_attention.py:818-825`): q [B, H, TQ, D],
+    k/v [B, H, TK, D], bias [B, TQ, TK] additive → [B, H, TQ, D] float32;
+    ``keep`` [B, H, TQ, TK] as in ``masked_attention_reference``."""
+    probs = _drop(_bias_probs(q, k, bias, scale), keep, rate)
+    return torch.einsum("bhst,bhtd->bhsd", probs, v)
+
+
+def _relpos_rows(t: int, device) -> torch.Tensor:
+    """[T, T] table row of (i, j): u = T-1 - (i - j)."""
+    i = torch.arange(t, device=device)[:, None]
+    j = torch.arange(t, device=device)[None, :]
+    return (t - 1) - (i - j)
+
+
+def _relpos_probs(q_u, q_v, k, p, bias, scale):
+    b, h, t, _ = q_u.shape
+    ac = torch.einsum("bhsd,bhtd->bhst", q_u, k)
+    bd_full = torch.einsum("bhsd,hrd->bhsr", q_v, p)
+    u = _relpos_rows(t, q_u.device)[None, None].expand(b, h, t, t)
+    bd = torch.gather(bd_full, -1, u)
+    return torch.softmax((ac + bd) * scale + bias, dim=-1)
 
 
 def relpos_attention_reference(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, p: torch.Tensor, bias: torch.Tensor,
-                               scale: float) -> torch.Tensor:
+                               scale: float, keep: Optional[torch.Tensor] = None,
+                               rate: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version (`pallas_attention.py:355-369`): q_u/q_v/k/v
     [B, H, T, D]; p [H, R >= 2T-1, D], row u ↔ relative position T-1-u; bias
-    [B, 1|H, T, T] additive → [B, H, T, D] float32. bd[i, j] = q_v[i] · p[T-1-i+j]."""
-    b, h, t, _ = q_u.shape
-    ac = torch.einsum("bhsd,bhtd->bhst", q_u, k)
-    bd_full = torch.einsum("bhsd,hrd->bhsr", q_v, p)
-    i = torch.arange(t, device=q_u.device)[:, None]
-    j = torch.arange(t, device=q_u.device)[None, :]
-    u = ((t - 1) - (i - j))[None, None].expand(b, h, t, t)
-    bd = torch.gather(bd_full, -1, u)
-    probs = torch.softmax((ac + bd) * scale + bias, dim=-1)
+    [B, 1|H, T, T] additive → [B, H, T, D] float32. bd[i, j] = q_v[i] · p[T-1-i+j].
+    ``keep`` [B, H, T, T] as in ``masked_attention_reference``."""
+    probs = _drop(_relpos_probs(q_u, q_v, k, p, bias, scale), keep, rate)
     return torch.einsum("bhst,bhtd->bhsd", probs, v)
 
 
-def _forward_only(kernel: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would have to differentiate through ``kernel``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{kernel} is forward-only: its backward kernel is a later slice of the "
-            "port. Call it under torch.no_grad(), or train with deterministic=False, "
-            "which takes the plain attention route")
+# ---------------------------------------------------------------------------
+# Plain versions: backwards (`pallas_attention.py:146-148`, :152-177)
+# ---------------------------------------------------------------------------
+
+
+def _softmax_backward(probs, v, g, scale, keep, rate):
+    """(the probabilities dV sees, d loss / d scores): with the keep factor
+    kf = keep / (1 - rate), dp = (g vᵀ)·kf and
+    ds = probs·(dp - rowsum(dp·probs))·scale."""
+    dprobs = torch.einsum("bhsd,bhtd->bhst", g, v)
+    probs_for_dv = probs
+    if keep is not None:
+        kf = keep.to(torch.float32) * (1.0 / (1.0 - rate))
+        dprobs, probs_for_dv = dprobs * kf, probs * kf
+    delta = torch.sum(dprobs * probs, dim=-1, keepdim=True)
+    return probs_for_dv, probs * (dprobs - delta) * scale
+
+
+def _qkv_grads(ds, probs_for_dv, q, k, g):
+    return (torch.einsum("bhst,bhtd->bhsd", ds, k),
+            torch.einsum("bhst,bhsd->bhtd", ds, q),
+            torch.einsum("bhst,bhsd->bhtd", probs_for_dv, g))
+
+
+def masked_attention_backward_reference(q, k, v, kv_bias, g, scale, keep=None,
+                                        rate=0.0):
+    """(dq, dK, dV) of ``masked_attention_reference`` for g = d loss / d out,
+    step by step: recompute the probabilities, then dp, ds and the three
+    products. ``kv_bias`` is a constant."""
+    pdv, ds = _softmax_backward(_masked_probs(q, k, kv_bias, scale), v, g, scale, keep,
+                                rate)
+    return _qkv_grads(ds, pdv, q, k, g)
+
+
+def bias_attention_backward_reference(q, k, v, bias, g, scale, keep=None, rate=0.0):
+    """(dq, dK, dV) of ``bias_attention_reference``; ``bias`` is a constant."""
+    pdv, ds = _softmax_backward(_bias_probs(q, k, bias, scale), v, g, scale, keep, rate)
+    return _qkv_grads(ds, pdv, q, k, g)
+
+
+def relpos_attention_backward_reference(q_u, q_v, k, v, p, bias, g, scale, keep=None,
+                                        rate=0.0):
+    """(dq_u, dq_v, dK, dV, dP) of ``relpos_attention_reference``:
+    dq_v[i] = Σ_j ds[i, j]·p[T-1-i+j] (a gather of table rows) and
+    dP[h, u] = Σ_b Σ_{T-1-i+j = u} ds[b, h, i, j]·q_v[b, h, i] (an ``index_add_``
+    over the table rows; rows past 2T-2 get 0). ``bias`` is a constant."""
+    h, t = q_u.shape[1], q_u.shape[2]
+    pdv, ds = _softmax_backward(_relpos_probs(q_u, q_v, k, p, bias, scale), v, g, scale,
+                                keep, rate)
+    dq_u, dk, dv = _qkv_grads(ds, pdv, q_u, k, g)
+    u = _relpos_rows(t, q_u.device)
+    dq_v = torch.einsum("bhst,hstd->bhsd", ds, p[:, u])
+    contrib = torch.einsum("bhst,bhsd->hstd", ds, q_v)
+    dp = torch.zeros_like(p).index_add_(1, u.reshape(-1), contrib.reshape(h, t * t, -1))
+    return dq_u, dq_v, dk, dv, dp
+
+
+# ---------------------------------------------------------------------------
+# Checks
+# ---------------------------------------------------------------------------
 
 
 def _check_inputs(named, device):
@@ -99,6 +303,21 @@ def _check_head_dim(d: int):
         raise ValueError(f"head dim {d} is not a multiple of 8 in [8, {MAX_HEAD_DIM}]")
 
 
+def _check_rate(rate: float):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} is not in [0, 1)")
+
+
+def _check_seed(seed, device, rate: float):
+    _check_rate(rate)
+    if rate == 0.0:
+        return
+    if not isinstance(seed, torch.Tensor) or seed.numel() != 1 or \
+            seed.dtype != torch.int64 or seed.device != device:
+        raise ValueError("dropout needs a one-element int64 seed tensor on "
+                         f"{device} (draw_seed), got {seed!r}")
+
+
 def _check(q, k, v, kv_bias):
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q/k/v must share one [B, H, T, D] shape, got "
@@ -113,25 +332,6 @@ def _check(q, k, v, kv_bias):
     _check_head_dim(d)
 
 
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """Causal attention with a key-validity bias. q/k/v [B, H, T, D] float32,
-    T a multiple of 64, D a multiple of 8 up to 256; kv_bias [B, 1, T] float32 (0 valid,
-    NEG_INF masked). Returns [B, H, T, D] float32. Every row must have one
-    allowed key, which key 0 gives on the serving path."""
-    _forward_only("masked_attention", q, k, v, kv_bias)
-    if not build.on_card(q, "masked_attention"):
-        return masked_attention_reference(q, k, v, kv_bias, scale)
-    _check(q, k, v, kv_bias)
-    out = torch.empty_like(q)
-    b, h, t, d = q.shape
-    build.launch(_MASKED, q.device, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), kv_bias.data_ptr(), out.data_ptr(), b, h, t, d,
-                 float(scale))
-    masked_attention.launches += 1
-    return out
-
-
 def _check_bias(q, k, v, bias):
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or \
             q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
@@ -143,24 +343,6 @@ def _check_bias(q, k, v, bias):
                          f"got {tuple(bias.shape)}")
     _check_inputs((("q", q), ("k", k), ("v", v), ("bias", bias)), q.device)
     _check_head_dim(d)
-
-
-def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """Attention under an additive bias that carries the whole mask. q
-    [B, H, TQ, D], k/v [B, H, TK, D], bias [B, TQ, TK], float32, any TQ and TK,
-    D a multiple of 8 up to 256. Returns [B, H, TQ, D] float32."""
-    _forward_only("bias_attention", q, k, v, bias)
-    if not build.on_card(q, "bias_attention"):
-        return bias_attention_reference(q, k, v, bias, scale)
-    _check_bias(q, k, v, bias)
-    out = torch.empty_like(q)
-    b, h, tq, d = q.shape
-    build.launch(_BIAS, q.device, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, tq, k.shape[2],
-                 d, float(scale))
-    bias_attention.launches += 1
-    return out
 
 
 def _check_relpos(q_u, q_v, k, v, p, bias):
@@ -182,25 +364,282 @@ def _check_relpos(q_u, q_v, k, v, p, bias):
     _check_head_dim(d)
 
 
-def relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor, p: torch.Tensor, bias: torch.Tensor,
-                     scale: float) -> torch.Tensor:
-    """Rel-pos self-attention softmax(((q_u Kᵀ) + shear(q_v Pᵀ))·scale + bias)·V.
-    q_u/q_v/k/v [B, H, T, D] float32, T a multiple of 64, D a multiple of 8 up
-    to 256; p [H, R >= 2T-1, D]; bias [B, 1|H, T, T]. Returns [B, H, T, D]."""
-    _forward_only("relpos_attention", q_u, q_v, k, v, p, bias)
-    if not build.on_card(q_u, "relpos_attention"):
-        return relpos_attention_reference(q_u, q_v, k, v, p, bias, scale)
-    _check_relpos(q_u, q_v, k, v, p, bias)
-    out = torch.empty_like(q_u)
+def _check_backward(g, out, stats, like):
+    """The backward kernels' own inputs: g and out shaped like q, the
+    forward's row statistics [B, H, TQ, 2]."""
+    if stats is None:
+        raise ValueError("the backward kernel needs the forward's row statistics")
+    if g.shape != like.shape or out.shape != like.shape or \
+            tuple(stats.shape) != (*like.shape[:3], 2):
+        raise ValueError(f"g/out must be {tuple(like.shape)} and stats "
+                         f"{(*like.shape[:3], 2)}, got {tuple(g.shape)} "
+                         f"{tuple(out.shape)} {tuple(stats.shape)}")
+    _check_inputs((("g", g), ("out", out), ("stats", stats)), like.device)
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+mask_draws = 0  # attention launches (backward: calls) that drew the dropout mask
+
+
+def _count(fn, rate: float):
+    global mask_draws
+    fn.launches += 1
+    if rate > 0.0:
+        mask_draws += 1
+
+
+# ---------------------------------------------------------------------------
+# Causal masked attention
+# ---------------------------------------------------------------------------
+
+
+def masked_attention_forward(q, k, v, kv_bias, scale, rate=0.0, seed=None,
+                             want_stats=False):
+    """``masked_attention`` outside autograd: (out, stats), stats [B, H, T, 2]
+    (each row's max and 1 / sum, what the backward kernel reads) on the card
+    when asked for, else None."""
+    _check_rate(rate)
+    b, h, t, d = q.shape
+    if not build.on_card(q, "masked_attention"):
+        return masked_attention_reference(
+            q, k, v, kv_bias, scale, _keep_or_none(seed, b, h, t, t, rate), rate), None
+    _check(q, k, v, kv_bias)
+    _check_seed(seed, q.device, rate)
+    out = torch.empty_like(q)
+    stats = q.new_empty((b, h, t, 2)) if want_stats else None
+    build.launch(_MASKED, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_bias.data_ptr(), out.data_ptr(), _ptr(seed) if rate > 0 else None,
+                 _ptr(stats), b, h, t, d, float(scale), float(rate))
+    _count(masked_attention, rate)
+    return out, stats
+
+
+def masked_attention_backward(q, k, v, kv_bias, g, out, stats, seed, scale: float,
+                              rate: float = 0.0):
+    """(dq, dK, dV) of ``masked_attention`` for g = d loss / d out. On the card
+    ``csrc/masked_attention_bwd.cu`` (``out`` and the forward's ``stats``
+    required); on the CPU ``masked_attention_backward_reference``."""
+    b, h, t, d = q.shape
+    if not build.on_card(q, "masked_attention_backward"):
+        return masked_attention_backward_reference(
+            q, k, v, kv_bias, g, scale, _keep_or_none(seed, b, h, t, t, rate), rate)
+    _check(q, k, v, kv_bias)
+    _check_backward(g, out, stats, q)
+    _check_seed(seed, q.device, rate)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = q.new_empty((b, h, t))
+    build.launch(_MASKED_BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_bias.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                 _ptr(seed) if rate > 0 else None, delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, h, t, d, float(scale), float(rate))
+    _count(masked_attention_backward, rate)
+    return dq, dk, dv
+
+
+class _MaskedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bias, seed, scale, rate, differentiate):
+        out, stats = masked_attention_forward(q, k, v, kv_bias, scale, rate, seed,
+                                              differentiate)
+        if differentiate:
+            ctx.save_for_backward(q, k, v, kv_bias, out, stats, seed)
+            ctx.scale, ctx.rate = scale, rate
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, kv_bias, out, stats, seed = ctx.saved_tensors
+        grads = masked_attention_backward(q, k, v, kv_bias, g.contiguous(), out, stats,
+                                          seed, ctx.scale, ctx.rate)
+        return (*grads, None, None, None, None, None)
+
+
+def _differentiate(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
+                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal attention with a key-validity bias. q/k/v [B, H, T, D] float32,
+    T a multiple of 64, D a multiple of 8 up to 256; kv_bias [B, 1, T] float32 (0 valid,
+    NEG_INF masked). Returns [B, H, T, D] float32. Every row must have one
+    allowed key, which key 0 gives on the serving and training paths.
+    ``dropout_rate`` > 0 drops attention probabilities inside the kernel, the
+    mask drawn from ``seed`` (``draw_seed``). Differentiable in q, k and v."""
+    return _MaskedAttention.apply(q, k, v, kv_bias, seed, scale, float(dropout_rate),
+                                  _differentiate(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# Attention under an arbitrary bias
+# ---------------------------------------------------------------------------
+
+
+def bias_attention_forward(q, k, v, bias, scale, rate=0.0, seed=None, want_stats=False):
+    """``bias_attention`` outside autograd: (out, stats) as
+    ``masked_attention_forward``."""
+    _check_rate(rate)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if not build.on_card(q, "bias_attention"):
+        return bias_attention_reference(
+            q, k, v, bias, scale, _keep_or_none(seed, b, h, tq, tk, rate), rate), None
+    _check_bias(q, k, v, bias)
+    _check_seed(seed, q.device, rate)
+    out = torch.empty_like(q)
+    stats = q.new_empty((b, h, tq, 2)) if want_stats else None
+    build.launch(_BIAS, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), _ptr(seed) if rate > 0 else None,
+                 _ptr(stats), b, h, tq, tk, d, float(scale), float(rate))
+    _count(bias_attention, rate)
+    return out, stats
+
+
+def bias_attention_backward(q, k, v, bias, g, out, stats, seed, scale: float,
+                            rate: float = 0.0):
+    """(dq, dK, dV) of ``bias_attention``: ``csrc/bias_attention_bwd.cu`` on the
+    card, ``bias_attention_backward_reference`` on the CPU."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if not build.on_card(q, "bias_attention_backward"):
+        return bias_attention_backward_reference(
+            q, k, v, bias, g, scale, _keep_or_none(seed, b, h, tq, tk, rate), rate)
+    _check_bias(q, k, v, bias)
+    _check_backward(g, out, stats, q)
+    _check_seed(seed, q.device, rate)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = q.new_empty((b, h, tq))
+    build.launch(_BIAS_BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 bias.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                 _ptr(seed) if rate > 0 else None, delta.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, float(scale), float(rate))
+    _count(bias_attention_backward, rate)
+    return dq, dk, dv
+
+
+class _BiasAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, scale, rate, differentiate):
+        out, stats = bias_attention_forward(q, k, v, bias, scale, rate, seed,
+                                            differentiate)
+        if differentiate:
+            ctx.save_for_backward(q, k, v, bias, out, stats, seed)
+            ctx.scale, ctx.rate = scale, rate
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, bias, out, stats, seed = ctx.saved_tensors
+        grads = bias_attention_backward(q, k, v, bias, g.contiguous(), out, stats, seed,
+                                        ctx.scale, ctx.rate)
+        return (*grads, None, None, None, None, None)
+
+
+def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
+                   seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention under an additive bias that carries the whole mask. q
+    [B, H, TQ, D], k/v [B, H, TK, D], bias [B, TQ, TK], float32, any TQ and TK,
+    D a multiple of 8 up to 256. Returns [B, H, TQ, D] float32. Dropout and
+    gradients as ``masked_attention``; the bias is a constant."""
+    return _BiasAttention.apply(q, k, v, bias, seed, scale, float(dropout_rate),
+                                _differentiate(q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# Rel-pos attention
+# ---------------------------------------------------------------------------
+
+
+def relpos_attention_forward(q_u, q_v, k, v, p, bias, scale, rate=0.0, seed=None,
+                             want_stats=False):
+    """``relpos_attention`` outside autograd: (out, stats) as
+    ``masked_attention_forward``."""
+    _check_rate(rate)
     b, h, t, d = q_u.shape
+    if not build.on_card(q_u, "relpos_attention"):
+        return relpos_attention_reference(
+            q_u, q_v, k, v, p, bias, scale, _keep_or_none(seed, b, h, t, t, rate),
+            rate), None
+    _check_relpos(q_u, q_v, k, v, p, bias)
+    _check_seed(seed, q_u.device, rate)
+    out = torch.empty_like(q_u)
+    stats = q_u.new_empty((b, h, t, 2)) if want_stats else None
     build.launch(_RELPOS, q_u.device, q_u.data_ptr(), q_v.data_ptr(),
                  k.data_ptr(), v.data_ptr(), p.data_ptr(), bias.data_ptr(),
-                 out.data_ptr(), b, h, t, d, p.shape[1], bias.shape[1], float(scale))
-    relpos_attention.launches += 1
-    return out
+                 out.data_ptr(), _ptr(seed) if rate > 0 else None, _ptr(stats), b, h, t,
+                 d, p.shape[1], bias.shape[1], float(scale), float(rate))
+    _count(relpos_attention, rate)
+    return out, stats
 
 
-masked_attention.launches = 0
-bias_attention.launches = 0
-relpos_attention.launches = 0
+def relpos_attention_backward(q_u, q_v, k, v, p, bias, g, out, stats, seed,
+                              scale: float, rate: float = 0.0):
+    """(dq_u, dq_v, dK, dV, dP) of ``relpos_attention``: on the card
+    ``csrc/relpos_attention_bwd.cu`` then ``csrc/relpos_attention_dp.cu`` (one
+    call here, counted once; dP through per-batch partials [B, H, R, D] that a
+    second kernel adds in batch order); on the CPU
+    ``relpos_attention_backward_reference``."""
+    b, h, t, d = q_u.shape
+    if not build.on_card(q_u, "relpos_attention_backward"):
+        return relpos_attention_backward_reference(
+            q_u, q_v, k, v, p, bias, g, scale, _keep_or_none(seed, b, h, t, t, rate),
+            rate)
+    _check_relpos(q_u, q_v, k, v, p, bias)
+    _check_backward(g, out, stats, q_u)
+    _check_seed(seed, q_u.device, rate)
+    dqu, dqv, dk, dv, dp = (torch.empty_like(x) for x in (q_u, q_v, k, v, p))
+    delta, dp_parts = q_u.new_empty((b, h, t)), q_u.new_empty((b, *p.shape))
+    seed_ptr = _ptr(seed) if rate > 0 else None
+    inputs = (q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+              bias.data_ptr(), g.data_ptr())
+    sizes = (b, h, t, d, p.shape[1], bias.shape[1], float(scale), float(rate))
+    build.launch(_RELPOS_BWD, q_u.device, *inputs, out.data_ptr(), stats.data_ptr(),
+                 seed_ptr, delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), *sizes)
+    build.launch(_RELPOS_DP, q_u.device, *inputs, stats.data_ptr(), delta.data_ptr(),
+                 seed_ptr, dp_parts.data_ptr(), dp.data_ptr(), *sizes)
+    _count(relpos_attention_backward, rate)
+    return dqu, dqv, dk, dv, dp
+
+
+class _RelposAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q_u, q_v, k, v, p, bias, seed, scale, rate, differentiate):
+        out, stats = relpos_attention_forward(q_u, q_v, k, v, p, bias, scale, rate, seed,
+                                              differentiate)
+        if differentiate:
+            ctx.save_for_backward(q_u, q_v, k, v, p, bias, out, stats, seed)
+            ctx.scale, ctx.rate = scale, rate
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q_u, q_v, k, v, p, bias, out, stats, seed = ctx.saved_tensors
+        grads = relpos_attention_backward(q_u, q_v, k, v, p, bias, g.contiguous(), out,
+                                          stats, seed, ctx.scale, ctx.rate)
+        return (*grads, None, None, None, None, None)
+
+
+def relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, p: torch.Tensor, bias: torch.Tensor,
+                     scale: float, dropout_rate: float = 0.0,
+                     seed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rel-pos self-attention softmax(((q_u Kᵀ) + shear(q_v Pᵀ))·scale + bias)·V.
+    q_u/q_v/k/v [B, H, T, D] float32, T a multiple of 64, D a multiple of 8 up
+    to 256; p [H, R >= 2T-1, D]; bias [B, 1|H, T, T]. Returns [B, H, T, D].
+    Dropout as ``masked_attention``; differentiable in q_u, q_v, k, v and p."""
+    return _RelposAttention.apply(q_u, q_v, k, v, p, bias, seed, scale,
+                                  float(dropout_rate), _differentiate(q_u, q_v, k, v, p))
+
+
+for _fn in (masked_attention, bias_attention, relpos_attention, masked_attention_backward,
+            bias_attention_backward, relpos_attention_backward, dropout_keep):
+    _fn.launches = 0

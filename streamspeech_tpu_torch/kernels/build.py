@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled for
 ``sm_90a`` into ``build/torch_kernels/lib<name>.so`` of the checkout, at first
-use (or when the source is newer than the library). Nothing here runs at import
-time: this module imports on machines without ``nvcc``.
+use (or when any file under ``csrc/`` is newer than the library: the sources
+share headers, ``csrc/*.cuh``). Nothing here runs at import time: this module
+imports on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -47,9 +48,13 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Whether ``lib<name>.so`` is missing or older than the newest file under
+    ``csrc/`` (its own source or any header it may include)."""
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.iterdir() if p.is_file())
+    return lib.stat().st_mtime < newest
 
 
 def build(names: Optional[List[str]] = None) -> Dict[str, dict]:
@@ -66,7 +71,7 @@ def build(names: Optional[List[str]] = None) -> Dict[str, dict]:
     procs = {}
     for n in todo:
         tmp = BUILD_DIR / f"lib{n}.so.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, time.perf_counter())

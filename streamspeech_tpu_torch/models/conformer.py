@@ -5,10 +5,10 @@
 fbank [B, T, 80] → Conv1dSubsampler (2 × stride-2 chunk-causal conv + GLU) →
 ×sqrt(d) → Linear → N conformer layers (FFN·½ → rel-pos MHSA with the chunk
 mask → conv module → FFN·½ → LN). ``forward`` encodes a whole utterance (the
-rel-pos kernel route at T >= 256 in eval mode; dropout and batch statistics in
-training); ``encode_block`` encodes one new block against the caches, and the
-chunk mask makes that exactly the offline encoding's rows. Only the
-``rel_pos`` encoder is ported.
+rel-pos kernel route at T >= 256 in eval mode, and in training on the kernel
+train route; dropout and batch statistics in training); ``encode_block``
+encodes one new block against the caches, and the chunk mask makes that
+exactly the offline encoding's rows. Only the ``rel_pos`` encoder is ported.
 """
 
 from __future__ import annotations

@@ -12,9 +12,13 @@ instead of copying them, and the valid length is a host integer.
 
 Training options follow flax: ``deterministic=False`` turns dropout on (its
 keep masks drawn from an explicit ``torch.Generator``, the counterpart of
-``rngs={"dropout": ...}``) and sends attention down the plain route, since the
-attention kernels have no backward yet; BatchNorm's ``use_running_stats=False``
-normalises with the batch statistics and updates the running ones.
+``rngs={"dropout": ...}``) and sends attention down the plain route, unless the
+attention module's ``kernel_train`` is set (``set_kernel_train``, the
+counterpart of ``STREAMSPEECH_PALLAS_TRAIN=1``): then training takes the
+kernel routes too, forward and backward, with the attention-probability
+dropout drawn inside the kernels from one seed per call. BatchNorm's
+``use_running_stats=False`` normalises with the batch statistics and updates
+the running ones.
 """
 
 from __future__ import annotations
@@ -159,6 +163,27 @@ def _relpos_kernel_ok(t: int, head_dim: int) -> bool:
     return t >= RELPOS_KERNEL_MIN_T and t % 128 == 0 and head_dim % 8 == 0
 
 
+def _rate_and_seed(rate: float, deterministic: bool,
+                   generator: Optional[torch.Generator], device):
+    """A kernel route's dropout rate and seed (`layers.py:313-318`): the seed
+    is drawn from ``generator`` only when the rate is above 0, so a route
+    without dropout leaves the random stream where it was."""
+    rate = 0.0 if deterministic else float(rate)
+    if rate == 0.0:
+        return 0.0, None
+    return rate, attention_kernels.draw_seed(generator, device)
+
+
+def set_kernel_train(model: nn.Module, on: bool) -> nn.Module:
+    """Set ``kernel_train`` on every attention module of ``model``: whether
+    ``deterministic=False`` (training) takes the attention kernel routes, the
+    counterpart of the JAX package's ``STREAMSPEECH_PALLAS_TRAIN`` variable."""
+    for module in model.modules():
+        if isinstance(module, (MultiHeadAttention, RelPosMultiHeadAttention)):
+            module.kernel_train = bool(on)
+    return model
+
+
 class MultiHeadAttention(nn.Module):
     """fairseq-style MHA, self or cross (`layers.py:192`). ``kdim`` is the width
     of the keys' source when it differs from ``embed_dim`` (the MT decoder's
@@ -169,6 +194,7 @@ class MultiHeadAttention(nn.Module):
                  kdim: Optional[int] = None, dropout: float = 0.0):
         super().__init__()
         self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
+        self.kernel_train = False     # see set_kernel_train
         kdim = embed_dim if kdim is None else kdim
         self.q_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
         self.k_proj = nn.Linear(kdim, embed_dim, bias=bias)
@@ -185,17 +211,19 @@ class MultiHeadAttention(nn.Module):
                 generator: Optional[torch.Generator] = None):
         """Routes (`layers.py:240-287`): cached self-attention appends the new
         K/V first; cached cross-attention reads a cache filled by
-        ``fill_cross_cache``; without a cache and with ``deterministic``,
-        ``causal=True`` self-attention at T >= 256 goes through the causal
-        masked-attention kernel, and a per-query mask (bias [B|1, 1, S, T]) at
-        S >= 512 through the bias-attention kernel. ``deterministic=False``
-        takes the plain route with dropout (the kernels are forward-only)."""
+        ``fill_cross_cache``; without a cache and with ``deterministic`` or
+        ``kernel_train``, ``causal=True`` self-attention at T >= 256 goes
+        through the causal masked-attention kernel, and a per-query mask (bias
+        [B|1, 1, S, T]) at S >= 512 through the bias-attention kernel, with
+        the dropout inside the kernel. Otherwise ``deterministic=False`` takes
+        the plain route with dropout."""
         h = self.num_heads
         dh = self.embed_dim // h
         scale = dh ** -0.5
         b, s, _ = query.shape
         kv_in = query if key_value is None else key_value
         q = self.q_proj(query).view(b, s, h, dh)
+        kernels = deterministic or self.kernel_train
 
         if cache is not None and not cache_is_cross and key_value is None:
             k_new = self.k_proj(kv_in).view(b, s, h, dh)
@@ -209,9 +237,10 @@ class MultiHeadAttention(nn.Module):
             t = kv_in.shape[1]
             k = self.k_proj(kv_in).view(b, t, h, dh)
             v = self.v_proj(kv_in).view(b, t, h, dh)
-            if (causal and key_value is None and allowed is None and deterministic
+            if (causal and key_value is None and allowed is None and kernels
                     and _masked_kernel_ok(t, dh)):
-                out = self._causal_kernel(q, k, v, key_valid, scale)
+                out = self._causal_kernel(q, k, v, key_valid, scale, *_rate_and_seed(
+                    self.dropout, deterministic, generator, q.device))
             else:
                 if causal and allowed is None:
                     allowed = causal_allowed(s, device=query.device)
@@ -219,8 +248,9 @@ class MultiHeadAttention(nn.Module):
                 # only a genuine per-query mask, as `layers.py:274-283`: a
                 # key-valid-only [B, 1, 1, T] bias stays on the plain path
                 if (bias is not None and bias.shape[1] == 1 and bias.shape[-2] == s
-                        and deterministic and _bias_kernel_ok(s, dh)):
-                    out = self._bias_kernel(q, k, v, bias, scale)
+                        and kernels and _bias_kernel_ok(s, dh)):
+                    out = self._bias_kernel(q, k, v, bias, scale, *_rate_and_seed(
+                        self.dropout, deterministic, generator, q.device))
                 else:
                     out = attend(q, k, v, bias, scale, self.dropout, deterministic,
                                  generator)
@@ -228,10 +258,11 @@ class MultiHeadAttention(nn.Module):
         return out, cache
 
     @staticmethod
-    def _causal_kernel(q, k, v, key_valid, scale):
+    def _causal_kernel(q, k, v, key_valid, scale, rate=0.0, seed=None):
         """`layers.py:289-323` ``_causal_pallas``: pad T to the 128 tile (padded
         keys masked through the [B, T] bias, padded query rows sliced off) and
-        run the causal masked-attention kernel. q/k/v [B, S, H, Dh]."""
+        run the causal masked-attention kernel, with dropout at ``rate`` from
+        ``seed`` inside it. q/k/v [B, S, H, Dh]."""
         b, s, h, dh = q.shape
         t_pad = -(-s // 128) * 128
         if key_valid is None:
@@ -242,18 +273,21 @@ class MultiHeadAttention(nn.Module):
         kvb = F.pad(kvb, (0, t_pad - s), value=NEG_INF)
         q, k, v = (F.pad(a, (0, 0, 0, 0, 0, t_pad - s)).transpose(1, 2).contiguous()
                    for a in (q, k, v))
-        out = attention_kernels.masked_attention(q, k, v, kvb[:, None, :], scale)
+        out = attention_kernels.masked_attention(q, k, v, kvb[:, None, :], scale, rate,
+                                                 seed)
         return out.transpose(1, 2)[:, :s]
 
     @staticmethod
-    def _bias_kernel(q, k, v, bias, scale):
+    def _bias_kernel(q, k, v, bias, scale, rate=0.0, seed=None):
         """`layers.py:325-362` ``_bias_pallas``: the bias [B|1, 1, S, T] carries
         the whole mask; the kernel masks its own ragged edges, so nothing is
-        padded. q [B, S, H, Dh], k/v [B, T, H, Dh] → [B, S, H, Dh]."""
+        padded; dropout at ``rate`` from ``seed`` inside the kernel.
+        q [B, S, H, Dh], k/v [B, T, H, Dh] → [B, S, H, Dh]."""
         b, s, _, _ = q.shape
         b3 = bias[:, 0].expand(b, s, k.shape[1]).contiguous()
         q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-        return attention_kernels.bias_attention(q, k, v, b3, scale).transpose(1, 2)
+        return attention_kernels.bias_attention(q, k, v, b3, scale, rate,
+                                                seed).transpose(1, 2)
 
     def fill_cross_cache(self, key_value: torch.Tensor, cache: KVCache) -> KVCache:
         """Project encoder states once and append them to a cross-attention cache."""
@@ -269,13 +303,14 @@ class RelPosMultiHeadAttention(nn.Module):
     [R, C] covers relative positions (q_offset + S - 1) ... downwards; bd[i, j]
     is read at table row rmax - (q_offset + i - j). With a cache the new K/V are
     appended first (the serving route); without one (the offline forward,
-    R = 2T-1) and with ``deterministic`` the rel-pos kernel takes T >= 256,
-    T % 128 == 0. ``dropout`` is the rate on the attention probabilities of the
-    plain route (`layers.py:499`)."""
+    R = 2T-1) and with ``deterministic`` or ``kernel_train`` the rel-pos kernel
+    takes T >= 256, T % 128 == 0. ``dropout`` is the rate on the attention
+    probabilities (`layers.py:499`), drawn inside the kernel on its route."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
+        self.kernel_train = False     # see set_kernel_train
         dh = embed_dim // num_heads
         self.q_proj = nn.Linear(embed_dim, embed_dim)
         self.k_proj = nn.Linear(embed_dim, embed_dim)
@@ -307,9 +342,10 @@ class RelPosMultiHeadAttention(nn.Module):
         r = p.shape[0]
         q_u, q_v = q + self.pos_bias_u, q + self.pos_bias_v
         bias = mask_to_bias(allowed, key_valid)
-        if (cache is None and deterministic and s == t and r == 2 * t - 1
-                and _relpos_kernel_ok(t, dh)):
-            out = self._relpos_kernel(q_u, q_v, k, v, p, bias, scale)
+        if (cache is None and (deterministic or self.kernel_train) and s == t
+                and r == 2 * t - 1 and _relpos_kernel_ok(t, dh)):
+            out = self._relpos_kernel(q_u, q_v, k, v, p, bias, scale, *_rate_and_seed(
+                self.dropout, deterministic, generator, x.device))
         else:
             rmax = q_offset + s - 1
             ac = torch.einsum("bshd,bthd->bhst", q_u, k)
@@ -327,17 +363,18 @@ class RelPosMultiHeadAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, self.embed_dim)), cache
 
     @staticmethod
-    def _relpos_kernel(q_u, q_v, k, v, p, bias, scale):
+    def _relpos_kernel(q_u, q_v, k, v, p, bias, scale, rate=0.0, seed=None):
         """`layers.py:446-480`: [B, T, H, Dh] inputs to the kernel's
         [B, H, T, Dh]; the table [R, H, Dh] to [H, R, Dh]; the bias (chunk mask +
-        key validity, [B|1, 1, T, T] or None) broadcast to [B, 1, T, T]."""
+        key validity, [B|1, 1, T, T] or None) broadcast to [B, 1, T, T]; dropout
+        at ``rate`` from ``seed`` inside the kernel."""
         b, t, _, _ = q_u.shape
         if bias is None:
             bias = torch.zeros((1, 1, t, t), dtype=torch.float32, device=q_u.device)
         bias = bias.expand(b, 1, t, t).contiguous()
         q_u, q_v, k, v = (a.transpose(1, 2).contiguous() for a in (q_u, q_v, k, v))
         out = attention_kernels.relpos_attention(
-            q_u, q_v, k, v, p.transpose(0, 1).contiguous(), bias, scale)
+            q_u, q_v, k, v, p.transpose(0, 1).contiguous(), bias, scale, rate, seed)
         return out.transpose(1, 2)
 
 

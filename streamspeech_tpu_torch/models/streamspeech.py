@@ -5,7 +5,8 @@ streaming methods (``streamspeech_tpu/models/streamspeech.py``; reference
 Conventions: PAD=1, EOS=2; the aux CTC heads' blank is index 0, the unit CTC
 blank the last index. The forward takes flax's training options:
 ``deterministic=False`` (dropout, with an explicit ``torch.Generator``, and the
-plain attention routes) and ``use_running_stats=False`` (BatchNorm's batch
+plain attention routes, or the kernel routes once ``layers.set_kernel_train``
+has set the switch) and ``use_running_stats=False`` (BatchNorm's batch
 statistics).
 """
 
@@ -99,7 +100,8 @@ class StreamSpeechModel(nn.Module):
 
         Training (`trainer.py:106-112`): ``deterministic=False`` turns dropout
         on, its keep masks drawn from ``generator`` (required when any dropout
-        is above 0), and takes the plain attention routes;
+        is above 0), and takes the plain attention routes unless the attention
+        modules' ``kernel_train`` is set (``layers.set_kernel_train``);
         ``use_running_stats=False`` normalises with batch statistics and
         updates BatchNorm's running buffers in place. The not-blank kernel still
         builds the CTC mask, which carries no gradient."""

@@ -30,6 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from streamspeech_tpu_torch.config import OptimizationConfig
+from streamspeech_tpu_torch.models.layers import set_kernel_train
 from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.ops.specaugment import specaugment_apply, specaugment_draws
 from streamspeech_tpu_torch.train.criterion import CriterionWeights, streamspeech_loss
@@ -167,7 +168,8 @@ def rdrop_kl(logits1: torch.Tensor, logits2: torch.Tensor,
 def make_train_step(model: StreamSpeechModel, tx: Optimizer, unit_blank: int,
                     weights: CriterionWeights = CriterionWeights(),
                     rdrop_alpha: float = 0.0,
-                    specaugment_cfg: Optional[Dict[str, Any]] = None) -> Callable:
+                    specaugment_cfg: Optional[Dict[str, Any]] = None,
+                    kernel_attention: bool = False) -> Callable:
     """Returns ``train_step(state, batch, generator, chunk_size,
     conv_chunk_size) -> (state, metrics)`` (`trainer.py:74-162`) for a state
     made by ``TrainState.create(model, tx)``.
@@ -181,7 +183,15 @@ def make_train_step(model: StreamSpeechModel, tx: Optimizer, unit_blank: int,
     logits; the BatchNorm statistics of the first pass are kept. After the
     step each parameter's ``.grad`` holds its guarded gradient. Metrics: the
     criterion's, ``grad_norm``, ``overflow`` and ``loss_mean`` (0-dim tensors
-    on the device; nothing waits for the device)."""
+    on the device; nothing waits for the device).
+
+    ``kernel_attention=True`` is the counterpart of the JAX package's
+    ``STREAMSPEECH_PALLAS_TRAIN=1``: training's attention takes the kernel
+    routes (rel-pos, causal and bias attention, forward and backward, the
+    attention-probability dropout drawn inside the kernels) wherever their
+    gates admit the shape. It is set on the model's attention modules here
+    (``set_kernel_train``), on or off; off, the step is the plain route's."""
+    set_kernel_train(model, kernel_attention)
 
     def forward(batch, generator, chunk_size, conv_chunk_size):
         src = batch["src_tokens"]

@@ -299,17 +299,218 @@ def test_ctc_autograd_function_matches_the_plain_path(hopper):
     assert not grads[0][3].any()                       # 12 labels in 3 frames
 
 
+GRAD_RTOL = 1e-4  # kernel vs plain backward, of max |ref| per tensor: summation order
+
+
+def _grad_close(got, want, names):
+    for name, g, w in zip(names, got, want):
+        tol = GRAD_RTOL * float(w.abs().max()) + 1e-7
+        err = float((g - w).abs().max())
+        assert err <= tol, f"{name}: {err} > {tol}"
+
+
+def _seed(hopper, value=1234):
+    return torch.tensor([value], dtype=torch.int64, device=hopper)
+
+
 @pytest.mark.gpu
 def test_attention_wrappers_raise_under_autograd(hopper):
-    q = torch.zeros(1, 2, 256, 64, device=hopper, requires_grad=True)
+    """A gradient now arrives through each wrapper on the card and equals the
+    plain version's (autograd through ``*_reference``)."""
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2, 256, 64).astype(np.float32)).to(hopper)
+               for _ in range(3))
     kvb = torch.zeros(1, 1, 256, device=hopper)
-    with pytest.raises(RuntimeError, match="masked_attention is forward-only"):
-        attention.masked_attention(q, q, q, kvb, 0.125)
-    with pytest.raises(RuntimeError, match="bias_attention is forward-only"):
-        attention.bias_attention(q, q, q, torch.zeros(1, 256, 256, device=hopper), 0.125)
-    p = torch.zeros(2, 511, 64, device=hopper)
-    with pytest.raises(RuntimeError, match="relpos_attention is forward-only"):
-        attention.relpos_attention(q, q, q, q, p, kvb[:, :, None].expand(1, 1, 256, 256)
-                                   .contiguous(), 0.125)
+    bias3 = torch.zeros(1, 256, 256, device=hopper)
+    p = torch.from_numpy(rng.randn(2, 511, 64).astype(np.float32)).to(hopper)
+    bias4 = bias3[:, None].contiguous()
+    g = torch.from_numpy(rng.randn(1, 2, 256, 64).astype(np.float32)).to(hopper)
+    cases = {
+        "masked": (attention.masked_attention, attention.masked_attention_reference,
+                   (q, k, v), (kvb,)),
+        "bias": (attention.bias_attention, attention.bias_attention_reference,
+                 (q, k, v), (bias3,)),
+        "relpos": (attention.relpos_attention, attention.relpos_attention_reference,
+                   (q, q * 0.5, k, v, p), (bias4,)),
+    }
+    for name, (fn, ref, diff, const) in cases.items():
+        grads = []
+        for f in (fn, ref):
+            xs = [x.clone().requires_grad_() for x in diff]
+            out = f(*xs, *const, 0.125)
+            assert out.grad_fn is not None
+            grads.append(torch.autograd.grad(out, xs, g))
+        _grad_close(grads[0], grads[1], [f"{name}[{i}]" for i in range(len(diff))])
     with torch.no_grad():
-        attention.masked_attention(q, q, q, kvb, 0.125)
+        attention.masked_attention(q.requires_grad_(), q, q, kvb, 0.125)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,rate", [(2, 3, 130, 70, 0.1), (1, 1, 64, 64, 0.5),
+                                            (1, 2, 1280, 1280, 0.1), (2, 2, 5, 3, 0.9)])
+def test_kernel_mask_equals_the_plain_mask(hopper, b, h, tq, tk, rate):
+    """The mask the kernels' device functions draw is ``dropout_keep_reference``
+    bit for bit, follows the seed, and keeps 1 - rate of the elements (3 sigma)."""
+    seed = _seed(hopper, 77)
+    got = attention.dropout_keep(seed, b, h, tq, tk, rate)
+    want = attention.dropout_keep_reference(seed, b, h, tq, tk, rate)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert torch.equal(got.cpu(), attention.dropout_keep_reference(77, b, h, tq, tk, rate))
+    n = got.numel()
+    if n > 1000:
+        assert not torch.equal(got, attention.dropout_keep(_seed(hopper, 78), b, h, tq,
+                                                           tk, rate))
+        sigma = (rate * (1 - rate) / n) ** 0.5
+        assert abs(float(got.float().mean()) - (1 - rate)) < 3 * sigma
+
+
+def _run_fwd_bwd(fn, bwd, ref, ref_bwd, diff, const, g, scale, rate, seed, keep):
+    """The wrapper's forward and backward (through autograd) against the plain
+    forward and the plain backward under the same keep mask."""
+    before = (fn.launches, bwd.launches, attention.mask_draws,
+              attention.dropout_keep.launches)
+    xs = [x.clone().requires_grad_() for x in diff]
+    out = fn(*xs, *const, scale, rate, seed)
+    grads = torch.autograd.grad(out, xs, g)
+    torch.cuda.synchronize()
+    drew = 2 if rate > 0 else 0
+    assert (fn.launches, bwd.launches, attention.mask_draws,
+            attention.dropout_keep.launches) == \
+        (before[0] + 1, before[1] + 1, before[2] + drew, before[3])
+    want = ref(*diff, *const, scale, keep, rate)
+    tol = GRAD_RTOL * float(want.abs().max())
+    assert float((out - want).abs().max()) <= tol
+    want_grads = ref_bwd(*diff, *const, g, scale, keep, rate)
+    _grad_close(grads, want_grads, [f"d{i}" for i in range(len(diff))])
+    again = torch.autograd.grad(fn(*xs, *const, scale, rate, seed), xs, g)
+    for a, c in zip(grads, again):
+        assert torch.equal(a, c)                       # no atomics: bit for bit
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,t,d,n_valid", [(8, 8, 1280, 64, None), (2, 2, 320, 24, [300, 320]),
+                                             (1, 2, 128, 200, [128]), (1, 1, 64, 256, [60]),
+                                             (1, 2, 192, 8, [192])])
+def test_masked_attention_backward_matches_plain_version(hopper, b, h, t, d, n_valid, rate):
+    n_valid = [1200] * b if n_valid is None else n_valid
+    q, k, v, kvb = (torch.from_numpy(a).to(hopper)
+                    for a in _inputs(b, h, t, d, seed=t + d, n_valid=n_valid))
+    g = torch.from_numpy(np.random.RandomState(1).randn(b, h, t, d).astype(np.float32)
+                         ).to(hopper)
+    seed = _seed(hopper) if rate > 0 else None
+    keep = attention.dropout_keep_reference(seed, b, h, t, t, rate) if rate > 0 else None
+    _run_fwd_bwd(attention.masked_attention, attention.masked_attention_backward,
+                 attention.masked_attention_reference,
+                 attention.masked_attention_backward_reference, (q, k, v), (kvb,), g,
+                 d ** -0.5, rate, seed, keep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,tq,tk,d", [(8, 1200, 48, 64), (2, 70, 130, 16),
+                                       (1, 100, 3, 256), (1, 600, 24, 200)])
+def test_bias_attention_backward_matches_plain_version(hopper, b, tq, tk, d, rate):
+    q, k, v, bias = (torch.from_numpy(a).to(hopper)
+                     for a in _bias_inputs(b, 8, tq, tk, d, seed=tq + tk))
+    g = torch.from_numpy(np.random.RandomState(2).randn(b, 8, tq, d).astype(np.float32)
+                         ).to(hopper)
+    seed = _seed(hopper) if rate > 0 else None
+    keep = attention.dropout_keep_reference(seed, b, 8, tq, tk, rate) if rate > 0 else None
+    _run_fwd_bwd(attention.bias_attention, attention.bias_attention_backward,
+                 attention.bias_attention_reference,
+                 attention.bias_attention_backward_reference, (q, k, v), (bias,), g,
+                 d ** -0.5, rate, seed, keep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t,d,bias_heads,extra_rows", [
+    (8, 256, 64, 1, 0), (1, 512, 64, 4, 0), (2, 128, 24, 1, 5), (1, 128, 112, 1, 0),
+    (1, 128, 224, 4, 0), (1, 64, 256, 1, 0), (1, 64, 8, 1, 0)])
+def test_relpos_attention_backward_matches_plain_version(hopper, b, t, d, bias_heads,
+                                                         extra_rows, rate):
+    """B2 at the encoder's train shape, at every tile size of the three passes
+    (64, 32 and 16 rows), with a table longer than 2T-1 (its extra rows get a
+    zero gradient) and with a wholly masked row (T - 40 valid keys, chunk 8)."""
+    qu, qv, k, v, p, bias = (torch.from_numpy(a).to(hopper) for a in _relpos_inputs(
+        b, 4, t, d, seed=t + d, n_valid=[t - 40] + [t] * (b - 1), chunk=8,
+        bias_heads=bias_heads))
+    if extra_rows:
+        p = torch.cat([p, torch.ones(4, extra_rows, d, device=hopper)], dim=1).contiguous()
+    g = torch.from_numpy(np.random.RandomState(3).randn(b, 4, t, d).astype(np.float32)
+                         ).to(hopper)
+    seed = _seed(hopper) if rate > 0 else None
+    keep = attention.dropout_keep_reference(seed, b, 4, t, t, rate) if rate > 0 else None
+    _run_fwd_bwd(attention.relpos_attention, attention.relpos_attention_backward,
+                 attention.relpos_attention_reference,
+                 attention.relpos_attention_backward_reference, (qu, qv, k, v, p),
+                 (bias,), g, d ** -0.5, rate, seed, keep)
+
+
+@pytest.mark.gpu
+def test_backward_wrappers_raise_instead_of_falling_back(hopper):
+    q = torch.zeros(1, 2, 128, 64, device=hopper)
+    kvb = torch.zeros(1, 1, 128, device=hopper)
+    stats = torch.zeros(1, 2, 128, 2, device=hopper)
+    with pytest.raises(ValueError, match="row statistics"):
+        attention.masked_attention_backward(q, q, q, kvb, q, q, None, None, 0.125)
+    with pytest.raises(ValueError, match="seed"):
+        attention.masked_attention_backward(q, q, q, kvb, q, q, stats, None, 0.125, 0.1)
+    with pytest.raises(ValueError, match="seed"):          # a seed on the host
+        attention.masked_attention(q, q, q, kvb, 0.125, 0.1, torch.tensor([3]))
+    with pytest.raises(ValueError, match="rate"):
+        attention.bias_attention(q, q, q, torch.zeros(1, 128, 128, device=hopper), 0.125,
+                                 1.0, _seed(hopper))
+
+
+@pytest.mark.gpu
+def test_kernel_train_step_on_the_card_matches_the_cpu(hopper):
+    """One tiny train step with the kernel route on (T_enc 256, unit T 600),
+    attention dropout 0.1 drawn in the kernels from fixed seeds and every other
+    dropout 0, on the card (kernels) and on the CPU (plain versions): the same
+    losses and gradients, and 2/1/1 forward and backward launches."""
+    from streamspeech_tpu_torch.config import OptimizationConfig, tiny_config
+    from streamspeech_tpu_torch.models.layers import RelPosMultiHeadAttention
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+    from streamspeech_tpu_torch.train import trainer
+    from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
+    from streamspeech_tpu_torch.weights import random_init_
+
+    cfg = tiny_config(vocab_text=512, upsample=25)
+    cfg.encoder.dropout = cfg.mt_decoder.dropout = cfg.unit_decoder.dropout = 0.0
+    nb = synthetic_batch(cfg, batch=2, frames=1024, mt_len=24, units_len=120, text_len=16)
+    wrappers = (attention.relpos_attention, attention.masked_attention,
+                attention.bias_attention, attention.relpos_attention_backward,
+                attention.masked_attention_backward, attention.bias_attention_backward)
+    real_draw = attention.draw_seed
+    runs = {}
+    try:
+        for device in ("cpu", hopper):
+            model = random_init_(StreamSpeechModel(cfg), 0).to(device)
+            for name, m in model.named_modules():
+                if isinstance(m, RelPosMultiHeadAttention) or name.startswith(
+                        "unit_decoder.") and hasattr(m, "kernel_train"):
+                    m.dropout = 0.1
+            calls = iter(range(100, 200))
+            attention.draw_seed = lambda gen, dev: torch.tensor(    # noqa: E731
+                [next(calls)], dtype=torch.int64, device=dev)
+            tx = trainer.make_optimizer(OptimizationConfig(update_freq=1))
+            step = trainer.make_train_step(model, tx, cfg.unit_decoder.vocab_size - 1,
+                                           kernel_attention=True)
+            before = [f.launches for f in wrappers]
+            _, metrics = step(trainer.TrainState.create(model, tx),
+                              batch_to_tensors(nb, device),
+                              torch.Generator(device=device).manual_seed(0), 8, 8)
+            runs[str(device)] = (float(metrics["loss"]),
+                                 {n: p.grad.cpu() for n, p in model.named_parameters()},
+                                 [f.launches - c for f, c in zip(wrappers, before)])
+    finally:
+        attention.draw_seed = real_draw
+    (ref_loss, ref_grads, cpu_launches), (loss, grads, launches) = runs["cpu"], runs[str(hopper)]
+    assert cpu_launches == [0] * 6 and launches == [2, 1, 1, 2, 1, 1]
+    assert abs(loss - ref_loss) <= 1e-4 * max(1.0, abs(ref_loss))
+    for name, want in ref_grads.items():
+        tol = 1e-3 * float(want.abs().max()) + 1e-7
+        assert float((grads[name] - want).abs().max()) <= tol, name

@@ -3,7 +3,7 @@ numpy-seeded inputs: the LR schedules, the optimizer against
 ``make_optimizer``'s optax chain (clipping, Adam, decoupled weight decay,
 ``MultiSteps``, the overflow guard), BatchNorm's batch statistics against flax
 ``nn.BatchNorm``, the multitask criterion, ``synthetic_batch``, SpecAugment's
-apply and draws, R-Drop's KL, dropout, and the forward-only attention wrappers
+apply and draws, R-Drop's KL, dropout, and the attention wrappers' gradients
 under autograd. Each tolerance is stated where it is used."""
 
 import flax.linen as fnn
@@ -334,25 +334,40 @@ def test_dropout_has_flax_semantics():
 
 
 # ---------------------------------------------------------------------------
-# The forward-only kernel wrappers under autograd
+# The attention kernel wrappers under autograd
 # ---------------------------------------------------------------------------
 
 
 def test_attention_wrappers_raise_under_autograd():
-    """The attention kernels have no backward yet: a wrapper raises where
-    autograd would need a gradient through it, on the CPU as on the card,
-    and computes as before under ``no_grad`` or without such inputs."""
-    q = torch.randn(1, 2, 64, 8, requires_grad=True)
+    """The attention wrappers are differentiable: where autograd needs a
+    gradient through one it arrives (it used to raise) and equals the plain
+    version's, on the CPU as on the card; under ``no_grad`` or without such
+    inputs a wrapper computes as before and records no graph."""
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.randn(1, 2, 64, 8).astype(np.float32)).requires_grad_()
+    g = torch.from_numpy(rng.randn(1, 2, 64, 8).astype(np.float32))
     kvb = torch.zeros(1, 1, 64)
     bias = torch.zeros(1, 64, 64)
-    p = torch.randn(2, 127, 8)
-    calls = {"masked_attention": lambda x: attention.masked_attention(x, x, x, kvb, 0.3),
-             "bias_attention": lambda x: attention.bias_attention(x, x, x, bias, 0.3),
-             "relpos_attention": lambda x: attention.relpos_attention(
-                 x, x, x, x, p, bias[:, None], 0.3)}
-    for name, call in calls.items():
-        with pytest.raises(RuntimeError, match=f"{name} is forward-only"):
-            call(q)
+    p = torch.from_numpy(rng.randn(2, 127, 8).astype(np.float32))
+    calls = {
+        "masked_attention": (
+            lambda x: attention.masked_attention(x, x, x, kvb, 0.3),
+            lambda x: attention.masked_attention_reference(x, x, x, kvb, 0.3)),
+        "bias_attention": (
+            lambda x: attention.bias_attention(x, x, x, bias, 0.3),
+            lambda x: attention.bias_attention_reference(x, x, x, bias, 0.3)),
+        "relpos_attention": (
+            lambda x: attention.relpos_attention(x, x, x, x, p, bias[:, None], 0.3),
+            lambda x: attention.relpos_attention_reference(x, x, x, x, p, bias[:, None],
+                                                           0.3)),
+    }
+    for name, (call, plain) in calls.items():
+        out = call(q)
+        assert out.grad_fn is not None, name
+        (got,) = torch.autograd.grad(out, q, g)
+        (want,) = torch.autograd.grad(plain(q), q, g)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5, msg=name)
         with torch.no_grad():
-            want = call(q)
-        torch.testing.assert_close(call(q.detach()), want, rtol=0, atol=0)
+            quiet = call(q)
+        assert quiet.grad_fn is None and call(q.detach()).grad_fn is None
+        torch.testing.assert_close(quiet, out.detach(), rtol=0, atol=0)

@@ -1,20 +1,25 @@
 """Where the time of the port's train step goes, on one CUDA card.
 
-    python3 tools/profile_torch_train.py [--out chiprun_out/profile_train.txt]
+    python3 tools/profile_torch_train.py [--route default|kernels|both]
+                                         [--out chiprun_out/profile_train.txt]
 
 Builds the ``chip_smoke.py`` train setup (``full_config``, fp32, dropout 0.1,
 seeded random weights, ``measure_train_step``'s batch: B=8, 1024 fbank frames,
 MT 48, 256 target units, 32 text tokens; chunk 8, conv chunk 8, Adam with
-warmup 10000, lr 1e-3, clip 10) and, after 2 warm-up steps:
+warmup 10000, lr 1e-3, clip 10) on the default route (plain attention) or the
+kernel route (``make_train_step(..., kernel_attention=True)``: the attention
+kernels forward and backward, dropout inside them) and, after 2 warm-up steps:
 
 1. the host clock around 5 steps, each ended by a device sync;
 2. 3 steps under ``torch.profiler`` (CPU + CUDA activities): the device time
    of all kernels per step, the device-busy share of the host-clock step, the
-   launches per step, the top device operations, and the share of the CTC
-   alpha and beta kernels (B8, B9).
+   launches per step, the top device operations, the device time of each of
+   the port's kernels, and the share of the CTC alpha and beta kernels (B8, B9).
 
-Prints one JSON line and the card's ``nvidia-smi`` name and power limit; the
-profiler's table goes to ``--out``. fp32 throughout (TF32 off).
+``--route both`` profiles default, kernels, kernels, default in turns in one
+process, so that the two routes are compared on one card. Prints one JSON line
+per run and the card's ``nvidia-smi`` name and power limit; the profiler's
+tables go to ``--out`` (one file, a section per run). fp32 throughout (TF32 off).
 """
 
 from __future__ import annotations
@@ -44,35 +49,43 @@ from streamspeech_tpu_torch.train.trainer import (  # noqa: E402
 )
 from streamspeech_tpu_torch.weights import random_init_  # noqa: E402
 
-KERNELS = ("ctc_alpha_kernel", "ctc_beta_grad_kernel", "not_blank_kernel")
+# the port's kernels by the substrings that name them in the profiler's rows
+KERNELS = {
+    "ctc_alpha_kernel": ("ctc_alpha_kernel",),
+    "ctc_beta_grad_kernel": ("ctc_beta_grad_kernel",),
+    "not_blank_kernel": ("not_blank_kernel",),
+    "relpos_attention_kernel": ("relpos_attention_kernel",),
+    "causal_attention_kernel": ("causal_attention_kernel",),
+    "bias_attention_kernel": ("bias_attention_kernel",),
+    "relpos_dq_kernel": ("relpos_dq_kernel",),
+    "relpos_dkv_kernel": ("relpos_dkv_kernel",),
+    "relpos_dp_kernel": ("relpos_dp_kernel",),
+    "causal_dq_kernel": ("attn_bwd::dq_kernel", "CausalBias"),
+    "causal_dkv_kernel": ("attn_bwd::dkv_kernel", "CausalBias"),
+    "bias_dq_kernel": ("attn_bwd::dq_kernel", "FullBias"),
+    "bias_dkv_kernel": ("attn_bwd::dkv_kernel", "FullBias"),
+    "rowdot_kernel": ("rowdot_kernel",),
+}
 PROFILED_STEPS = 3
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default="chiprun_out/profile_train.txt")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_train: needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-
+def profile_route(kernel_attention: bool, seed: int) -> str:
+    """Profile one route; print its JSON line and return the profiler's table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = full_config()
-    model = random_init_(StreamSpeechModel(cfg), args.seed).cuda()
+    model = random_init_(StreamSpeechModel(cfg), seed).cuda()
     tx = make_optimizer(OptimizationConfig(update_freq=1, warmup_updates=10000, lr=1e-3,
                                            clip_norm=10.0))
-    step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1)
+    step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1,
+                           kernel_attention=kernel_attention)
     state = TrainState.create(model, tx)
     batch = batch_to_tensors(synthetic_batch(cfg, batch=8, frames=1024, mt_len=48,
                                              units_len=256, text_len=32), "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(2):
         state, _ = step(state, batch, gen, 8, 8)
     walls = []
@@ -91,14 +104,19 @@ def main():
     kernel_rows = [e for e in events if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernel_rows) / 1e3 / PROFILED_STEPS
     wall_ms = statistics.median(walls) * 1e3
-    port_ms = {k: sum(e.self_device_time_total for e in kernel_rows if k in e.key)
-               / 1e3 / PROFILED_STEPS for k in KERNELS}
+    port_ms = {name: sum(e.self_device_time_total for e in kernel_rows
+                         if all(part in e.key for part in parts)) / 1e3 / PROFILED_STEPS
+               for name, parts in KERNELS.items()}
+    route = "kernels" if kernel_attention else "default"
     print(json.dumps({
-        "batch": 8, "frames": 1024, "mt_len": 48, "units_len": 256, "text_len": 32,
+        "route": route, "batch": 8, "frames": 1024, "mt_len": 48, "units_len": 256,
+        "text_len": 32,
         "wall_ms_median": wall_ms, "wall_ms_all": [w * 1e3 for w in walls],
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
         "kernel_launches_per_step": sum(e.count for e in kernel_rows) / PROFILED_STEPS,
         "port_kernels_device_ms": port_ms,
+        "attention_kernels_device_ms": sum(v for k, v in port_ms.items()
+                                           if "ctc" not in k and "not_blank" not in k),
         "ctc_kernels_share": (port_ms["ctc_alpha_kernel"]
                               + port_ms["ctc_beta_grad_kernel"]) / device_ms,
         "top_kernels_ms": [
@@ -107,11 +125,33 @@ def main():
             for e in sorted(kernel_rows, key=lambda e: -e.self_device_time_total)[:12]],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }), flush=True)
+    return (f"== {route} route: {PROFILED_STEPS} train steps, B=8, MT 48 ==\n"
+            + events.table(sort_by="self_device_time_total", row_limit=40,
+                           max_name_column_width=70) + "\n")
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="chiprun_out/profile_train.txt")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--route", choices=("default", "kernels", "both"), default="default")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_train: needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    routes = {"default": [False], "kernels": [True],
+              "both": [False, True, True, False]}[args.route]
+    tables = []
+    for kernel_attention in routes:
+        tables.append(profile_route(kernel_attention, args.seed))
+        torch.cuda.empty_cache()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(f"== {PROFILED_STEPS} train steps, B=8, MT 48 ==\n"
-                   + events.table(sort_by="self_device_time_total", row_limit=40,
-                                  max_name_column_width=70))
+    out.write_text("".join(tables))
     print(smi, flush=True)
 
 
