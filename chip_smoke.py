@@ -6,7 +6,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 1. env      torch version, the card, ``nvidia-smi`` name and power limit;
             refuses to run without a CUDA device of capability (9, 0).
 2. build    compiles every ``streamspeech_tpu_torch/csrc/*.cu`` with nvcc
-            (one process per source, started together).
+            (one process per source, started together): wall seconds, seconds
+            per source, registers and spill bytes per kernel instance.
 3. kernel   each kernel against its plain PyTorch version on the same inputs:
             causal masked attention at the unit decoder's serving shapes
             (B=1, H=8, D=64, T_pad 512/896/1664/3200) and the forward's
@@ -71,6 +72,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             plain forward, and (causal, bias)
             ``F.scaled_dot_product_attention`` under the same float mask with
             the same ``dropout_p``: forward, and forward + backward minus forward.
+            B4 and B6 run their products as 3xTF32 on the tensor cores: their
+            ``bound_ms`` is max(3 flops / 495 TFLOP/s, bytes / 3.35 TB/s), with
+            ``cuda_core_bound_ms`` (the fp32 CUDA cores' 67 TFLOP/s) beside it;
+            B6's rows carry its form, query-tile groups G and the bytes of the
+            scratch its wrapper allocates (these stay off the ``kernels`` line).
 11. train_kernels  phase 8's model, batch and optimizer with
             ``make_train_step(..., kernel_attention=True)``: per step 12/2/2
             rel-pos/causal/bias forward launches and as many backward calls,
@@ -144,6 +150,7 @@ BIAS_TRAIN_SHAPES = [(8, 1200, 48), (2, 650, 30)]         # (B, TQ, TK)
 UTTERANCE_SECONDS = (3.0, 6.0, 10.0)
 SEED = 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core peak, FLOP/s
 HBM_BYTES = 3.35e12         # H100 SXM device-memory rate, B/s
 
 
@@ -180,7 +187,8 @@ def _ptxas_summary(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             arg = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", m.group(1))
-            entry = f"{arg.group(1)}<{arg.group(2)}>" if arg else m.group(1)
+            fused = ",fused" if arg and "Lb1E" in m.group(1) else ""
+            entry = f"{arg.group(1)}<{arg.group(2)}{fused}>" if arg else m.group(1)
             out[entry] = out.get(entry, [None, 0])
         elif entry and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[entry][1] = int(m.group(1))
@@ -196,6 +204,7 @@ def phase_build():
     report = build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": build.kernel_names(),
+          "seconds_by_source": {n: r["seconds"] for n, r in report.items()},
           "ptxas": {n: _ptxas_summary(r["nvcc"]) for n, r in report.items()}})
 
 
@@ -240,6 +249,19 @@ def _bound(flops: float, nbytes: float) -> dict:
     by_ops, by_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(by_ops, by_bytes),
             "bound_by": "operations" if by_ops >= by_bytes else "bytes"}
+
+
+def _bound_3xtf32(flops: float, nbytes: float) -> dict:
+    """The bound of fp32-faithful work on the tensor cores (B4, B6: each
+    product is three TF32 products): max(3 flops / 495 TFLOP/s, bytes /
+    3.35 TB/s), with the CUDA-core bound of ``_bound`` beside it, labelled."""
+    by_ops, by_bytes = 3 * flops / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    cuda_core = _bound(flops, nbytes)
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "bound_rate": "3xTF32 tensor cores, 495/3 TFLOP/s",
+            "cuda_core_bound_ms": cuda_core["bound_ms"],
+            "cuda_core_bound_by": cuda_core["bound_by"]}
 
 
 def _nbytes(*tensors) -> int:
@@ -460,7 +482,7 @@ def _rel_err(got, want):
 
 
 def _check_train_kernel(family, A, diff, const, g, scale, keep_shape, library_mask,
-                        fwd_bound, bwd_bound, timed, **shape):
+                        fwd_bound, bwd_bound, timed, bwd_extra=None, **shape):
     """One attention family at one shape, at dropout 0 and ATTN_DROPOUT: mask,
     forward with dropout and backward against the plain versions; timed on the
     main shape. Returns (forward rows, backward rows, mask rows)."""
@@ -512,7 +534,7 @@ def _check_train_kernel(family, A, diff, const, g, scale, keep_shape, library_ma
                    "max_abs_err": max(e for e, _ in grad_errs.values()),
                    "max_rel_err": max(r for _, r in grad_errs.values()),
                    "rel_err_by_grad": {n: r for n, (_, r) in grad_errs.items()},
-                   "bit_identical_twice": same, **bwd_bound}
+                   "bit_identical_twice": same, **bwd_bound, **(bwd_extra or {})}
         if timed:
             fwd_row["ms"] = _device_ms(lambda: fwd(*diff, *const, scale, rate, sd, True),
                                        calls=5, reps=10)
@@ -547,6 +569,31 @@ def _check_train_kernel(family, A, diff, const, g, scale, keep_shape, library_ma
                                  f"its plain version at {shape}: {fwd_row} {bwd_row}")
         del out, stats, got_grads, keep
     return fwd_rows, bwd_rows, mask_rows
+
+
+def _bias_bwd_plan(A, b, h, tq, tk, d) -> dict:
+    """B6's form at this shape: its query-tile groups G (0: two passes) and
+    the bytes of the scratch its wrapper allocates (the groups' dK/dV
+    partials, or delta)."""
+    groups, shape = A.bias_backward_scratch(b, h, tq, tk, d)
+    return {"groups": groups, "scratch_bytes": 4 * int(np.prod(shape)),
+            "form": f"fused, {groups} query-tile groups" if groups else "two passes"}
+
+
+def _bias_train_inputs(b, tq, tk, randn):
+    """q, K, V, g [b, 8, *, 64] from ``randn`` and the unit decoder's wait-k
+    cross mask (n2 = 2, upsample 25) as a bias [b, tq, tk], the last row with
+    5 padded keys."""
+    from streamspeech_tpu_torch.ops.masks import NEG_INF
+
+    q, g = randn(b, 8, tq, 64), randn(b, 8, tq, 64)
+    k, v = randn(b, 8, tk, 64), randn(b, 8, tk, 64)
+    dev = q.device
+    iq, jk = torch.arange(tq, device=dev)[:, None], torch.arange(tk, device=dev)
+    n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
+    allowed = (jk[None] < ((iq // 25 + 1) * 2).clamp(max=tk))[None] & \
+        (jk[None, None, :] < n_valid[:, None, None])
+    return q, k, v, g, torch.where(allowed, 0.0, NEG_INF).float().contiguous()
 
 
 def phase_kernel_train():
@@ -602,29 +649,24 @@ def phase_kernel_train():
             "masked", A, (q, k, v), (kvb,), g, 0.125, (b, 8, t_pad, t_pad),
             mask if n == 0 else None,
             _bound(4 * pairs, _nbytes(q, k, v, kvb, q) + stats_bytes + 8),
-            # q.k and g.v recomputed; dq, dK, dV: 5 products
-            _bound(10 * pairs, _nbytes(q, k, v, kvb, g, q, q, k, v) + stats_bytes + 8),
+            # dq, dK, dV: 5 products (q.k and g.v are recomputed, not counted)
+            _bound_3xtf32(10 * pairs,
+                          _nbytes(q, k, v, kvb, g, q, q, k, v) + stats_bytes + 8),
             timed=n == 0, b=b, h=8, t_pad=t_pad, t=t, d=64))
         del mask
 
     for n, (b, tq, tk) in enumerate(BIAS_TRAIN_SHAPES):
-        q, g = randn(b, 8, tq, 64), randn(b, 8, tq, 64)
-        k, v = randn(b, 8, tk, 64), randn(b, 8, tk, 64)
-        # the unit decoder's wait-k cross mask (n2 = 2, upsample 25), the last
-        # row with 5 padded keys
-        iq, jk = torch.arange(tq, device=dev)[:, None], torch.arange(tk, device=dev)
-        n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
-        allowed = (jk[None] < ((iq // 25 + 1) * 2).clamp(max=tk))[None] & \
-            (jk[None, None, :] < n_valid[:, None, None])
-        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        q, k, v, g, bias = _bias_train_inputs(b, tq, tk, randn)
         pairs = b * 8 * tq * tk * 64
         stats_bytes = b * 8 * tq * 8
         collect("bias", _check_train_kernel(
             "bias", A, (q, k, v), (bias,), g, 0.125, (b, 8, tq, tk),
             bias[:, None] if n == 0 else None,
             _bound(4 * pairs, _nbytes(q, k, v, bias, q) + stats_bytes + 8),
-            _bound(10 * pairs, _nbytes(q, k, v, bias, g, q, q, k, v) + stats_bytes + 8),
-            timed=n == 0, b=b, h=8, tq=tq, tk=tk, d=64))
+            _bound_3xtf32(10 * pairs,
+                          _nbytes(q, k, v, bias, g, q, q, k, v) + stats_bytes + 8),
+            timed=n == 0, bwd_extra=_bias_bwd_plan(A, b, 8, tq, tk, 64), b=b, h=8, tq=tq,
+            tk=tk, d=64))
 
     # B10 alone: the mask of the unit decoder's causal attention, written out
     shape = (8, 8, 1280, 1280)

@@ -120,7 +120,11 @@ class StreamSpeechConfig:
 
 @dataclass
 class OptimizationConfig:
-    """train.simul-s2st.sh: Adam(0.9,0.98) lr 1e-3 inverse_sqrt warmup 10k, clip 10."""
+    """train.simul-s2st.sh: Adam(0.9,0.98) lr 1e-3 inverse_sqrt warmup 10k, clip 10.
+
+    ``dtype`` keeps the JAX default, ``"bfloat16"``, so that a configuration
+    reads the same in both packages, but the port's train step computes in
+    float32 whatever it says (bf16 is ROADMAP §A item 3)."""
 
     lr: float = 1e-3
     adam_betas: tuple = (0.9, 0.98)
@@ -134,7 +138,7 @@ class OptimizationConfig:
     update_freq: int = 2
     max_tokens: int = 22000
     label_smoothing: float = 0.1
-    dtype: str = "bfloat16"  # compute dtype for the train step; the port runs fp32
+    dtype: str = "bfloat16"  # read by nothing: the port's train step runs float32
 
 
 @dataclass

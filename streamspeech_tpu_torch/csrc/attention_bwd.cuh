@@ -2,39 +2,49 @@
 // Hopper (sm_90a): the body shared by masked_attention_bwd.cu (causal, key
 // bias) and bias_attention_bwd.cu (arbitrary [B, TQ, TK] bias), which differ
 // only in where the additive bias comes from, and the helpers the rel-pos
-// backward shares.
+// backward shares (kThreads, load_tile, tile_rows, smem_bytes, raise_smem,
+// launch_rowdot: its CUDA-core form is not redesigned here).
 //
 // Replaces `_causal_bwd_kernel` and `_bias_bwd_kernel` of
-// streamspeech_tpu/ops/pallas_attention.py. Those accumulate dK and dV across
-// query blocks by running the TPU grid in order (zero at q-block 0, then +=);
-// Hopper blocks run in no order, so here the work is three launches:
-//
-//   delta[b,h,i] = sum_d g[i,d] * out[i,d]       (= rowsum(dprobs * probs), with
-//                                                 or without dropout, since out
-//                                                 holds the dropped probs)
-//   dQ pass:   one block per (query tile, h, b), a loop over key tiles
-//   dK/dV pass: one block per (key tile, h, b), a loop over query tiles
-//              (causal: only those at or below the key tile)
-//
-// Each pass recomputes p = exp(s - max) / sum from the forward's saved row
-// statistics, regenerates the keep factors kf of dropout.cuh, and forms
-//   dp = (g vᵀ) * kf,  ds = p * (dp - delta) * scale,
+// streamspeech_tpu/ops/pallas_attention.py. Each block recomputes
+// p = exp(s * scale + bias - max) / sum from the forward's row statistics,
+// regenerates the keep factors kf of dropout.cuh, and forms
+//   s = q Kᵀ,  dp = (g Vᵀ) * kf,  ds = p * (dp - delta) * scale,
 //   dq = ds K,  dK = dsᵀ q,  dV = (p * kf)ᵀ g.
-// No atomics: one seed gives the same gradients bit for bit. No [TQ, TK]
-// tensor is written. Both passes recompute q Kᵀ and g Vᵀ, so a head costs
-// 14*TQ*TK*D flops (6 in the dQ pass, 8 in the dK/dV pass) against the 10 of
-// the five products themselves: the price of keeping 8 bytes a row instead of
-// TQ*TK*4. Plain fp32 FMA on the CUDA cores, bound by the shared-memory loads
-// of the FMA loops.
+// The TPU kernels carry dK and dV across query blocks along their ordered
+// grid; Hopper blocks run in no order, so there are two forms, neither with
+// atomics (one seed gives the same gradients bit for bit):
+//   - two passes (B4; B6 above one key tile): delta = rowsum(g * out), a dQ
+//     pass (a block per query tile, key tiles streamed, the last query tiles
+//     of the causal triangle launched first) and a dK/dV pass (a block per
+//     key tile, query tiles streamed from the diagonal down, the first key
+//     tiles launched first). Both recompute s and dp: 14 products' worth of
+//     work instead of 10, the price of keeping 8 bytes a row, not TQ*TK*4.
+//   - fused (B6 while the keys fit one tile, the unit decoder's TK = 48): a
+//     block per (group of query tiles, h, b) keeps K and V, forms delta =
+//     rowsum(p * dp) itself, writes dq and partial dK/dV over its query
+//     tiles; a second kernel adds the partials in group order. 10 products.
 //
-// Tiles are 64 rows while four [64, D+1] tiles and the score tiles fit one
-// block's shared memory (D <= 192) and 32 rows above. Head dims: every
-// multiple of 8 from 8 to 256.
+// What bounds it: at the train shapes B4 is bound by operations (33.6 GFLOP
+// of products against 169 MB at [8,8,1280,64]) and B6 by bytes (2.4 GFLOP
+// against 84 MB). The products run on the tensor cores as m16n8k8 TF32
+// `mma.sync`, fp32-faithful by splitting each operand into hi = tf32(x)
+// (`cvt.rna`) and lo = x - hi (read by the tensor core truncated to tf32) and
+// summing lo·hi + hi·lo + hi·hi into fp32 accumulators (3xTF32: the bound is
+// 3 flops / 495 TFLOP/s, 2.5x the CUDA cores' 67).
+// `mma.sync` and not `wgmma`: TF32 `wgmma` reads its operands K-major only,
+// and dq, dK and dV contract over the rows of K, q and g; `mma.sync`
+// fragments are read from shared memory in either orientation. Tiles stream
+// through a two-stage ring filled by 16-byte `cp.async`, so the next tile
+// loads while this one's products run; rows are padded against bank
+// conflicts. 8 warps; tiles of 64 rows up to D = 120 and 32 above. Head dims:
+// every multiple of 8 from 8 to 256.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "dropout.cuh"
 
@@ -131,296 +141,603 @@ __device__ __forceinline__ void load_tile(float* tile, const float* __restrict__
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body of B4 and B6 (the helpers above serve the rel-pos
+// backward, which keeps its CUDA-core form).
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = kThreads / 32;
+
+// The tile layout of one head dim: BT-row tiles (queries and keys alike), rows
+// padded by 4 floats: a [BT, D] tile's rows are LDD = D + 4 floats, a [BT, BT]
+// score tile's LDS = BT + 4. Lanes (g, t) = (lane / 4, lane % 4) reading the
+// fragment elements (r0 + g, c0 + t) then hit 32 banks; reading (r0 + t,
+// c0 + g), the other orientation, two lanes share a bank. Padding keeps each
+// fragment address a constant offset from a base; an XOR swizzle free of
+// conflicts both ways costs index arithmetic on every read instead.
+// In the score phase warp w owns rows 16*(w % WR) .. +16 of the [BT, BT] score
+// tile and NT 8-column slabs from 8*NT*(w / WR); in the product phases it owns
+// the same 16 rows of a [BT, D] output and the 8-column slabs w / WR + WC*j.
+template <int D>
+struct Tiles {
+  static constexpr int LDD = D + 4;
+  static constexpr int lds(int bt) { return bt + 4; }  // row stride of a score tile
+  // K, V, two stages of q and g, the ds and p*kf tiles, two stages of 3 row
+  // numbers (max, 1/sum, delta) and WC row partials of delta, in floats
+  static constexpr size_t floats(int bt) {
+    return (size_t)6 * bt * LDD + 2 * bt * lds(bt) + 6 * bt + (kWarps / (bt / 16)) * bt;
+  }
+  static constexpr int BT = floats(64) * 4 <= kMaxSmem ? 64 : 32;
+  static constexpr int LDS = lds(BT);
+  static constexpr size_t kSmem = floats(BT) * 4;
+  // the dQ pass: q, g, two stages of K and V, the ds tile
+  static constexpr size_t kDqSmem = ((size_t)6 * BT * LDD + BT * LDS) * 4;
+  static constexpr int WR = BT / 16, WC = kWarps / WR, NT = BT / 8 / WC;
+  static constexpr int NO = (D / 8 + WC - 1) / WC;
+  static_assert(D % 8 == 0 && D <= kMaxD, "head dim must be a multiple of 8, <= 256");
+  static_assert(kSmem <= kMaxSmem, "tiles do not fit shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [r0, r0 + BT) of a [n, D] matrix into a padded [BT][LDD] tile by
+// 16-byte cp.async, zeros past row n.
+template <int D>
+__device__ __forceinline__ void async_tile(float* tile, const float* __restrict__ src, int r0,
+                                           int n, int tid) {
+  constexpr int BT = Tiles<D>::BT, LDD = Tiles<D>::LDD, CH = D / 4;
+  for (int i = tid; i < BT * CH; i += kThreads) {
+    const int r = i / CH, c = (i % CH) * 4;
+    const bool in = r0 + r < n;
+    cp_async16(tile + r * LDD + c, in ? src + (size_t)(r0 + r) * D + c : src, in);
+  }
+}
+
+// Rows [r0, r0 + BT) of the forward's statistics [n, 2] (and, given, delta
+// [n]) into st[0, 2 BT) (and st[2 BT, 3 BT)), zeros past row n.
+template <int BT>
+__device__ __forceinline__ void async_rows(float* st, const float* __restrict__ stats,
+                                           const float* __restrict__ delta, int r0, int n,
+                                           int tid) {
+  const int count = delta ? 3 * BT : 2 * BT;
+  for (int i = tid; i < count; i += kThreads) {
+    const bool is_stat = i < 2 * BT;
+    const int r = is_stat ? i / 2 : i - 2 * BT;
+    const bool in = r0 + r < n;
+    const float* src = is_stat ? stats + (size_t)(r0 + r) * 2 + (i & 1) : delta + r0 + r;
+    cp_async4(st + i, in ? src : stats, in);
+  }
+}
+
+// fp32 -> tf32 rounded to nearest, ties away from zero; the low 13 bits are 0
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, hi tf32; lo = x - hi (exact in fp32) is handed over as it
+// is: the tensor core reads a .tf32 operand's top 19 bits and ignores the
+// low 13, so lo enters truncated, 2^-10 of |lo| <= 2^-21 |x| off, and the
+// cvt a rounded lo would cost is saved (one instruction of three a split)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b on the tensor cores, m16n8k8, tf32 inputs, fp32 accumulators
+__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 3xTF32: c += a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first; the
+// dropped a_lo b_lo is 2^-22 of the product. The three go into a zeroed
+// accumulator and the running sum c takes them by an fp32 add: the tensor
+// core's own accumulation does not round as an fp32 add does, so carrying c
+// through it over a 64-deep contraction would add its error at every k-step
+__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
+                                     const uint32_t bh[2], const uint32_t bl[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma(t, al, bh);
+  mma(t, ah, bl);
+  mma(t, ah, bh);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c[i] += t[i];
+}
+
+// A fragment (rows m0.., depth k0..) of a matrix stored as its tile's rows
+// (A[m][k] = T[m][k]), or as its tile's columns (A[m][k] = T[k][m]), split.
+template <bool kTransposed>
+__device__ __forceinline__ void load_a(const float* t, int ld, int m0, int k0, int g, int q,
+                                       uint32_t hi[4], uint32_t lo[4]) {
+  float x[4];
+  if (kTransposed) {
+    x[0] = t[(k0 + q) * ld + m0 + g];
+    x[1] = t[(k0 + q) * ld + m0 + g + 8];
+    x[2] = t[(k0 + q + 4) * ld + m0 + g];
+    x[3] = t[(k0 + q + 4) * ld + m0 + g + 8];
+  } else {
+    x[0] = t[(m0 + g) * ld + k0 + q];
+    x[1] = t[(m0 + g + 8) * ld + k0 + q];
+    x[2] = t[(m0 + g) * ld + k0 + q + 4];
+    x[3] = t[(m0 + g + 8) * ld + k0 + q + 4];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
+}
+
+// B fragment (depth k0.., columns n0..) of B[k][n] = T[n][k] (kByRows: the
+// tile's rows are B's columns, as K in q Kᵀ) or B[k][n] = T[k][n], split.
+template <bool kByRows>
+__device__ __forceinline__ void load_b(const float* t, int ld, int k0, int n0, int g, int q,
+                                       uint32_t hi[2], uint32_t lo[2]) {
+  float x[2];
+  if (kByRows) {
+    x[0] = t[(n0 + g) * ld + k0 + q];
+    x[1] = t[(n0 + g) * ld + k0 + q + 4];
+  } else {
+    x[0] = t[(k0 + q) * ld + n0 + g];
+    x[1] = t[(k0 + q + 4) * ld + n0 + g];
+  }
+  split(x[0], hi[0], lo[0]);
+  split(x[1], hi[1], lo[1]);
+}
+
+// The keep factors of a score fragment: rows (row, row + 8), columns (col,
+// col + 1), col = 8-column slab + 2 * (lane % 4), as kf[0..3] in the order of
+// the accumulator. Lanes q and q ^ 1 share one Philox group of 4 columns:
+// the even lane draws it for row `row`, the odd one for row + 8, and each
+// hands the other the two factors it needs. One draw per 4 elements, as
+// dropout::fill_keep_tile, with no shared-memory tile; all 32 lanes must call.
+__device__ __forceinline__ void keep_frag(unsigned long long seed, int b, int h, int row,
+                                          int slab, int q, float rate, float inv_keep,
+                                          float kf[4]) {
+  const bool odd = q & 1;
+  uint32_t bits[4];
+  dropout::draw4(seed, b, h, odd ? row + 8 : row, (slab >> 2) + (q >> 1), bits);
+  float k[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) k[e] = dropout::keeps(bits[e], rate) ? inv_keep : 0.f;
+  const float r0 = __shfl_xor_sync(0xffffffffu, odd ? k[0] : k[2], 1);
+  const float r1 = __shfl_xor_sync(0xffffffffu, odd ? k[1] : k[3], 1);
+  kf[0] = odd ? r0 : k[0];
+  kf[1] = odd ? r1 : k[1];
+  kf[2] = odd ? k[2] : r0;
+  kf[3] = odd ? k[3] : r1;
+}
+
+// s = q Kᵀ and dp = g Vᵀ of the warp's [16, 8 NT] part of a [BT, BT] score
+// tile: q, g tiles of queries, K, V tiles of keys, contracted over D.
+template <int D>
+__device__ __forceinline__ void scores(const float* qs, const float* gs, const float* ks,
+                                       const float* vs, int wr, int wc, int g, int q,
+                                       float s[][4], float dp[][4]) {
+  constexpr int LDD = Tiles<D>::LDD, NT = Tiles<D>::NT;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < D; k0 += 8) {
+    uint32_t qh[4], ql[4], gh[4], gl[4];
+    load_a<false>(qs, LDD, 16 * wr, k0, g, q, qh, ql);
+    load_a<false>(gs, LDD, 16 * wr, k0, g, q, gh, gl);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int n0 = 8 * (wc * NT + n);
+      uint32_t kh[2], kl[2], vh[2], vl[2];
+      load_b<true>(ks, LDD, k0, n0, g, q, kh, kl);
+      load_b<true>(vs, LDD, k0, n0, g, q, vh, vl);
+      mma3(s[n], qh, ql, kh, kl);
+      mma3(dp[n], gh, gl, vh, vl);
+    }
+  }
+}
+
+// In place: s <- p = exp(s * scale + bias - max) / sum (0 outside [TQ, TK]),
+// dp <- dp * kf; with pks, also p * kf into that [BT][BT] tile. Rows q0 +
+// 16 wr + g (+ 8), columns k0 + 8 (wc NT + n) + 2 q (+ 1).
 template <int D, class Bias>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void probs(float s[][4], float dp[][4], float* pks, const Bias& bias,
+                                      int b, int h, int q0, int k0, int TQ, int TK,
+                                      const float mx[2], const float il[2], float scale,
+                                      bool drop, unsigned long long sd, float rate,
+                                      float inv_keep, int wr, int wc, int g, int q) {
+  constexpr int LDS = Tiles<D>::LDS, NT = Tiles<D>::NT;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int slab = 8 * (wc * NT + n);
+    float kf[4] = {1.f, 1.f, 1.f, 1.f};
+    if (drop) keep_frag(sd, b, h, q0 + 16 * wr + g, k0 + slab, q, rate, inv_keep, kf);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = 16 * wr + g + (e >> 1) * 8, cl = slab + 2 * q + (e & 1);
+      const int row = q0 + rl, col = k0 + cl;
+      float p = 0.f;
+      if (row < TQ && col < TK)
+        p = expf(bias.add(s[n][e] * scale, b, row, col) - mx[e >> 1]) * il[e >> 1];
+      s[n][e] = p;
+      dp[n][e] *= kf[e];
+      if (pks) pks[rl * LDS + cl] = p * kf[e];
+    }
+  }
+}
+
+// ds = p * (dp * kf - delta) * scale into the [BT][BT] tile dss.
+template <int D>
+__device__ __forceinline__ void grads(const float s[][4], const float dp[][4], float* dss,
+                                      const float dl[2], float scale, int wr, int wc, int g,
+                                      int q) {
+  constexpr int LDS = Tiles<D>::LDS, NT = Tiles<D>::NT;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = 16 * wr + g + (e >> 1) * 8, cl = 8 * (wc * NT + n) + 2 * q + (e & 1);
+      dss[rl * LDS + cl] = s[n][e] * (dp[n][e] - dl[e >> 1]) * scale;
+    }
+}
+
+// acc[j] += A B over a depth of BT, for the warp's rows 16 wr.. of a [BT, D]
+// output and its column slabs wc + WC j: A is a [BT][BT] score tile (dq: ds
+// with rows = queries; kTransposed, dK and dV: dsᵀ or (p kf)ᵀ), B a [BT][LDD]
+// tile read by its rows (K for dq, q or g for dK and dV).
+template <int D, bool kTransposed>
+__device__ __forceinline__ void product(float acc[][4], const float* a, const float* bt_tile,
+                                        int wr, int wc, int g, int q) {
+  constexpr int BT = Tiles<D>::BT, LDD = Tiles<D>::LDD, WC = Tiles<D>::WC,
+                NO = Tiles<D>::NO;
+#pragma unroll 2
+  for (int k0 = 0; k0 < BT; k0 += 8) {
+    uint32_t ah[4], al[4];
+    load_a<kTransposed>(a, Tiles<D>::LDS, 16 * wr, k0, g, q, ah, al);
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int slab = wc + WC * j;
+      if (D % (8 * WC) != 0 && slab >= D / 8) break;
+      uint32_t bh[2], bl[2];
+      load_b<false>(bt_tile, LDD, k0, 8 * slab, g, q, bh, bl);
+      mma3(acc[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// Write the warp's part of a [BT, D] output (rows r0 + 16 wr.., fewer than n
+// kept) to dst [n, D].
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float acc[][4], int r0,
+                                           int n, int wr, int wc, int g, int q) {
+  constexpr int WC = Tiles<D>::WC, NO = Tiles<D>::NO;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int slab = wc + WC * j;
+    if (D % (8 * WC) != 0 && slab >= D / 8) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = r0 + 16 * wr + g + 8 * half;
+      if (row < n)
+        *reinterpret_cast<float2*>(dst + (size_t)row * D + 8 * slab + 2 * q) =
+            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float acc[][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+}
+
+// The dQ pass: one block per (query tile, h, b), the last query tiles (the
+// longest walks of the causal triangle) launched first; K and V tiles stream
+// through a two-stage cp.async ring while the previous tile's products run.
+template <int D, class Bias>
+__global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ g,
           const float* __restrict__ stats, const float* __restrict__ delta, Bias bias,
-          const long long* __restrict__ seed, float rate, float* __restrict__ dq, int H,
-          int TQ, int TK, float scale) {
-  constexpr int BT = tile_rows<D, 4, 0, 2>();
-  constexpr int R = BT / 16;
-  constexpr int LD = D + 1;
-  constexpr int LP = BT + 1;
-  constexpr int DC = (D + 15) / 16;
-  static_assert(D % 8 == 0 && D <= kMaxD, "head dim must be a multiple of 8, <= 256");
-  extern __shared__ float smem[];
-  float* qs = smem;            // [BT][LD]
-  float* gs = qs + BT * LD;    // [BT][LD]
-  float* ks = gs + BT * LD;    // [BT][LD]
-  float* vs = ks + BT * LD;    // [BT][LD]
-  float* ps = vs + BT * LD;    // [BT][LP] keep factors, then ds, of the current tile
+          const long long* __restrict__ seed, float rate, float* __restrict__ dq, int B,
+          int H, int TQ, int TK, float scale) {
+  using T = Tiles<D>;
+  constexpr int BT = T::BT, TILE = BT * T::LDD;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* gs = qs + TILE;
+  float* kvs = gs + TILE;         // [2 stages][K, V]
+  float* dss = kvs + 4 * TILE;    // [BT][LDS]
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t bh = (size_t)b * H + h;
-  const float* kh = k + bh * (size_t)TK * D;
-  const float* vh = v + bh * (size_t)TK * D;
+  const int nq = (TQ + BT - 1) / BT;
+  const int bh = blockIdx.x % (B * H), qt = nq - 1 - (int)(blockIdx.x / (B * H));
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, w = tid / 32, lg = (tid % 32) / 4, lq = tid % 4;
+  const int wr = w % T::WR, wc = w / T::WR;
+  const size_t base_q = (size_t)bh * TQ, base_k = (size_t)bh * TK;
+  const float* kh = k + base_k * D;
+  const float* vh = v + base_k * D;
   const int q0 = qt * BT;
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
 
-  load_tile<BT, D>(qs, q + bh * (size_t)TQ * D, q0, TQ, tid);
-  load_tile<BT, D>(gs, g + bh * (size_t)TQ * D, q0, TQ, tid);
+  async_tile<D>(qs, q + base_q * D, q0, TQ, tid);
+  async_tile<D>(gs, g + base_q * D, q0, TQ, tid);
+  async_tile<D>(kvs, kh, 0, TK, tid);
+  async_tile<D>(kvs + TILE, vh, 0, TK, tid);
+  cp_commit();
 
-  float mx[R], il[R], dl[R], acc[R][DC];
+  float mx[2], il[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + 16 * wr + lg + 8 * i;
     const bool in = row < TQ;
-    mx[i] = in ? stats[(bh * TQ + row) * 2] : 0.f;
-    il[i] = in ? stats[(bh * TQ + row) * 2 + 1] : 0.f;
-    dl[i] = in ? delta[bh * TQ + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
+    mx[i] = in ? stats[(base_q + row) * 2] : 0.f;
+    il[i] = in ? stats[(base_q + row) * 2 + 1] : 0.f;
+    dl[i] = in ? delta[base_q + row] : 0.f;
   }
+  float acc[T::NO][4], s[T::NT][4], dp[T::NT][4];
+  zero<T::NO>(acc);
 
   // causal: key tiles above the diagonal weigh 0, as in the forward
-  const int kend = Bias::kCausal ? (q0 + BT < TK ? q0 + BT : TK) : TK;
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    __syncthreads();  // the previous tile's ks/vs/ps are no longer read
-    load_tile<BT, D>(ks, kh, k0, TK, tid);
-    load_tile<BT, D>(vs, vh, k0, TK, tid);
-    if (drop)
-      dropout::fill_keep_tile<BT, BT>(ps, LP, sd, b, h, q0, k0, rate, inv_keep, tid,
-                                      kThreads);
+  const int kend = Bias::kCausal ? min(q0 + BT, TK) : TK;
+  for (int k0 = 0, it = 0; k0 < kend; k0 += BT, ++it) {
+    const float* ks = kvs + (it & 1) * 2 * TILE;
+    const float* vs = ks + TILE;
+    if (k0 + BT < kend) {
+      float* next = kvs + ((it + 1) & 1) * 2 * TILE;
+      async_tile<D>(next, kh, k0 + BT, TK, tid);
+      async_tile<D>(next + TILE, vh, k0 + BT, TK, tid);
+    }
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[R], gv[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = qs[(ty * R + i) * LD + d];
-        gv[i] = gs[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kv[j] = ks[(tx + 16 * j) * LD + d];
-        vv[j] = vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q0 + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float* slot = &ps[(ty * R + i) * LP + tx + 16 * j];
-        float ds = 0.f;
-        if (row < TQ && col < TK) {
-          const float p = expf(bias.add(s[i][j] * scale, b, row, col) - mx[i]) * il[i];
-          const float kf = drop ? *slot : 1.f;
-          ds = p * (dp[i][j] * kf - dl[i]) * scale;
-        }
-        *slot = ds;
-      }
-    }
+    scores<D>(qs, gs, ks, vs, wr, wc, lg, lq, s, dp);
+    probs<D>(s, dp, nullptr, bias, b, h, q0, k0, TQ, TK, mx, il, scale, drop, sd, rate,
+             inv_keep, wr, wc, lg, lq);
+    grads<D>(s, dp, dss, dl, scale, wr, wc, lg, lq);
     __syncthreads();
-
-    const int kmax = TK - k0 < BT ? TK - k0 : BT;
-#pragma unroll 4
-    for (int kk = 0; kk < kmax; ++kk) {
-      float kv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c)
-        kv[c] = (D % 16 == 0 || tx + 16 * c < D) ? ks[kk * LD + tx + 16 * c] : 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float x = ps[(ty * R + i) * LP + kk];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(x, kv[c], acc[i][c]);
-      }
-    }
+    product<D, false>(acc, dss, ks, wr, wc, lg, lq);
+    __syncthreads();
   }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + ty * R + i;
-    if (row >= TQ) continue;
-    float* orow = dq + (bh * TQ + row) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (D % 16 == 0 || tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c];
-  }
+  store_rows<D>(dq + base_q * D, acc, q0, TQ, wr, wc, lg, lq);
 }
 
-template <int D, class Bias>
-__global__ void __launch_bounds__(kThreads)
+// The dK/dV side: one block per key tile and (h, b), K and V resident, query
+// tiles (q, g, their row statistics and delta) through a two-stage cp.async
+// ring. Two forms:
+//  - kFused = false, the dK/dV pass: the first key tiles (the longest walks of
+//    the causal triangle) launched first, query tiles from the diagonal down,
+//    delta from the delta pass, dK and dV written to dk, dv.
+//  - kFused = true (B6 while TK <= BT, one key tile): block (group gr, h, b)
+//    takes query tiles gr, gr + G, ...; it forms delta = rowsum(p * dp * kf)
+//    itself (all keys are in its tile), writes the whole dq of its rows, and
+//    its partial dK, dV to part[0|1][gr] ([2][G][B][H][TK][D]), which
+//    reduce_kernel adds in the order gr = 0..G-1.
+template <int D, class Bias, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ g,
            const float* __restrict__ stats, const float* __restrict__ delta, Bias bias,
-           const long long* __restrict__ seed, float rate, float* __restrict__ dk,
-           float* __restrict__ dv, int H, int TQ, int TK, float scale) {
-  constexpr int BT = tile_rows<D, 4, 0, 2>();
-  constexpr int R = BT / 16;
-  constexpr int LD = D + 1;
-  constexpr int LP = BT + 1;
-  constexpr int DC = (D + 15) / 16;
-  static_assert(D % 8 == 0 && D <= kMaxD, "head dim must be a multiple of 8, <= 256");
-  extern __shared__ float smem[];
-  float* ks = smem;            // [BT][LD]
-  float* vs = ks + BT * LD;    // [BT][LD]
-  float* qs = vs + BT * LD;    // [BT][LD]
-  float* gs = qs + BT * LD;    // [BT][LD]
-  float* pd = gs + BT * LD;    // [BT][LP] keep factors, then p * kf, [query][key]
-  float* dst = pd + BT * LP;   // [BT][LP] ds, [query][key]
+           const long long* __restrict__ seed, float rate, float* __restrict__ dq,
+           float* __restrict__ dk, float* __restrict__ dv, int B, int H, int TQ, int TK,
+           int G, float scale) {
+  using T = Tiles<D>;
+  constexpr int BT = T::BT, TILE = BT * T::LDD;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;
+  float* vs = ks + TILE;
+  float* qgs = vs + TILE;           // [2 stages][q, g]
+  float* dss = qgs + 4 * TILE;      // [BT][LDS]
+  float* pks = dss + BT * T::LDS;   // [BT][LDS]
+  float* sts = pks + BT * T::LDS;   // [2 stages][3 BT]: max, 1/sum by row pairs, delta
+  float* red = sts + 6 * BT;        // [WC][BT] row partials of delta (kFused)
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t bh = (size_t)b * H + h;
-  const float* qh = q + bh * (size_t)TQ * D;
-  const float* gh = g + bh * (size_t)TQ * D;
-  const int k0 = kt * BT;
+  const int nq = (TQ + BT - 1) / BT;
+  const int bh = blockIdx.x % (B * H), tile = (int)(blockIdx.x / (B * H));
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, w = tid / 32, lg = (tid % 32) / 4, lq = tid % 4;
+  const int wr = w % T::WR, wc = w / T::WR;
+  const size_t base_q = (size_t)bh * TQ, base_k = (size_t)bh * TK;
+  const float* qh = q + base_q * D;
+  const float* gh = g + base_q * D;
+  const float* sth = stats + base_q * 2;
+  const float* dlh = kFused ? nullptr : delta + base_q;
+  const int k0 = kFused ? 0 : tile * BT;
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
-
-  load_tile<BT, D>(ks, k + bh * (size_t)TK * D, k0, TK, tid);
-  load_tile<BT, D>(vs, v + bh * (size_t)TK * D, k0, TK, tid);
-
-  // in the accumulation this thread owns keys ty*R + jj and channels tx + 16c
-  float dka[R][DC], dva[R][DC];
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dka[j][c] = dva[j][c] = 0.f;
-
   // causal: query tiles above the key tile see none of its keys
-  for (int q0 = Bias::kCausal ? k0 : 0; q0 < TQ; q0 += BT) {
-    __syncthreads();  // the previous tile's qs/gs/pd/dst are no longer read
-    load_tile<BT, D>(qs, qh, q0, TQ, tid);
-    load_tile<BT, D>(gs, gh, q0, TQ, tid);
-    if (drop)
-      dropout::fill_keep_tile<BT, BT>(pd, LP, sd, b, h, q0, k0, rate, inv_keep, tid,
-                                      kThreads);
+  const int first = kFused ? tile : (Bias::kCausal ? k0 / BT : 0);
+  const int stride = kFused ? G : 1;
+
+  async_tile<D>(ks, k + base_k * D, k0, TK, tid);
+  async_tile<D>(vs, v + base_k * D, k0, TK, tid);
+  async_tile<D>(qgs, qh, first * BT, TQ, tid);
+  async_tile<D>(qgs + TILE, gh, first * BT, TQ, tid);
+  async_rows<BT>(sts, sth, dlh, first * BT, TQ, tid);
+  cp_commit();
+
+  float dka[T::NO][4], dva[T::NO][4], s[T::NT][4], dp[T::NT][4];
+  zero<T::NO>(dka);
+  zero<T::NO>(dva);
+  for (int qt = first, it = 0; qt < nq; qt += stride, ++it) {
+    const int q0 = qt * BT, stage = it & 1;
+    const float* qs = qgs + stage * 2 * TILE;
+    const float* gs = qs + TILE;
+    const float* st = sts + stage * 3 * BT;
+    if (qt + stride < nq) {
+      const int next = (qt + stride) * BT, ns = stage ^ 1;
+      async_tile<D>(qgs + ns * 2 * TILE, qh, next, TQ, tid);
+      async_tile<D>(qgs + ns * 2 * TILE + TILE, gh, next, TQ, tid);
+      async_rows<BT>(sts + ns * 3 * BT, sth, dlh, next, TQ, tid);
+    }
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-
-    float s[R][R], dp[R][R];
+    float mx[2], il[2], dl[2];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[R], gv[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = qs[(ty * R + i) * LD + d];
-        gv[i] = gs[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        kv[j] = ks[(tx + 16 * j) * LD + d];
-        vv[j] = vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
+    for (int i = 0; i < 2; ++i) {
+      const int rl = 16 * wr + lg + 8 * i;
+      mx[i] = st[2 * rl];
+      il[i] = st[2 * rl + 1];
+      dl[i] = kFused ? 0.f : st[2 * BT + rl];
     }
-
+    scores<D>(qs, gs, ks, vs, wr, wc, lg, lq, s, dp);
+    probs<D>(s, dp, pks, bias, b, h, q0, k0, TQ, TK, mx, il, scale, drop, sd, rate,
+             inv_keep, wr, wc, lg, lq);
+    if (kFused) {
+      // delta = sum_j p * dp * kf: the four lanes of a row, then the WC warps
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int row = q0 + ty * R + i;
-      const bool in = row < TQ;
-      const float mx = in ? stats[(bh * TQ + row) * 2] : 0.f;
-      const float il = in ? stats[(bh * TQ + row) * 2 + 1] : 0.f;
-      const float dl = in ? delta[bh * TQ + row] : 0.f;
+      for (int i = 0; i < 2; ++i) {
+        float part = 0.f;
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const int slot = (ty * R + i) * LP + tx + 16 * j;
-        float pk = 0.f, ds = 0.f;
-        if (in && col < TK) {
-          const float p = expf(bias.add(s[i][j] * scale, b, row, col) - mx) * il;
-          const float kf = drop ? pd[slot] : 1.f;
-          pk = p * kf;
-          ds = p * (dp[i][j] * kf - dl) * scale;
-        }
-        pd[slot] = pk;
-        dst[slot] = ds;
+        for (int n = 0; n < T::NT; ++n)
+          part += s[n][2 * i] * dp[n][2 * i] + s[n][2 * i + 1] * dp[n][2 * i + 1];
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        if (lq == 0) red[wc * BT + 16 * wr + lg + 8 * i] = part;
       }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < T::WC; ++c) dl[i] += red[c * BT + 16 * wr + lg + 8 * i];
     }
+    grads<D>(s, dp, dss, dl, scale, wr, wc, lg, lq);
     __syncthreads();
-
-    const int qmax = TQ - q0 < BT ? TQ - q0 : BT;
-#pragma unroll 2
-    for (int ii = 0; ii < qmax; ++ii) {
-      float gv[DC], qv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const bool in = D % 16 == 0 || tx + 16 * c < D;
-        gv[c] = in ? gs[ii * LD + tx + 16 * c] : 0.f;
-        qv[c] = in ? qs[ii * LD + tx + 16 * c] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float pk = pd[ii * LP + ty * R + j];
-        const float ds = dst[ii * LP + ty * R + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dva[j][c] = fmaf(pk, gv[c], dva[j][c]);
-          dka[j][c] = fmaf(ds, qv[c], dka[j][c]);
-        }
-      }
+    if (kFused) {
+      float acc[T::NO][4];
+      zero<T::NO>(acc);
+      product<D, false>(acc, dss, ks, wr, wc, lg, lq);
+      store_rows<D>(dq + base_q * D, acc, q0, TQ, wr, wc, lg, lq);
     }
+    product<D, true>(dka, dss, qs, wr, wc, lg, lq);
+    product<D, true>(dva, pks, gs, wr, wc, lg, lq);
+    __syncthreads();
   }
+  // kFused: dk, dv are part[0], part[1]; this block's rows are group `tile`'s
+  const size_t out = kFused ? ((size_t)tile * B * H + bh) * TK : base_k;
+  store_rows<D>(dk + out * D, dka, k0, TK, wr, wc, lg, lq);
+  store_rows<D>(dv + out * D, dva, k0, TK, wr, wc, lg, lq);
+}
 
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int key = k0 + ty * R + j;
-    if (key >= TK) continue;
-    float* krow = dk + (bh * TK + key) * D;
-    float* vrow = dv + (bh * TK + key) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (D % 16 == 0 || tx + 16 * c < D) {
-        krow[tx + 16 * c] = dka[j][c];
-        vrow[tx + 16 * c] = dva[j][c];
-      }
+// dk = sum_gr part[0][gr], dv = sum_gr part[1][gr], gr = 0..G-1 in order.
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const float4* __restrict__ part, float4* __restrict__ dk,
+              float4* __restrict__ dv, long long n4, int G) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < 2 * n4;
+       i += (long long)gridDim.x * kThreads) {
+    const bool is_v = i >= n4;
+    const long long j = is_v ? i - n4 : i;
+    const float4* src = part + (is_v ? (long long)G * n4 : 0) + j;
+    float4 sum = src[0];
+    for (int gr = 1; gr < G; ++gr) {
+      const float4 x = src[(long long)gr * n4];
+      sum.x += x.x;
+      sum.y += x.y;
+      sum.z += x.z;
+      sum.w += x.w;
+    }
+    (is_v ? dv : dk)[j] = sum;
   }
 }
 
-// delta, the dQ pass and the dK/dV pass on `stream`; returns the cudaError_t code.
+constexpr int kSMs = 132;  // an H100 SXM's SMs
+// the fused B6 grid aims at this many blocks an SM (tools/sweep_attention_bwd.py
+// builds the source with other values)
+#ifndef ATTN_BWD_BLOCKS_PER_SM
+#define ATTN_BWD_BLOCKS_PER_SM 2
+#endif
+constexpr int kBlocksPerSM = ATTN_BWD_BLOCKS_PER_SM;
+
+// Query-tile groups of the fused B6 backward: 0 (two passes) when the keys do
+// not fit one resident tile, else enough groups for kBlocksPerSM * kSMs
+// blocks, at most one per query tile. A function of the shape alone, so one
+// seed gives the same gradients bit for bit.
+template <int D>
+inline int fused_groups(int B, int H, int TQ, int TK) {
+  constexpr int BT = Tiles<D>::BT;
+  if (TK > BT) return 0;
+  const long long heads = (long long)B * H;
+  const int nq = (TQ + BT - 1) / BT;
+  const long long want = (kBlocksPerSM * kSMs + heads - 1) / heads;
+  return (int)(want < nq ? (want < 1 ? 1 : want) : nq);
+}
+
+// The backward on `stream`; returns the cudaError_t code. groups = 0: the
+// delta pass, the dQ pass and the dK/dV pass (delta a [B, H, TQ] scratch);
+// groups = fused_groups(...) > 0: the fused pass and the reduction (part a
+// [2, groups, B, H, TK, D] scratch).
 template <int D, class Bias>
 int launch_bwd(const float* q, const float* k, const float* v, const float* g,
                const float* out, const float* stats, const long long* seed, float* delta,
-               float* dq, float* dk, float* dv, Bias bias, int B, int H, int TQ, int TK,
-               float scale, float rate, cudaStream_t stream) {
-  constexpr int BT = tile_rows<D, 4, 0, 2>();
-  constexpr size_t smem = smem_bytes(D, BT, 4, 0, 2);
-  static_assert(smem <= kMaxSmem, "tiles do not fit shared memory");
-  static bool raised_dq[kMaxDevices] = {}, raised_dkv[kMaxDevices] = {};
-  int err = raise_smem(dq_kernel<D, Bias>, smem, raised_dq);
+               float* part, int groups, float* dq, float* dk, float* dv, Bias bias, int B,
+               int H, int TQ, int TK, float scale, float rate, cudaStream_t stream) {
+  using T = Tiles<D>;
+  constexpr int BT = T::BT;
+  constexpr size_t dq_smem = T::kDqSmem;
+  const long long heads = (long long)B * H;
+  const long long nq = (TQ + BT - 1) / BT, nk = (TK + BT - 1) / BT;
+  if (groups != (Bias::kCausal ? 0 : fused_groups<D>(B, H, TQ, TK)) ||
+      (groups > 0 && part == nullptr) || nq * heads > 2147483647LL ||
+      nk * heads > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte cp.async: rows are D floats, D a multiple of 8, so the bases decide
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  static bool raised_dq[kMaxDevices] = {}, raised_dkv[kMaxDevices] = {},
+              raised_fused[kMaxDevices] = {};
+  int err;
+  if (groups > 0) {
+    err = raise_smem(dkv_kernel<D, Bias, true>, T::kSmem, raised_fused);
+    if (err != 0) return err;
+    const size_t half = (size_t)groups * B * H * TK * D;
+    dkv_kernel<D, Bias, true><<<(unsigned)(groups * heads), kThreads, T::kSmem, stream>>>(
+        q, k, v, g, stats, nullptr, bias, seed, rate, dq, part, part + half, B, H, TQ, TK,
+        groups, scale);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const long long n4 = heads * TK * D / 4;
+    const long long blocks = (2 * n4 + kThreads - 1) / kThreads;
+    reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
+        reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(dk),
+        reinterpret_cast<float4*>(dv), n4, groups);
+    return (int)cudaGetLastError();
+  }
+  err = raise_smem(dq_kernel<D, Bias>, dq_smem, raised_dq);
   if (err != 0) return err;
-  err = raise_smem(dkv_kernel<D, Bias>, smem, raised_dkv);
+  err = raise_smem(dkv_kernel<D, Bias, false>, T::kSmem, raised_dkv);
   if (err != 0) return err;
-  err = launch_rowdot(g, out, delta, (long long)B * H * TQ, D, stream);
+  err = launch_rowdot(g, out, delta, heads * TQ, D, stream);
   if (err != 0) return err;
-  dq_kernel<D, Bias><<<dim3((TQ + BT - 1) / BT, H, B), kThreads, smem, stream>>>(
-      q, k, v, g, stats, delta, bias, seed, rate, dq, H, TQ, TK, scale);
+  dq_kernel<D, Bias><<<(unsigned)(nq * heads), kThreads, dq_smem, stream>>>(
+      q, k, v, g, stats, delta, bias, seed, rate, dq, B, H, TQ, TK, scale);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dkv_kernel<D, Bias><<<dim3((TK + BT - 1) / BT, H, B), kThreads, smem, stream>>>(
-      q, k, v, g, stats, delta, bias, seed, rate, dk, dv, H, TQ, TK, scale);
+  dkv_kernel<D, Bias, false><<<(unsigned)(nk * heads), kThreads, T::kSmem, stream>>>(
+      q, k, v, g, stats, delta, bias, seed, rate, nullptr, dk, dv, B, H, TQ, TK, 0, scale);
   return (int)cudaGetLastError();
 }
 

@@ -9,19 +9,24 @@
 //                                    + (j <= i ? 0 : -1e9))) * v_j,
 //
 // it computes dq, dK and dV from g = d loss / d out; kvb is a constant. The
-// body is attention_bwd.cuh with the causal bias: a delta pass, a dQ pass
-// (one block per query tile, key tiles up to the diagonal) and a dK/dV pass
-// (one block per key tile, query tiles from the diagonal down). The K/V row at
-// T = 1280 is 655 KB in fp32, so keys are tiled through shared memory as in the
-// forward. Every row must have one allowed key at or below it (key 0 on the
-// training path), the forward's own condition for skipping tiles.
+// body is attention_bwd.cuh with the causal bias, in its two-pass form: a
+// delta pass, a dQ pass (a block per query tile, key tiles up to the
+// diagonal, the longest blocks launched first) and a dK/dV pass (a block per
+// key tile, query tiles from the diagonal down, the longest first); fully
+// masked tiles are skipped. The K/V row at T = 1280 is 655 KB in fp32, so keys
+// stream through shared memory as in the forward. Bound by operations: 33.6
+// GFLOP of products against 169 MB at the train shape [8,8,1280,64], so the
+// products run on the tensor cores as 3xTF32 `mma.sync`, with the next tile's
+// `cp.async` loads under this one's products. Every row must have one allowed
+// key at or below it (key 0 on the training path), the forward's own
+// condition for skipping tiles.
 
 #include "attention_bwd.cuh"
 
 // q, k, v, g, out, dq, dk, dv: [B, H, T, D]; kvb: [B, T]; stats: [B, H, T, 2]
 // (the forward's row max and 1 / sum); delta: [B, H, T] scratch; seed: one
-// int64 on the device, read when rate > 0; all fp32 and contiguous. T a
-// multiple of 64; D a multiple of 8 from 8 to 256.
+// int64 on the device, read when rate > 0; all fp32 and contiguous, q, k, v
+// and g 16-byte aligned. T a multiple of 64; D a multiple of 8 from 8 to 256.
 // Launches on `stream` without synchronising; returns the cudaError_t code.
 extern "C" int masked_attention_bwd_f32(const float* q, const float* k, const float* v,
                                         const float* kvb, const float* g,
@@ -36,8 +41,8 @@ extern "C" int masked_attention_bwd_f32(const float* q, const float* k, const fl
   const attn_bwd::CausalBias bias{kvb, T};
 #define CASE(d)                                                                       \
   case d:                                                                             \
-    return attn_bwd::launch_bwd<d>(q, k, v, g, out, stats, seed, delta, dq, dk, dv,   \
-                                   bias, B, H, T, T, scale, rate, s);
+    return attn_bwd::launch_bwd<d>(q, k, v, g, out, stats, seed, delta, nullptr, 0, dq, \
+                                   dk, dv, bias, B, H, T, T, scale, rate, s);
   switch (D) {
     ATTN_FOR_EACH_HEAD_DIM(CASE)
     default: return (int)cudaErrorInvalidValue;

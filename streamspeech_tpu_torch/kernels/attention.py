@@ -26,7 +26,7 @@ For CPU tensors each wrapper computes its plain version (``*_reference``,
 ``*_backward_reference``, ``dropout_keep_reference``); for CUDA tensors it
 launches its kernel or raises. There is no fallback. Each counts its launches:
 ``f.launches`` for a forward, ``f_backward.launches`` once per backward call
-(which launches three or four CUDA kernels), ``dropout_keep.launches`` for the
+(which launches two to four CUDA kernels), ``dropout_keep.launches`` for the
 kernel that writes the mask out alone. ``mask_draws`` counts the forward
 launches and backward calls that drew the mask inside their own kernels.
 """
@@ -34,6 +34,7 @@ launches and backward calls that drew the mask inside their own kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -54,7 +55,8 @@ _RELPOS = ("relpos_attention", "relpos_attention_f32",
 _MASKED_BWD = ("masked_attention_bwd", "masked_attention_bwd_f32",
                (_P,) * 12 + (_I,) * 4 + (_F, _F, _P))
 _BIAS_BWD = ("bias_attention_bwd", "bias_attention_bwd_f32",
-             (_P,) * 12 + (_I,) * 5 + (_F, _F, _P))
+             (_P,) * 13 + (_I,) * 6 + (_F, _F, _P))
+_BIAS_BWD_GROUPS = ("bias_attention_bwd", "bias_attention_bwd_groups", (_I,) * 5)
 _RELPOS_BWD = ("relpos_attention_bwd", "relpos_attention_bwd_f32",
                (_P,) * 15 + (_I,) * 6 + (_F, _F, _P))
 _RELPOS_DP = ("relpos_attention_dp", "relpos_attention_dp_f32",
@@ -513,13 +515,28 @@ def bias_attention_backward(q, k, v, bias, g, out, stats, seed, scale: float,
     _check_backward(g, out, stats, q)
     _check_seed(seed, q.device, rate)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = q.new_empty((b, h, tq))
+    groups, shape = bias_backward_scratch(b, h, tq, tk, d)
+    scratch = q.new_empty(shape)
     build.launch(_BIAS_BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr(), g.data_ptr(), out.data_ptr(), stats.data_ptr(),
-                 _ptr(seed) if rate > 0 else None, delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, float(scale), float(rate))
+                 _ptr(seed) if rate > 0 else None, None if groups else scratch.data_ptr(),
+                 scratch.data_ptr() if groups else None, dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, tq, tk, d, groups, float(scale), float(rate))
     _count(bias_attention_backward, rate)
     return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def bias_backward_scratch(b: int, h: int, tq: int, tk: int, d: int
+                          ) -> Tuple[int, Tuple[int, ...]]:
+    """(G, shape) of ``csrc/bias_attention_bwd.cu`` at this shape: its
+    query-tile groups G and the shape of the fp32 scratch that
+    ``bias_attention_backward`` allocates for it. G = 0 is the two-pass form,
+    whose scratch is delta [B, H, TQ]; G > 0 the fused pass, whose scratch is
+    the groups' dK/dV partials [2, G, B, H, TK, D]. G comes from the built
+    library, which owns the tile sizes."""
+    groups = build.bind(*_BIAS_BWD_GROUPS)(b, h, tq, tk, d)
+    return groups, ((2, groups, b, h, tk, d) if groups else (b, h, tq))
 
 
 class _BiasAttention(torch.autograd.Function):

@@ -146,6 +146,9 @@ class ConformerLayer(nn.Module):
 class ChunkConformerEncoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        if cfg.speaker_embed_dim:
+            raise NotImplementedError("speaker_embed_dim: the encoder's spk_emb_proj is "
+                                      "not ported (ROADMAP §A item 7)")
         self.cfg = cfg
         self.subsample = Conv1dSubsampler(cfg)
         self.linear = nn.Linear(cfg.embed_dim, cfg.embed_dim)

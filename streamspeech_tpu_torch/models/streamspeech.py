@@ -55,6 +55,9 @@ class StreamSpeechModel(nn.Module):
         if cfg.cascade or cfg.synthesizer_encoder_layers <= 0:
             raise NotImplementedError("only the T2U-encoder (non-cascade) "
                                       "StreamSpeech variant is ported")
+        if cfg.dtype != "float32":
+            raise NotImplementedError(f"dtype {cfg.dtype!r}: the port computes in float32 "
+                                      "only; bf16 is ROADMAP §A item 3")
         self.cfg = cfg
         e, d = cfg.encoder, cfg.mt_decoder
         self.encoder = ChunkConformerEncoder(e)

@@ -302,9 +302,9 @@ def test_ctc_autograd_function_matches_the_plain_path(hopper):
 GRAD_RTOL = 1e-4  # kernel vs plain backward, of max |ref| per tensor: summation order
 
 
-def _grad_close(got, want, names):
-    for name, g, w in zip(names, got, want):
-        tol = GRAD_RTOL * float(w.abs().max()) + 1e-7
+def _grad_close(got, want, names, floors=None):
+    for i, (name, g, w) in enumerate(zip(names, got, want)):
+        tol = GRAD_RTOL * float(w.abs().max()) + 1e-7 + (floors[i] if floors else 0.0)
         err = float((g - w).abs().max())
         assert err <= tol, f"{name}: {err} > {tol}"
 
@@ -364,9 +364,11 @@ def test_kernel_mask_equals_the_plain_mask(hopper, b, h, tq, tk, rate):
         assert abs(float(got.float().mean()) - (1 - rate)) < 3 * sigma
 
 
-def _run_fwd_bwd(fn, bwd, ref, ref_bwd, diff, const, g, scale, rate, seed, keep):
+def _run_fwd_bwd(fn, bwd, ref, ref_bwd, diff, const, g, scale, rate, seed, keep,
+                 floors=None):
     """The wrapper's forward and backward (through autograd) against the plain
-    forward and the plain backward under the same keep mask."""
+    forward and the plain backward under the same keep mask; ``floors`` adds
+    an absolute term to each gradient's tolerance."""
     before = (fn.launches, bwd.launches, attention.mask_draws,
               attention.dropout_keep.launches)
     xs = [x.clone().requires_grad_() for x in diff]
@@ -381,7 +383,7 @@ def _run_fwd_bwd(fn, bwd, ref, ref_bwd, diff, const, g, scale, rate, seed, keep)
     tol = GRAD_RTOL * float(want.abs().max())
     assert float((out - want).abs().max()) <= tol
     want_grads = ref_bwd(*diff, *const, g, scale, keep, rate)
-    _grad_close(grads, want_grads, [f"d{i}" for i in range(len(diff))])
+    _grad_close(grads, want_grads, [f"d{i}" for i in range(len(diff))], floors)
     again = torch.autograd.grad(fn(*xs, *const, scale, rate, seed), xs, g)
     for a, c in zip(grads, again):
         assert torch.equal(a, c)                       # no atomics: bit for bit
@@ -514,3 +516,81 @@ def test_kernel_train_step_on_the_card_matches_the_cpu(hopper):
     for name, want in ref_grads.items():
         tol = 1e-3 * float(want.abs().max()) + 1e-7
         assert float((grads[name] - want).abs().max()) <= tol, name
+
+
+def _bias_bwd_inputs(b, h, tq, tk, d, seed):
+    """``_bias_inputs`` with at least one valid key in every batch row."""
+    rng = np.random.RandomState(seed)
+    q, g = (rng.randn(b, h, tq, d).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, h, tk, d).astype(np.float32) for _ in range(2))
+    n_valid = np.array([tk] + [max(1, tk - 5)] * (b - 1))
+    allowed = (np.arange(tk)[None, None, :] < np.minimum(
+        np.arange(tq)[None, :, None] // 25 + 1, tk)) & \
+        (np.arange(tk)[None, None, :] < n_valid[:, None, None])
+    bias = np.where(allowed, 0.0, NEG_INF).astype(np.float32)
+    return q, k, v, bias, g
+
+
+# (TQ, TK) of the B6 form tests, TQ ragged; B = 2, H = 3
+BIAS_FORM_SHAPES = [(331, 1), (331, 7), (331, 48), (50, 48), (331, 65), (331, 130)]
+BIAS_FORM_HEAD_DIMS = [8, 24, 64, 128, 256]
+
+
+@pytest.mark.gpu
+def test_bias_backward_form_shapes_cover_every_form(hopper):
+    """The shapes below reach, by the library's own choice of form, both the
+    fused pass and the two-pass form at every head dim, and the fused pass
+    with one query-tile group and with several."""
+    groups = {d: {attention.bias_backward_scratch(2, 3, tq, tk, d)[0]
+                  for tq, tk in BIAS_FORM_SHAPES} for d in BIAS_FORM_HEAD_DIMS}
+    assert all(0 in g and max(g) > 0 for g in groups.values()), groups
+    every = set().union(*groups.values())
+    assert 1 in every and max(every) > 1, groups
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", BIAS_FORM_HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk", BIAS_FORM_SHAPES)
+def test_bias_backward_fused_and_two_pass_forms(hopper, tq, tk, d, rate):
+    """B6 on the form its library picks for the shape (the fused pass while
+    the keys fit one resident tile, with G query-tile groups; else two
+    passes), TQ ragged; bit-identical twice."""
+    b, h = 2, 3
+    q, k, v, bias, g = (torch.from_numpy(a).to(hopper)
+                        for a in _bias_bwd_inputs(b, h, tq, tk, d, seed=tq + tk + d))
+    seed = _seed(hopper, 4321) if rate > 0 else None
+    keep = attention.dropout_keep_reference(seed, b, h, tq, tk, rate) if rate > 0 else None
+    floors = None
+    if tk == 1:
+        # a softmax over one key is constant: the plain ds, dq and dK are 0
+        # exactly, the kernel's p = 1 + O(eps) (s recomputed in another order
+        # than the forward's statistics) leaves ds = O(eps |dp|). Held to what
+        # ds within 1e-4 scale max|dp| gives: dq = ds K, dK = sum_i ds_i q_i
+        ds_tol = GRAD_RTOL * d ** -0.5 * float(torch.einsum("bhsd,bhtd->bhst", g, v)
+                                               .abs().max()) / (1.0 - rate)
+        floors = [ds_tol * float(k.abs().max()), ds_tol * float(q.abs().max()) * tq, 0.0]
+    _run_fwd_bwd(attention.bias_attention, attention.bias_attention_backward,
+                 attention.bias_attention_reference,
+                 attention.bias_attention_backward_reference, (q, k, v), (bias,), g,
+                 d ** -0.5, rate, seed, keep, floors)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("d", [8, 40, 128, 256])
+@pytest.mark.parametrize("t", [64, 1280])
+def test_causal_backward_tensor_core_forms(hopper, t, d, rate):
+    """B4 at one tile and at the unit decoder's train length, at both tile
+    sizes (64 rows up to D = 120, 32 above); bit-identical twice."""
+    b, h = (1, 2) if t > 64 else (2, 3)
+    q, k, v, kvb = (torch.from_numpy(a).to(hopper)
+                    for a in _inputs(b, h, t, d, seed=t + d, n_valid=[t - 17] * b))
+    g = torch.from_numpy(np.random.RandomState(5).randn(b, h, t, d).astype(np.float32)
+                         ).to(hopper)
+    seed = _seed(hopper, 99) if rate > 0 else None
+    keep = attention.dropout_keep_reference(seed, b, h, t, t, rate) if rate > 0 else None
+    _run_fwd_bwd(attention.masked_attention, attention.masked_attention_backward,
+                 attention.masked_attention_reference,
+                 attention.masked_attention_backward_reference, (q, k, v), (kvb,), g,
+                 d ** -0.5, rate, seed, keep)

@@ -5,13 +5,15 @@ beside the plain fp32 version's, on inputs where the softmax backward cancels.
 
 ds = p·(dp - delta) subtracts two numbers that are close when the values v_j
 hardly differ from key to key (a unit decoder whose 25 queries per text token
-share one source row). The kernels take delta = Σ_d g·out, the plain version
-and autograd take delta = Σ_j dp_j·p_j; both round in fp32, differently. For
+share one source row). The two-pass kernels (causal; bias past one key tile)
+take delta = Σ_d g·out, the fused bias kernel, the plain version and autograd
+take delta = Σ_j dp_j·p_j; all round in fp32, differently. For
 the causal and the bias family at [2, 8, 640 (x 48), 64], with
 v_j = v̄ + spread·noise for spread 1 (random values), 0.1 and 0.01, this prints
 per family and spread the largest per-tensor error max|g - g64| / max|g64| of
 the kernel, of the plain fp32 backward and of fp32 autograd through the plain
-forward, against the plain backward run in float64. One JSON line, then the
+forward, against the plain backward run in float64, and the kernel's and the
+plain backward's error per tensor (dq, dK, dV). One JSON line, then the
 card's name and power limit. Needs a CUDA device.
 """
 
@@ -30,9 +32,13 @@ from streamspeech_tpu_torch.kernels import attention as A  # noqa: E402
 from streamspeech_tpu_torch.ops.masks import NEG_INF  # noqa: E402
 
 
+def rel_errs(got, want):
+    return [float((g.double() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
 def rel_err(got, want):
-    return max(float((g.double() - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-               for g, w in zip(got, want))
+    return max(rel_errs(got, want))
 
 
 def main():
@@ -75,7 +81,11 @@ def main():
                          "kernel_vs_float64": rel_err(kernel, truth),
                          "plain_vs_float64": rel_err(plain, truth),
                          "autograd_vs_float64": rel_err(auto, truth),
-                         "kernel_vs_plain": rel_err(kernel, [p.double() for p in plain])})
+                         "kernel_vs_plain": rel_err(kernel, [p.double() for p in plain]),
+                         "kernel_vs_float64_by_grad": dict(zip(("dq", "dk", "dv"),
+                                                               rel_errs(kernel, truth))),
+                         "plain_vs_float64_by_grad": dict(zip(("dq", "dk", "dv"),
+                                                              rel_errs(plain, truth)))})
     print(json.dumps({"rows": rows}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -63,7 +63,9 @@ KERNELS = {
     "causal_dq_kernel": ("attn_bwd::dq_kernel", "CausalBias"),
     "causal_dkv_kernel": ("attn_bwd::dkv_kernel", "CausalBias"),
     "bias_dq_kernel": ("attn_bwd::dq_kernel", "FullBias"),
+    # the fused B6 pass (dq, delta and partial dK/dV) at TK <= 64, or its dK/dV pass
     "bias_dkv_kernel": ("attn_bwd::dkv_kernel", "FullBias"),
+    "bias_reduce_kernel": ("attn_bwd::reduce_kernel",),
     "rowdot_kernel": ("rowdot_kernel",),
 }
 PROFILED_STEPS = 3
