@@ -1,9 +1,8 @@
 // The backward of softmax(q Kᵀ·scale + additive bias)·V with dropout, fp32, for
 // Hopper (sm_90a): the body shared by masked_attention_bwd.cu (causal, key
 // bias) and bias_attention_bwd.cu (arbitrary [B, TQ, TK] bias), which differ
-// only in where the additive bias comes from, and the helpers the rel-pos
-// backward shares (kThreads, load_tile, tile_rows, smem_bytes, raise_smem,
-// launch_rowdot: its CUDA-core form is not redesigned here).
+// only in where the additive bias comes from. The tensor-core and copy
+// helpers are tc_mma.cuh's.
 //
 // Replaces `_causal_bwd_kernel` and `_bias_bwd_kernel` of
 // streamspeech_tpu/ops/pallas_attention.py. Each block recomputes
@@ -46,43 +45,15 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "dropout.cuh"
+#include "tc_mma.cuh"
 
 namespace attn_bwd {
 
+using namespace tc;
+
 constexpr int kThreads = 256;  // 16 x 16: ty owns BT/16 rows, tx BT/16 columns / D/16 channels
 constexpr int kMaxD = 256;
-constexpr int kMaxDevices = 64;
-constexpr size_t kMaxSmem = 232448;  // an H100 block's dynamic shared-memory limit
 constexpr float kNegInf = -1e9f;
-
-// (a * bt + c) rows of [D + 1] floats and `squares` [bt, bt + 1] score tiles
-__host__ __device__ constexpr size_t smem_bytes(int d, int bt, int a, int c, int squares) {
-  return sizeof(float) * ((size_t)(a * bt + c) * (d + 1) + (size_t)squares * bt * (bt + 1));
-}
-
-// The largest tile of 64, 32 or 16 rows whose shared memory fits one block.
-template <int D, int A, int C, int SQ>
-__host__ __device__ constexpr int tile_rows() {
-  return smem_bytes(D, 64, A, C, SQ) <= kMaxSmem   ? 64
-         : smem_bytes(D, 32, A, C, SQ) <= kMaxSmem ? 32
-                                                   : 16;
-}
-
-// Raise a kernel's dynamic shared-memory limit once per device.
-template <class Kernel>
-int raise_smem(Kernel kernel, size_t smem, bool* raised) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || !raised[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) raised[dev] = true;
-  }
-  return 0;
-}
 
 // delta[row] = sum_d g[row, d] * out[row, d]; one warp per row.
 __global__ void __launch_bounds__(kThreads)
@@ -129,23 +100,6 @@ struct FullBias {
   }
 };
 
-// Copy rows [r0, r0 + ROWS) of a [n, D] matrix into a [ROWS][D + 1] tile,
-// zeros past row n.
-template <int ROWS, int D>
-__device__ __forceinline__ void load_tile(float* tile, const float* __restrict__ src,
-                                          int r0, int n, int tid) {
-  constexpr int LD = D + 1;
-  for (int i = tid; i < ROWS * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    tile[r * LD + c] = (r0 + r >= 0 && r0 + r < n) ? src[(size_t)(r0 + r) * D + c] : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The tensor-core body of B4 and B6 (the helpers above serve the rel-pos
-// backward, which keeps its CUDA-core form).
-// ---------------------------------------------------------------------------
-
 constexpr int kWarps = kThreads / 32;
 
 // The tile layout of one head dim: BT-row tiles (queries and keys alike), rows
@@ -178,37 +132,12 @@ struct Tiles {
   static_assert(kSmem <= kMaxSmem, "tiles do not fit shared memory");
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Rows [r0, r0 + BT) of a [n, D] matrix into a padded [BT][LDD] tile by
 // 16-byte cp.async, zeros past row n.
 template <int D>
 __device__ __forceinline__ void async_tile(float* tile, const float* __restrict__ src, int r0,
                                            int n, int tid) {
-  constexpr int BT = Tiles<D>::BT, LDD = Tiles<D>::LDD, CH = D / 4;
-  for (int i = tid; i < BT * CH; i += kThreads) {
-    const int r = i / CH, c = (i % CH) * 4;
-    const bool in = r0 + r < n;
-    cp_async16(tile + r * LDD + c, in ? src + (size_t)(r0 + r) * D + c : src, in);
-  }
+  async_load<Tiles<D>::BT, D, Tiles<D>::LDD>(tile, src, r0, n, tid, kThreads);
 }
 
 // Rows [r0, r0 + BT) of the forward's statistics [n, 2] (and, given, delta
@@ -225,106 +154,6 @@ __device__ __forceinline__ void async_rows(float* st, const float* __restrict__ 
     const float* src = is_stat ? stats + (size_t)(r0 + r) * 2 + (i & 1) : delta + r0 + r;
     cp_async4(st + i, in ? src : stats, in);
   }
-}
-
-// fp32 -> tf32 rounded to nearest, ties away from zero; the low 13 bits are 0
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, hi tf32; lo = x - hi (exact in fp32) is handed over as it
-// is: the tensor core reads a .tf32 operand's top 19 bits and ignores the
-// low 13, so lo enters truncated, 2^-10 of |lo| <= 2^-21 |x| off, and the
-// cvt a rounded lo would cost is saved (one instruction of three a split)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a b on the tensor cores, m16n8k8, tf32 inputs, fp32 accumulators
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 3xTF32: c += a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first; the
-// dropped a_lo b_lo is 2^-22 of the product. The three go into a zeroed
-// accumulator and the running sum c takes them by an fp32 add: the tensor
-// core's own accumulation does not round as an fp32 add does, so carrying c
-// through it over a 64-deep contraction would add its error at every k-step
-__device__ __forceinline__ void mma3(float c[4], const uint32_t ah[4], const uint32_t al[4],
-                                     const uint32_t bh[2], const uint32_t bl[2]) {
-  float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma(t, al, bh);
-  mma(t, ah, bl);
-  mma(t, ah, bh);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) c[i] += t[i];
-}
-
-// A fragment (rows m0.., depth k0..) of a matrix stored as its tile's rows
-// (A[m][k] = T[m][k]), or as its tile's columns (A[m][k] = T[k][m]), split.
-template <bool kTransposed>
-__device__ __forceinline__ void load_a(const float* t, int ld, int m0, int k0, int g, int q,
-                                       uint32_t hi[4], uint32_t lo[4]) {
-  float x[4];
-  if (kTransposed) {
-    x[0] = t[(k0 + q) * ld + m0 + g];
-    x[1] = t[(k0 + q) * ld + m0 + g + 8];
-    x[2] = t[(k0 + q + 4) * ld + m0 + g];
-    x[3] = t[(k0 + q + 4) * ld + m0 + g + 8];
-  } else {
-    x[0] = t[(m0 + g) * ld + k0 + q];
-    x[1] = t[(m0 + g + 8) * ld + k0 + q];
-    x[2] = t[(m0 + g) * ld + k0 + q + 4];
-    x[3] = t[(m0 + g + 8) * ld + k0 + q + 4];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(x[i], hi[i], lo[i]);
-}
-
-// B fragment (depth k0.., columns n0..) of B[k][n] = T[n][k] (kByRows: the
-// tile's rows are B's columns, as K in q Kᵀ) or B[k][n] = T[k][n], split.
-template <bool kByRows>
-__device__ __forceinline__ void load_b(const float* t, int ld, int k0, int n0, int g, int q,
-                                       uint32_t hi[2], uint32_t lo[2]) {
-  float x[2];
-  if (kByRows) {
-    x[0] = t[(n0 + g) * ld + k0 + q];
-    x[1] = t[(n0 + g) * ld + k0 + q + 4];
-  } else {
-    x[0] = t[(k0 + q) * ld + n0 + g];
-    x[1] = t[(k0 + q + 4) * ld + n0 + g];
-  }
-  split(x[0], hi[0], lo[0]);
-  split(x[1], hi[1], lo[1]);
-}
-
-// The keep factors of a score fragment: rows (row, row + 8), columns (col,
-// col + 1), col = 8-column slab + 2 * (lane % 4), as kf[0..3] in the order of
-// the accumulator. Lanes q and q ^ 1 share one Philox group of 4 columns:
-// the even lane draws it for row `row`, the odd one for row + 8, and each
-// hands the other the two factors it needs. One draw per 4 elements, as
-// dropout::fill_keep_tile, with no shared-memory tile; all 32 lanes must call.
-__device__ __forceinline__ void keep_frag(unsigned long long seed, int b, int h, int row,
-                                          int slab, int q, float rate, float inv_keep,
-                                          float kf[4]) {
-  const bool odd = q & 1;
-  uint32_t bits[4];
-  dropout::draw4(seed, b, h, odd ? row + 8 : row, (slab >> 2) + (q >> 1), bits);
-  float k[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) k[e] = dropout::keeps(bits[e], rate) ? inv_keep : 0.f;
-  const float r0 = __shfl_xor_sync(0xffffffffu, odd ? k[0] : k[2], 1);
-  const float r1 = __shfl_xor_sync(0xffffffffu, odd ? k[1] : k[3], 1);
-  kf[0] = odd ? r0 : k[0];
-  kf[1] = odd ? r1 : k[1];
-  kf[2] = odd ? k[2] : r0;
-  kf[3] = odd ? k[3] : r1;
 }
 
 // s = q Kᵀ and dp = g Vᵀ of the warp's [16, 8 NT] part of a [BT, BT] score
@@ -399,58 +228,6 @@ __device__ __forceinline__ void grads(const float s[][4], const float dp[][4], f
     }
 }
 
-// acc[j] += A B over a depth of BT, for the warp's rows 16 wr.. of a [BT, D]
-// output and its column slabs wc + WC j: A is a [BT][BT] score tile (dq: ds
-// with rows = queries; kTransposed, dK and dV: dsᵀ or (p kf)ᵀ), B a [BT][LDD]
-// tile read by its rows (K for dq, q or g for dK and dV).
-template <int D, bool kTransposed>
-__device__ __forceinline__ void product(float acc[][4], const float* a, const float* bt_tile,
-                                        int wr, int wc, int g, int q) {
-  constexpr int BT = Tiles<D>::BT, LDD = Tiles<D>::LDD, WC = Tiles<D>::WC,
-                NO = Tiles<D>::NO;
-#pragma unroll 2
-  for (int k0 = 0; k0 < BT; k0 += 8) {
-    uint32_t ah[4], al[4];
-    load_a<kTransposed>(a, Tiles<D>::LDS, 16 * wr, k0, g, q, ah, al);
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      const int slab = wc + WC * j;
-      if (D % (8 * WC) != 0 && slab >= D / 8) break;
-      uint32_t bh[2], bl[2];
-      load_b<false>(bt_tile, LDD, k0, 8 * slab, g, q, bh, bl);
-      mma3(acc[j], ah, al, bh, bl);
-    }
-  }
-}
-
-// Write the warp's part of a [BT, D] output (rows r0 + 16 wr.., fewer than n
-// kept) to dst [n, D].
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float acc[][4], int r0,
-                                           int n, int wr, int wc, int g, int q) {
-  constexpr int WC = Tiles<D>::WC, NO = Tiles<D>::NO;
-#pragma unroll
-  for (int j = 0; j < NO; ++j) {
-    const int slab = wc + WC * j;
-    if (D % (8 * WC) != 0 && slab >= D / 8) break;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + 16 * wr + g + 8 * half;
-      if (row < n)
-        *reinterpret_cast<float2*>(dst + (size_t)row * D + 8 * slab + 2 * q) =
-            make_float2(acc[j][2 * half], acc[j][2 * half + 1]);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float acc[][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
 // The dQ pass: one block per (query tile, h, b), the last query tiles (the
 // longest walks of the causal triangle) launched first; K and V tiles stream
 // through a two-stage cp.async ring while the previous tile's products run.
@@ -518,10 +295,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
              inv_keep, wr, wc, lg, lq);
     grads<D>(s, dp, dss, dl, scale, wr, wc, lg, lq);
     __syncthreads();
-    product<D, false>(acc, dss, ks, wr, wc, lg, lq);
+    product<BT, T::NO, T::WC, D / 8, false>(acc, dss, T::LDS, 16 * wr, ks, T::LDD, wc, lg, lq);
     __syncthreads();
   }
-  store_rows<D>(dq + base_q * D, acc, q0, TQ, wr, wc, lg, lq);
+  store_frags<D, T::NO, T::WC>(dq + base_q * D, acc, q0 + 16 * wr, TQ, wc, lg, lq);
 }
 
 // The dK/dV side: one block per key tile and (h, b), K and V resident, query
@@ -630,17 +407,18 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (kFused) {
       float acc[T::NO][4];
       zero<T::NO>(acc);
-      product<D, false>(acc, dss, ks, wr, wc, lg, lq);
-      store_rows<D>(dq + base_q * D, acc, q0, TQ, wr, wc, lg, lq);
+      product<BT, T::NO, T::WC, D / 8, false>(acc, dss, T::LDS, 16 * wr, ks, T::LDD, wc, lg,
+                                              lq);
+      store_frags<D, T::NO, T::WC>(dq + base_q * D, acc, q0 + 16 * wr, TQ, wc, lg, lq);
     }
-    product<D, true>(dka, dss, qs, wr, wc, lg, lq);
-    product<D, true>(dva, pks, gs, wr, wc, lg, lq);
+    product<BT, T::NO, T::WC, D / 8, true>(dka, dss, T::LDS, 16 * wr, qs, T::LDD, wc, lg, lq);
+    product<BT, T::NO, T::WC, D / 8, true>(dva, pks, T::LDS, 16 * wr, gs, T::LDD, wc, lg, lq);
     __syncthreads();
   }
   // kFused: dk, dv are part[0], part[1]; this block's rows are group `tile`'s
   const size_t out = kFused ? ((size_t)tile * B * H + bh) * TK : base_k;
-  store_rows<D>(dk + out * D, dka, k0, TK, wr, wc, lg, lq);
-  store_rows<D>(dv + out * D, dva, k0, TK, wr, wc, lg, lq);
+  store_frags<D, T::NO, T::WC>(dk + out * D, dka, k0 + 16 * wr, TK, wc, lg, lq);
+  store_frags<D, T::NO, T::WC>(dv + out * D, dva, k0 + 16 * wr, TK, wc, lg, lq);
 }
 
 // dk = sum_gr part[0][gr], dv = sum_gr part[1][gr], gr = 0..G-1 in order.
@@ -742,10 +520,3 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* g,
 }
 
 }  // namespace attn_bwd
-
-// `switch (D)` over every head dim the attention kernels take.
-#define ATTN_FOR_EACH_HEAD_DIM(CASE)                                                  \
-  CASE(8) CASE(16) CASE(24) CASE(32) CASE(40) CASE(48) CASE(56) CASE(64) CASE(72)     \
-  CASE(80) CASE(88) CASE(96) CASE(104) CASE(112) CASE(120) CASE(128) CASE(136)        \
-  CASE(144) CASE(152) CASE(160) CASE(168) CASE(176) CASE(184) CASE(192) CASE(200)     \
-  CASE(208) CASE(216) CASE(224) CASE(232) CASE(240) CASE(248) CASE(256)

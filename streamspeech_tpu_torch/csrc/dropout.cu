@@ -2,21 +2,23 @@
 //
 // The six attention kernels regenerate the mask of dropout.cuh inside their
 // tile loops and never store it. This entry point stores it, through the same
-// `fill_keep_tile` and `keep_factor` they call, so that a check can hold the
+// `fill_keep_tile` and `keep_frag` they call, so that a check can hold the
 // kernels' mask against `dropout_keep_reference` bit for bit. It is bound by
 // the Philox integer operations (~18 an element), not by the one byte written.
 
 #include <cuda_runtime.h>
 
-#include "dropout.cuh"
+#include "tc_mma.cuh"
 
 namespace {
 
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 
-// Even query tiles go through fill_keep_tile (the forward, dQ and dK/dV passes'
-// way), odd ones through keep_factor (the rel-pos dP pass's way).
+// Even query tiles go through fill_keep_tile (the way of the CUDA-core
+// forwards, B1 and B5), odd ones through keep_frag (the tensor-core kernels'
+// way, B2, B3, B4 and B6: warp w draws rows 16 (w % 4).. and the 8-column
+// slabs from 32 (w / 4)).
 __global__ void __launch_bounds__(kThreads)
 keep_mask_kernel(const long long* __restrict__ seed, unsigned char* __restrict__ out,
                  int H, int TQ, int TK, float rate) {
@@ -25,16 +27,24 @@ keep_mask_kernel(const long long* __restrict__ seed, unsigned char* __restrict__
   const int bh = blockIdx.z, b = bh / H, h = bh % H;
   const unsigned long long sd = (unsigned long long)*seed;
   const bool by_tile = blockIdx.y % 2 == 0;
-  if (by_tile)
+  if (by_tile) {
     dropout::fill_keep_tile<kTile, kTile>(tile, kTile + 1, sd, b, h, q0, k0, rate, 1.f,
                                           threadIdx.x, kThreads);
+  } else {
+    const int w = threadIdx.x / 32, g = threadIdx.x % 32 / 4, q = threadIdx.x % 4;
+    const int r0 = 16 * (w % 4);
+    for (int c0 = 32 * (w / 4); c0 < 32 * (w / 4) + 32; c0 += 8) {
+      float kf[4];
+      tc::keep_frag(sd, b, h, q0 + r0 + g, k0 + c0, q, rate, 1.f, kf);
+      for (int e = 0; e < 4; ++e)
+        tile[(r0 + g + 8 * (e >> 1)) * (kTile + 1) + c0 + 2 * q + (e & 1)] = kf[e];
+    }
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
     const int r = i / kTile, c = i % kTile;
     if (q0 + r >= TQ || k0 + c >= TK) continue;
-    const float f = by_tile ? tile[r * (kTile + 1) + c]
-                            : dropout::keep_factor(sd, b, h, q0 + r, k0 + c, rate, 1.f);
-    out[((size_t)bh * TQ + q0 + r) * TK + k0 + c] = f > 0.f ? 1 : 0;
+    out[((size_t)bh * TQ + q0 + r) * TK + k0 + c] = tile[r * (kTile + 1) + c] > 0.f ? 1 : 0;
   }
 }
 

@@ -2,9 +2,9 @@
 //
 // Replaces `_dropout_keep` in streamspeech_tpu/ops/pallas_attention.py, which
 // seeds the TPU's PRNG from (seed, b, h, q-block) and draws a [BQ, T] block of
-// bits. On this card the forward, the dQ pass, the dK/dV pass and the rel-pos
-// dP pass tile the [TQ, TK] scores differently and all must regenerate the
-// forward's mask, so the mask is a function of the element, not of a block:
+// bits. On this card the forwards and the backwards tile the [TQ, TK] scores
+// differently and all must regenerate the forward's mask, so the mask is a
+// function of the element, not of a block:
 //
 //   bits = Philox4x32-10(key = seed, counter = (b, h, query row, key col / 4))
 //   keep = ((bits[col % 4] >> 8) * 2^-24) >= rate    (pallas_attention.py:48-50)
@@ -50,15 +50,6 @@ __device__ __forceinline__ void draw4(unsigned long long seed, int b, int h, int
 
 __device__ __forceinline__ bool keeps(uint32_t bits, float rate) {
   return (float)(bits >> 8) * (1.0f / 16777216.0f) >= rate;
-}
-
-// inv_keep = 1 / (1 - rate) where element (row, col) is kept, else 0; col >= 0.
-__device__ __forceinline__ float keep_factor(unsigned long long seed, int b, int h,
-                                             int row, int col, float rate,
-                                             float inv_keep) {
-  uint32_t bits[4];
-  draw4(seed, b, h, row, col >> 2, bits);
-  return keeps(bits[col & 3], rate) ? inv_keep : 0.f;
 }
 
 // tile[r * ld + c] = keep factor of element (row0 + r, col0 + c) for r < ROWS,

@@ -1,362 +1,397 @@
 // Backward of the relative-position self-attention, fp32, for Hopper
-// (sm_90a): dq_u, dq_v, dK and dV. The table's gradient dP is
-// relpos_attention_dp.cu.
+// (sm_90a): dq_u, dq_v, dK, dV and the table's gradient dP in one pass over
+// the scores and one ordered reduction.
 //
-// Replaces `_bwd_kernel_a` (the first `pallas_call` of `_relpos_bwd`) in
+// Replaces `_relpos_bwd` (its two `pallas_call`s, `_bwd_kernel_a` and
+// `_bwd_kernel_p`, and the scatter-add of overlapping windows after them) in
 // streamspeech_tpu/ops/pallas_attention.py. For the forward of
 // relpos_attention.cu,
 //
 //   s[i,j] = (q_u[i] . k[j] + q_v[i] . p[T-1-i+j]) * scale + bias[i,j]
 //   out[i] = sum_j dropout(softmax_j(s[i,j])) * v[j],
 //
-// and g = d loss / d out it computes, with ds = p * (dp - delta) * scale as
-// in attention_bwd.cuh,
+// and g = d loss / d out it computes, with kf the keep factors of dropout.cuh,
+// delta = rowsum(g * out) and ds = p * (dp * kf - delta) * scale, dp = g Vᵀ,
 //
-//   dq_u[i] = sum_j ds[i,j] k[j]          dq_v[i] = sum_j ds[i,j] p[T-1-i+j]
-//   dK[j]   = sum_i ds[i,j] q_u[i]        dV[j]   = sum_i (p * kf)[i,j] g[i].
+//   dq_u = ds K      dq_v[i] = sum_j ds[i,j] p[T-1-i+j]      dK = dsᵀ q_u
+//   dV = (p kf)ᵀ g   dP[h,u] = sum_b sum_{T-1-i+j = u} ds[b,h,i,j] q_v[b,h,i].
 //
-// The TPU kernel un-shears ds with two exchange-matrix products and a strided
-// roll; here the shear is by index over the staged window of the table, as in
-// the forward: local (a, c) of a tile pair reads window row (BT-1) - a + c. The
-// TPU accumulates dK/dV over query blocks through its ordered grid; here a dQ
-// pass (one block per query tile, a loop over key tiles) and a dK/dV pass (one
-// block per key tile, a loop over query tiles) each own their outputs, so
-// there are no atomics and one seed gives the same gradients bit for bit. Both
-// recompute the scores from the forward's row statistics. Plain fp32 FMA on
-// the CUDA cores; bound by the shared-memory loads of the FMA loops.
+// One block per (query tile of BT rows, h, b) walks the key tiles once. For
+// each it forms, on the tensor cores (3xTF32 `mma.sync`, tc_mma.cuh):
+//   s = q_u Kᵀ and dp = g Vᵀ, [BT, BT];
+//   the shear as a dense product, as the TPU kernel does: W = q_v Pwᵀ over
+//   the 2 BT rows of the table the tile pair touches (window row
+//   w = BT-1 - a + c for local query a, key c), [BT, 2 BT], read back on its
+//   diagonal band from shared memory;
+//   p from the forward's row statistics, ds, and the un-sheared ds: ds
+//   scattered into a [BT, 2 BT] band tile Z that is zero off the band;
+//   then dq_u += ds K and dq_v += Z Pw in registers; this tile pair's dK = dsᵀ
+//   q_u and dV = (p kf)ᵀ g, written once to per-query-tile partials; and the
+//   dP window Zᵀ q_v, added into a rolling window of the query tile's table
+//   rows held in registers, whose rows are written out once no later key
+//   tile reaches them.
+// delta = rowsum(g * out) is formed in the block (a warp per row), so there
+// is no delta launch. A second kernel adds the dK/dV
+// partials over query tiles and the dP windows over query tiles and batch, in
+// a fixed order: no atomics, one seed gives the same gradients bit for bit.
+// Two launches a call, the scores computed once.
 //
-// Shared memory: q_u, q_v, g, K, V tiles, the [2*BT-1] window and the score
-// tiles. Tiles are 64 rows up to D = 104, 32 up to D = 248, 16 at D = 256.
-// Head dims: every multiple of 8 from 8 to 256. T a multiple of 64.
+// What bounds it: operations at the train shape [8,4,256,64] (eight products,
+// 2.15 GFLOP, against 24 MB; the band products add 0.81 GFLOP of multiplies by
+// the zeros off the band, and the partials 52 MB of traffic). The keep
+// factors are drawn on the score fragments (keep_frag), one Philox call per 4
+// elements. Tiles of BT = 32 rows up to D = 136 (256 blocks at the train
+// shape for 132 SMs, 123 KB of shared memory at D = 64), 16 above; 8 warps.
+// Head dims: every multiple of 8 from 8 to 256. T a multiple of 64, R >= 2T-1.
 
-#include "attention_bwd.cuh"
+#include <math.h>
+
+#include "tc_mma.cuh"
 
 namespace {
 
-using attn_bwd::kThreads;
-using attn_bwd::load_tile;
+using namespace tc;
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxD = 256;
+
+// The tiles of one head dim, BT query rows by BT keys. Shared memory, in
+// floats: q_u, q_v and g ([BT][LD], resident); two ring stages of K, V
+// ([BT][LD]) and the table window ([2 BT][LD]); W and Z ([BT][LW]); ds and
+// p * kf ([BT][LS]); delta, max and 1/sum of the block's rows.
+// Warp w owns, in the score phase, rows 16 (w % WR).. of the score and band
+// tiles and their 8-column slabs w / WR + WC n; in the product phase the same
+// rows of a [BT, D] output and the slabs w / WR + WC j; and in the dP phase
+// the row group (slot) w % WRP of the rolling [2 BT, D] window and the slabs
+// w / WRP + WCP j.
 template <int D>
-__host__ __device__ constexpr int rel_rows() {
-  return attn_bwd::tile_rows<D, 7, -1, 2>();
+struct Rel {
+  static constexpr int LD = D + 4;
+  static constexpr size_t floats(int bt) {
+    return (size_t)11 * bt * LD + 2 * bt * (2 * bt + 4) + 2 * bt * (bt + 4) + 3 * bt;
+  }
+  static constexpr int BT = floats(32) * 4 <= kMaxSmem ? 32 : 16;
+  static constexpr int LW = 2 * BT + 4, LS = BT + 4;
+  static constexpr size_t kStage = (size_t)4 * BT * LD;  // K, V, 2 BT table rows
+  static constexpr size_t kSmem = floats(BT) * 4;
+  static constexpr int WR = BT / 16, WC = kWarps / WR;
+  static constexpr int WRP = 2 * WR, WCP = kWarps / WRP;
+  static constexpr int NS = BT / 8, NTS = (NS + WC - 1) / WC;      // score slabs
+  static constexpr int NW = 2 * BT / 8, NTW = (NW + WC - 1) / WC;  // band slabs
+  static constexpr int ND = D / 8, NO = (ND + WC - 1) / WC, NOP = (ND + WCP - 1) / WCP;
+  static_assert(D % 8 == 0 && D <= kMaxD, "head dim must be a multiple of 8, <= 256");
+  static_assert(kSmem <= kMaxSmem, "tiles do not fit shared memory");
+};
+
+// Key tile k0's K and V rows and the 2 BT table rows from u0 into one stage.
+template <int D>
+__device__ __forceinline__ void stage_keys(float* dst, const float* kh, const float* vh,
+                                           const float* ph, int k0, int u0, int T, int R,
+                                           int tid) {
+  using F = Rel<D>;
+  async_load<F::BT, D, F::LD>(dst, kh, k0, T, tid, kThreads);
+  async_load<F::BT, D, F::LD>(dst + F::BT * F::LD, vh, k0, T, tid, kThreads);
+  async_load<2 * F::BT, D, F::LD>(dst + 2 * F::BT * F::LD, ph, u0, R, tid, kThreads);
 }
 
-// One (query tile, key tile) pair's ac + bd and dp = g vᵀ in registers.
-template <int D, int BT>
-__device__ __forceinline__ void scores_and_dp(const float* qus, const float* qvs,
-                                              const float* gs, const float* ks,
-                                              const float* vs, const float* pw, int ty,
-                                              int tx, float (&s)[BT / 16][BT / 16],
-                                              float (&dp)[BT / 16][BT / 16]) {
-  constexpr int R = BT / 16;
-  constexpr int LD = D + 1;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < D; ++d) {
-    float qa[R], qb[R], ga[R], kv[R], vv[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      qa[i] = qus[(ty * R + i) * LD + d];
-      qb[i] = qvs[(ty * R + i) * LD + d];
-      ga[i] = gs[(ty * R + i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      kv[j] = ks[(tx + 16 * j) * LD + d];
-      vv[j] = vs[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        // the shear: local (a, c) reads window row (BT-1) - a + c
-        const int w = (BT - 1) - (ty * R + i) + tx + 16 * j;
-        s[i][j] = fmaf(qa[i], kv[j], s[i][j]);
-        s[i][j] = fmaf(qb[i], pw[w * LD + d], s[i][j]);
-        dp[i][j] = fmaf(ga[i], vv[j], dp[i][j]);
-      }
-  }
-}
-
+// part: dK partials [nq][B H][T][D], then dV partials alike, then the dP
+// windows [B H][nq][T + BT][D] (window row r of query tile qt is table row
+// T - BT - qt BT + r).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-relpos_dq_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
-                 const float* __restrict__ k, const float* __restrict__ v,
-                 const float* __restrict__ p, const float* __restrict__ bias,
-                 const float* __restrict__ g, const float* __restrict__ stats,
-                 const float* __restrict__ delta, const long long* __restrict__ seed,
-                 float rate, float* __restrict__ dqu, float* __restrict__ dqv, int H, int T,
-                 int R_, int bias_heads, float scale) {
-  constexpr int BT = rel_rows<D>();
-  constexpr int R = BT / 16;
-  constexpr int BW = 2 * BT - 1;
-  constexpr int LD = D + 1;
-  constexpr int LP = BT + 1;
-  constexpr int DC = (D + 15) / 16;
-  static_assert(D % 8 == 0 && D <= attn_bwd::kMaxD, "head dim: a multiple of 8, <= 256");
-  extern __shared__ float smem[];
-  float* qus = smem;            // [BT][LD]
-  float* qvs = qus + BT * LD;   // [BT][LD]
-  float* gs = qvs + BT * LD;    // [BT][LD]
-  float* ks = gs + BT * LD;     // [BT][LD]
-  float* vs = ks + BT * LD;     // [BT][LD]
-  float* pw = vs + BT * LD;     // [BW][LD] window of the table
-  float* ps = pw + BW * LD;     // [BT][LP] keep factors, then ds
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t bh = (size_t)b * H + h;
-  const size_t head = bh * (size_t)T * D;
-  const float* ph = p + (size_t)h * R_ * D;
-  const float* bb = bias + ((size_t)b * bias_heads + (bias_heads > 1 ? h : 0)) * T * T;
-  const int q0 = qt * BT;
-  const bool drop = rate > 0.f;
-  const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
-  const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
-
-  load_tile<BT, D>(qus, qu + head, q0, T, tid);
-  load_tile<BT, D>(qvs, qv + head, q0, T, tid);
-  load_tile<BT, D>(gs, g + head, q0, T, tid);
-
-  float mx[R], il[R], dl[R], au[R][DC], av[R][DC];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const size_t row = bh * T + q0 + ty * R + i;
-    mx[i] = stats[row * 2];
-    il[i] = stats[row * 2 + 1];
-    dl[i] = delta[row];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) au[i][c] = av[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < T; k0 += BT) {
-    // table row of window row 0: T-1 - (q0 + BT-1) + k0, always in [0, 2T-2]
-    const int u0 = T - q0 - BT + k0;
-    __syncthreads();  // the previous tile's ks/vs/pw/ps are no longer read
-    load_tile<BT, D>(ks, k + head, k0, T, tid);
-    load_tile<BT, D>(vs, v + head, k0, T, tid);
-    load_tile<BW, D>(pw, ph, u0, R_, tid);
-    if (drop)
-      dropout::fill_keep_tile<BT, BT>(ps, LP, sd, b, h, q0, k0, rate, inv_keep, tid,
-                                      kThreads);
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
-    scores_and_dp<D, BT>(qus, qvs, gs, ks, vs, pw, ty, tx, s, dp);
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const float* brow = bb + (size_t)(q0 + ty * R + i) * T + k0;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        float* slot = &ps[(ty * R + i) * LP + tx + 16 * j];
-        const float pr = expf(s[i][j] * scale + brow[tx + 16 * j] - mx[i]) * il[i];
-        const float kf = drop ? *slot : 1.f;
-        *slot = pr * (dp[i][j] * kf - dl[i]) * scale;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < BT; ++kk) {
-      float kv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c)
-        kv[c] = (D % 16 == 0 || tx + 16 * c < D) ? ks[kk * LD + tx + 16 * c] : 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float ds = ps[(ty * R + i) * LP + kk];
-        const float* prow = pw + ((BT - 1) - (ty * R + i) + kk) * LD;
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          au[i][c] = fmaf(ds, kv[c], au[i][c]);
-          if (D % 16 == 0 || tx + 16 * c < D)
-            av[i][c] = fmaf(ds, prow[tx + 16 * c], av[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const size_t off = head + (size_t)(q0 + ty * R + i) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (D % 16 == 0 || tx + 16 * c < D) {
-        dqu[off + tx + 16 * c] = au[i][c];
-        dqv[off + tx + 16 * c] = av[i][c];
-      }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-relpos_dkv_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
+__global__ void __launch_bounds__(kThreads, 1)
+relpos_bwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
                   const float* __restrict__ k, const float* __restrict__ v,
                   const float* __restrict__ p, const float* __restrict__ bias,
-                  const float* __restrict__ g, const float* __restrict__ stats,
-                  const float* __restrict__ delta, const long long* __restrict__ seed,
-                  float rate, float* __restrict__ dk, float* __restrict__ dv, int H, int T,
-                  int R_, int bias_heads, float scale) {
-  constexpr int BT = rel_rows<D>();
-  constexpr int R = BT / 16;
-  constexpr int BW = 2 * BT - 1;
-  constexpr int LD = D + 1;
-  constexpr int LP = BT + 1;
-  constexpr int DC = (D + 15) / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;             // [BT][LD]
-  float* vs = ks + BT * LD;     // [BT][LD]
-  float* qus = vs + BT * LD;    // [BT][LD]
-  float* qvs = qus + BT * LD;   // [BT][LD]
-  float* gs = qvs + BT * LD;    // [BT][LD]
-  float* pw = gs + BT * LD;     // [BW][LD] window of the table
-  float* pd = pw + BW * LD;     // [BT][LP] keep factors, then p * kf, [query][key]
-  float* dst = pd + BT * LP;    // [BT][LP] ds, [query][key]
+                  const float* __restrict__ g, const float* __restrict__ out,
+                  const float* __restrict__ stats, const long long* __restrict__ seed,
+                  float rate, float* __restrict__ part, float* __restrict__ dqu,
+                  float* __restrict__ dqv, int B, int H, int T, int R, int bias_heads,
+                  float scale) {
+  using F = Rel<D>;
+  constexpr int BT = F::BT, LD = F::LD, LW = F::LW, LS = F::LS;
+  constexpr int WR = F::WR, WC = F::WC, WRP = F::WRP, WCP = F::WCP;
+  constexpr int NS = F::NS, NTS = F::NTS, NW = F::NW, NTW = F::NTW;
+  constexpr int ND = F::ND, NO = F::NO, NOP = F::NOP;
+  extern __shared__ __align__(16) float smem[];
+  float* qus = smem;
+  float* qvs = qus + BT * LD;
+  float* gs = qvs + BT * LD;
+  float* ring = gs + BT * LD;        // [2][K, V, table window]
+  float* wt = ring + 2 * F::kStage;  // W = q_v Pwᵀ, [BT][LW]
+  float* zs = wt + BT * LW;          // Z, ds on its band, [BT][LW]
+  float* dss = zs + BT * LW;         // ds, [BT][LS]
+  float* pks = dss + BT * LS;        // p * kf, [BT][LS]
+  float* rows = pks + BT * LS;       // delta, max, 1/sum of the block's rows
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const size_t bh = (size_t)b * H + h;
-  const size_t head = bh * (size_t)T * D;
-  const float* ph = p + (size_t)h * R_ * D;
+  const int nt = T / BT;  // query tiles, and key tiles
+  const int bh = blockIdx.x % (B * H), qt = (int)(blockIdx.x / (B * H));
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, lg = lane / 4, lq = lane % 4;
+  const int wr = w % WR, wc = w / WR, wrp = w % WRP, wcp = w / WRP;
+  const size_t head = (size_t)bh * T * D;
+  const float* kh = k + head;
+  const float* vh = v + head;
+  const float* ph = p + (size_t)h * R * D;
   const float* bb = bias + ((size_t)b * bias_heads + (bias_heads > 1 ? h : 0)) * T * T;
-  const int k0 = kt * BT;
+  const int q0 = qt * BT;
+  const size_t n_kv = (size_t)B * H * T * D;
+  float* part_k = part + ((size_t)qt * B * H + bh) * T * D;
+  float* part_v = part_k + (size_t)nt * n_kv;
+  float* part_p = part + 2 * (size_t)nt * n_kv + ((size_t)bh * nt + qt) * (T + BT) * D;
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
 
-  load_tile<BT, D>(ks, k + head, k0, T, tid);
-  load_tile<BT, D>(vs, v + head, k0, T, tid);
-
-  // in the accumulation this thread owns keys ty*R + jj and channels tx + 16c
-  float dka[R][DC], dva[R][DC];
+  async_load<BT, D, LD>(qus, qu + head, q0, T, tid, kThreads);
+  async_load<BT, D, LD>(qvs, qv + head, q0, T, tid, kThreads);
+  async_load<BT, D, LD>(gs, g + head, q0, T, tid, kThreads);
+  stage_keys<D>(ring, kh, vh, ph, 0, T - q0 - BT, T, R, tid);
+  cp_commit();
+  for (int r = w; r < BT; r += kWarps) {  // delta = rowsum(g * out), a warp a row
+    const size_t row = (size_t)bh * T + q0 + r;
+    float sum = 0.f;
+    for (int d = lane; d < D; d += 32) sum += g[row * D + d] * out[row * D + d];
 #pragma unroll
-  for (int j = 0; j < R; ++j)
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (lane == 0) {
+      rows[r] = sum;
+      rows[BT + r] = stats[row * 2];
+      rows[2 * BT + r] = stats[row * 2 + 1];
+    }
+  }
+  for (int i = tid; i < BT * LW; i += kThreads) zs[i] = 0.f;  // off the band for good
+  __syncthreads();
+  float dl[2], mx[2], il[2];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) dka[j][c] = dva[j][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int a = 16 * wr + lg + 8 * i;
+    dl[i] = rows[a];
+    mx[i] = rows[BT + a];
+    il[i] = rows[2 * BT + a];
+  }
 
-  for (int q0 = 0; q0 < T; q0 += BT) {
-    const int u0 = T - q0 - BT + k0;
-    __syncthreads();  // the previous tile's qus/qvs/gs/pw/pd/dst are no longer read
-    load_tile<BT, D>(qus, qu + head, q0, T, tid);
-    load_tile<BT, D>(qvs, qv + head, q0, T, tid);
-    load_tile<BT, D>(gs, g + head, q0, T, tid);
-    load_tile<BW, D>(pw, ph, u0, R_, tid);
-    if (drop)
-      dropout::fill_keep_tile<BT, BT>(pd, LP, sd, b, h, q0, k0, rate, inv_keep, tid,
-                                      kThreads);
+  float au[NO][4], av[NO][4], ap[NOP][4];
+  zero<NO>(au);
+  zero<NO>(av);
+  zero<NOP>(ap);
+  for (int kt = 0; kt < nt; ++kt) {
+    const int k0 = kt * BT;
+    const float* ks = ring + (kt & 1) * F::kStage;
+    const float* vs = ks + BT * LD;
+    const float* pw = vs + BT * LD;
+    if (kt + 1 < nt)
+      stage_keys<D>(ring + ((kt + 1) & 1) * F::kStage, kh, vh, ph, k0 + BT,
+                    T - q0 - BT + k0 + BT, T, R, tid);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
 
-    float s[R][R], dp[R][R];
-    scores_and_dp<D, BT>(qus, qvs, gs, ks, vs, pw, ty, tx, s, dp);
+    // s = q_u Kᵀ, dp = g Vᵀ and the band product W = q_v Pwᵀ, over D
+    float s[NTS][4], dp[NTS][4], wf[NTW][4];
+    zero<NTS>(s);
+    zero<NTS>(dp);
+    zero<NTW>(wf);
+#pragma unroll 2
+    for (int kk = 0; kk < D; kk += 8) {
+      uint32_t uh[4], ul[4], gh[4], gl[4], vh4[4], vl4[4];
+      load_a<false>(qus, LD, 16 * wr, kk, lg, lq, uh, ul);
+      load_a<false>(gs, LD, 16 * wr, kk, lg, lq, gh, gl);
+      load_a<false>(qvs, LD, 16 * wr, kk, lg, lq, vh4, vl4);
+#pragma unroll
+      for (int n = 0; n < NTS; ++n) {
+        const int slab = wc + WC * n;
+        if (NS % WC != 0 && slab >= NS) break;
+        uint32_t fh[2], fl[2];
+        load_b<true>(ks, LD, kk, 8 * slab, lg, lq, fh, fl);
+        mma3(s[n], uh, ul, fh, fl);
+        load_b<true>(vs, LD, kk, 8 * slab, lg, lq, fh, fl);
+        mma3(dp[n], gh, gl, fh, fl);
+      }
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int slab = wc + WC * n;
+        if (NW % WC != 0 && slab >= NW) break;
+        uint32_t fh[2], fl[2];
+        load_b<true>(pw, LD, kk, 8 * slab, lg, lq, fh, fl);
+        mma3(wf[n], vh4, vl4, fh, fl);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NTW; ++n) {
+      const int slab = wc + WC * n;
+      if (NW % WC != 0 && slab >= NW) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        wt[(16 * wr + lg + 8 * (e >> 1)) * LW + 8 * slab + 2 * lq + (e & 1)] = wf[n][e];
+    }
+    __syncthreads();
 
+    // the sheared term from W's band; p, ds; ds and p * kf into their tiles,
+    // ds also onto Z's band
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const size_t row = bh * T + q0 + ty * R + i;
-      const float mx = stats[row * 2], il = stats[row * 2 + 1], dl = delta[row];
-      const float* brow = bb + (size_t)(q0 + ty * R + i) * T + k0;
+    for (int n = 0; n < NTS; ++n) {
+      const int slab = wc + WC * n;
+      if (NS % WC != 0 && slab >= NS) break;
+      float kf[4] = {1.f, 1.f, 1.f, 1.f};
+      if (drop) keep_frag(sd, b, h, q0 + 16 * wr + lg, k0 + 8 * slab, lq, rate, inv_keep, kf);
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int slot = (ty * R + i) * LP + tx + 16 * j;
-        const float pr = expf(s[i][j] * scale + brow[tx + 16 * j] - mx) * il;
-        const float kf = drop ? pd[slot] : 1.f;
-        pd[slot] = pr * kf;
-        dst[slot] = pr * (dp[i][j] * kf - dl) * scale;
+      for (int e = 0; e < 4; ++e) {
+        const int a = 16 * wr + lg + 8 * (e >> 1), c = 8 * slab + 2 * lq + (e & 1);
+        const int band = (BT - 1) - a + c;
+        const float x = (s[n][e] + wt[a * LW + band]) * scale +
+                        bb[(size_t)(q0 + a) * T + k0 + c];
+        const float pr = expf(x - mx[e >> 1]) * il[e >> 1];
+        const float ds = pr * (dp[n][e] * kf[e] - dl[e >> 1]) * scale;
+        dss[a * LS + c] = ds;
+        pks[a * LS + c] = pr * kf[e];
+        zs[a * LW + band] = ds;
       }
     }
     __syncthreads();
 
-#pragma unroll 2
-    for (int ii = 0; ii < BT; ++ii) {
-      float gv[DC], qv_[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const bool in = D % 16 == 0 || tx + 16 * c < D;
-        gv[c] = in ? gs[ii * LD + tx + 16 * c] : 0.f;
-        qv_[c] = in ? qus[ii * LD + tx + 16 * c] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const float pk = pd[ii * LP + ty * R + j];
-        const float ds = dst[ii * LP + ty * R + j];
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          dva[j][c] = fmaf(pk, gv[c], dva[j][c]);
-          dka[j][c] = fmaf(ds, qv_[c], dka[j][c]);
+    // dq_u += ds K, dq_v += Z Pw
+    product<BT, NO, WC, ND, false>(au, dss, LS, 16 * wr, ks, LD, wc, lg, lq);
+    product<2 * BT, NO, WC, ND, false>(av, zs, LW, 16 * wr, pw, LD, wc, lg, lq);
+    // this tile pair's dK = dsᵀ q_u and dV = (p kf)ᵀ g
+    {
+      float ak[NO][4], avv[NO][4];
+      zero<NO>(ak);
+      zero<NO>(avv);
+      product<BT, NO, WC, ND, true>(ak, dss, LS, 16 * wr, qus, LD, wc, lg, lq);
+      product<BT, NO, WC, ND, true>(avv, pks, LS, 16 * wr, gs, LD, wc, lg, lq);
+      store_frags<D, NO, WC>(part_k, ak, k0 + 16 * wr, T, wc, lg, lq);
+      store_frags<D, NO, WC>(part_v, avv, k0 + 16 * wr, T, wc, lg, lq);
+    }
+    // dP: the slot's window rows += Zᵀ q_v; a slot whose rows no later key
+    // tile reaches is written out and starts over
+    const int sp = ((wrp - kt * WR) % WRP + WRP) % WRP;  // its window row group
+    product<BT, NOP, WCP, ND, true>(ap, zs, LW, 16 * sp, qvs, LD, wcp, lg, lq);
+    if (sp < WR) {
+      store_frags<D, NOP, WCP>(part_p, ap, 16 * (kt * WR + sp), T + BT, wcp, lg, lq);
+      zero<NOP>(ap);
+    }
+    __syncthreads();  // the tiles above and this stage are rewritten next
+  }
+  const int sp = ((wrp - (nt - 1) * WR) % WRP + WRP) % WRP;
+  if (sp >= WR)
+    store_frags<D, NOP, WCP>(part_p, ap, 16 * ((nt - 1) * WR + sp), T + BT, wcp, lg, lq);
+  store_frags<D, NO, WC>(dqu + head, au, q0 + 16 * wr, T, wc, lg, lq);
+  store_frags<D, NO, WC>(dqv + head, av, q0 + 16 * wr, T, wc, lg, lq);
+}
+
+// dK = sum_qt part_k[qt], dV likewise, and dP[h, u] = sum_b sum_qt of the
+// windows that hold table row u (row u - (T - BT - qt BT) of window qt), in
+// that fixed order; table rows no window holds (u >= 2T - 1) get 0.
+__global__ void __launch_bounds__(kThreads)
+relpos_reduce_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                     float* __restrict__ dv, float* __restrict__ dp, int B, int H, int T,
+                     int R, int D, int BT) {
+  const int nq = T / BT;
+  const long long n_kv = (long long)B * H * T * D, n_p = (long long)H * R * D;
+  const float* part_p = part + 2 * nq * n_kv;
+  // the dP rows first: each adds B * nq windows, the longest walks
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n_p + 2 * n_kv;
+       i += (long long)gridDim.x * kThreads) {
+    if (i < n_p) {
+      const int h = (int)(i / ((long long)R * D)), u = (int)(i / D % R), d = (int)(i % D);
+      float sum = 0.f;
+      for (int b = 0; b < B; ++b) {
+        const float* win = part_p + (long long)(b * H + h) * nq * (T + BT) * D + d;
+#pragma unroll 4
+        for (int qt = 0; qt < nq; ++qt) {
+          const int r = u - (T - BT - qt * BT);  // 0 where window qt misses row u
+          sum += r >= 0 && r < T + BT ? win[((long long)qt * (T + BT) + r) * D] : 0.f;
         }
       }
+      dp[i] = sum;
+    } else {
+      const long long j = i - n_p;
+      const bool is_v = j >= n_kv;
+      const long long e = is_v ? j - n_kv : j;
+      const float* src = part + (is_v ? nq * n_kv : 0) + e;
+      float sum = src[0];
+      for (int qt = 1; qt < nq; ++qt) sum += src[qt * n_kv];
+      (is_v ? dv : dk)[e] = sum;
     }
   }
+}
 
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const size_t off = head + (size_t)(k0 + ty * R + j) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (D % 16 == 0 || tx + 16 * c < D) {
-        dk[off + tx + 16 * c] = dka[j][c];
-        dv[off + tx + 16 * c] = dva[j][c];
-      }
-  }
+template <int D>
+long long scratch_floats(int B, int H, int T) {
+  constexpr int BT = Rel<D>::BT;
+  const long long nq = T / BT;
+  return nq * B * H * ((long long)2 * T + T + BT) * D;
 }
 
 template <int D>
 int launch(const float* qu, const float* qv, const float* k, const float* v,
            const float* p, const float* bias, const float* g, const float* out,
-           const float* stats, const long long* seed, float* delta, float* dqu,
-           float* dqv, float* dk, float* dv, int B, int H, int T, int R, int bias_heads,
+           const float* stats, const long long* seed, float* part, float* dqu, float* dqv,
+           float* dk, float* dv, float* dp, int B, int H, int T, int R, int bias_heads,
            float scale, float rate, cudaStream_t stream) {
-  constexpr int BT = rel_rows<D>();
-  constexpr size_t smem = attn_bwd::smem_bytes(D, BT, 7, -1, 2);
-  static_assert(smem <= attn_bwd::kMaxSmem, "tiles do not fit shared memory");
-  static bool raised_dq[attn_bwd::kMaxDevices] = {}, raised_dkv[attn_bwd::kMaxDevices] = {};
-  int err = attn_bwd::raise_smem(relpos_dq_kernel<D>, smem, raised_dq);
+  using F = Rel<D>;
+  // 16-byte cp.async: rows are D floats, D a multiple of 8, so the bases decide
+  if (((uintptr_t)qu | (uintptr_t)qv | (uintptr_t)k | (uintptr_t)v | (uintptr_t)p |
+       (uintptr_t)g) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const long long blocks = (long long)(T / F::BT) * B * H;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  static bool raised[kMaxDevices] = {};
+  int err = raise_smem(relpos_bwd_kernel<D>, F::kSmem, raised);
   if (err != 0) return err;
-  err = attn_bwd::raise_smem(relpos_dkv_kernel<D>, smem, raised_dkv);
-  if (err != 0) return err;
-  err = attn_bwd::launch_rowdot(g, out, delta, (long long)B * H * T, D, stream);
-  if (err != 0) return err;
-  const dim3 grid(T / BT, H, B);
-  relpos_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qu, qv, k, v, p, bias, g, stats, delta, seed, rate, dqu, dqv, H, T, R, bias_heads,
-      scale);
+  relpos_bwd_kernel<D><<<(unsigned)blocks, kThreads, F::kSmem, stream>>>(
+      qu, qv, k, v, p, bias, g, out, stats, seed, rate, part, dqu, dqv, B, H, T, R,
+      bias_heads, scale);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  relpos_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qu, qv, k, v, p, bias, g, stats, delta, seed, rate, dk, dv, H, T, R, bias_heads,
-      scale);
+  const long long n = (long long)B * H * T * D * 2 + (long long)H * R * D;
+  const long long rblocks = (n + kThreads - 1) / kThreads;
+  relpos_reduce_kernel<<<(unsigned)(rblocks < 8192 ? rblocks : 8192), kThreads, 0, stream>>>(
+      part, dk, dv, dp, B, H, T, R, D, F::BT);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q_u, q_v, k, v, g, out, dq_u, dq_v, dk, dv: [B, H, T, D]; p: [H, R, D] with
-// R >= 2T-1; bias: [B, bias_heads, T, T] with bias_heads 1 or H; stats:
-// [B, H, T, 2] (the forward's row max and 1 / sum); delta: [B, H, T], written
-// here and read again by relpos_attention_dp_f32; seed: one int64 on the
-// device, read when rate > 0; all fp32 and contiguous. T a multiple of 64; D a
-// multiple of 8 from 8 to 256.
+// The fp32 scratch relpos_attention_bwd_f32 takes at this shape, in floats;
+// -1 for a head dim it does not take or a count past 2^31 - 1.
+extern "C" int relpos_attention_bwd_scratch(int B, int H, int T, int D) {
+  long long n = -1;
+#define CASE(d) \
+  case d: n = scratch_floats<d>(B, H, T); break;
+  switch (D) {
+    ATTN_FOR_EACH_HEAD_DIM(CASE)
+    default: break;
+  }
+#undef CASE
+  return n > 2147483647LL ? -1 : (int)n;
+}
+
+// q_u, q_v, k, v, g, out, dq_u, dq_v, dk, dv: [B, H, T, D]; p, dp: [H, R, D]
+// with R >= 2T-1; bias: [B, bias_heads, T, T] with bias_heads 1 or H; stats:
+// [B, H, T, 2] (the forward's row max and 1 / sum); seed: one int64 on the
+// device, read when rate > 0; part: relpos_attention_bwd_scratch floats; all
+// fp32 and contiguous, q_u, q_v, k, v, p and g 16-byte aligned. T a multiple
+// of 64; D a multiple of 8 from 8 to 256.
 // Launches on `stream` without synchronising; returns the cudaError_t code.
 extern "C" int relpos_attention_bwd_f32(const float* qu, const float* qv, const float* k,
                                         const float* v, const float* p, const float* bias,
                                         const float* g, const float* out,
                                         const float* stats, const long long* seed,
-                                        float* delta, float* dqu, float* dqv, float* dk,
-                                        float* dv, int B, int H, int T, int D, int R,
-                                        int bias_heads, float scale, float rate,
+                                        float* part, float* dqu, float* dqv, float* dk,
+                                        float* dv, float* dp, int B, int H, int T, int D,
+                                        int R, int bias_heads, float scale, float rate,
                                         void* stream) {
-  if (B <= 0 || H <= 0 || T <= 0 || T % 64 != 0 || R < 2 * T - 1 || H > 65535 ||
-      B > 65535 || !(bias_heads == 1 || bias_heads == H) ||
-      !(rate >= 0.f && rate < 1.f) || (rate > 0.f && seed == nullptr))
+  if (B <= 0 || H <= 0 || T <= 0 || T % 64 != 0 || R < 2 * T - 1 ||
+      !(bias_heads == 1 || bias_heads == H) || !(rate >= 0.f && rate < 1.f) ||
+      (rate > 0.f && seed == nullptr) || part == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CASE(d)                                                                         \
-  case d:                                                                               \
-    return launch<d>(qu, qv, k, v, p, bias, g, out, stats, seed, delta, dqu, dqv, dk,  \
-                     dv, B, H, T, R, bias_heads, scale, rate, s);
+#define CASE(d)                                                                          \
+  case d:                                                                                \
+    return launch<d>(qu, qv, k, v, p, bias, g, out, stats, seed, part, dqu, dqv, dk, dv, \
+                     dp, B, H, T, R, bias_heads, scale, rate, s);
   switch (D) {
     ATTN_FOR_EACH_HEAD_DIM(CASE)
     default: return (int)cudaErrorInvalidValue;

@@ -11,7 +11,7 @@
 - ``relpos_attention``: Transformer-XL rel-pos self-attention; replaces
   ``relpos_attention`` (`pallas_attention.py:95`, ``_kernel`` :53) and
   ``_relpos_bwd`` (:243); ``csrc/relpos_attention.cu``,
-  ``csrc/relpos_attention_bwd.cu``, ``csrc/relpos_attention_dp.cu``.
+  ``csrc/relpos_attention_bwd.cu``.
 - ``dropout_keep``: the keep mask the six kernels draw inside their tile loops
   (``_dropout_keep``, `pallas_attention.py:36`); ``csrc/dropout.cuh``, written
   out by ``csrc/dropout.cu``.
@@ -26,7 +26,7 @@ For CPU tensors each wrapper computes its plain version (``*_reference``,
 ``*_backward_reference``, ``dropout_keep_reference``); for CUDA tensors it
 launches its kernel or raises. There is no fallback. Each counts its launches:
 ``f.launches`` for a forward, ``f_backward.launches`` once per backward call
-(which launches two to four CUDA kernels), ``dropout_keep.launches`` for the
+(which launches two or three CUDA kernels), ``dropout_keep.launches`` for the
 kernel that writes the mask out alone. ``mask_draws`` counts the forward
 launches and backward calls that drew the mask inside their own kernels.
 """
@@ -58,9 +58,8 @@ _BIAS_BWD = ("bias_attention_bwd", "bias_attention_bwd_f32",
              (_P,) * 13 + (_I,) * 6 + (_F, _F, _P))
 _BIAS_BWD_GROUPS = ("bias_attention_bwd", "bias_attention_bwd_groups", (_I,) * 5)
 _RELPOS_BWD = ("relpos_attention_bwd", "relpos_attention_bwd_f32",
-               (_P,) * 15 + (_I,) * 6 + (_F, _F, _P))
-_RELPOS_DP = ("relpos_attention_dp", "relpos_attention_dp_f32",
-              (_P,) * 12 + (_I,) * 6 + (_F, _F, _P))
+               (_P,) * 16 + (_I,) * 6 + (_F, _F, _P))
+_RELPOS_BWD_SCRATCH = ("relpos_attention_bwd", "relpos_attention_bwd_scratch", (_I,) * 4)
 _KEEP = ("dropout", "dropout_keep_u8", (_P, _P) + (_I,) * 4 + (_F, _P))
 
 Seed = Union[int, torch.Tensor]
@@ -599,10 +598,10 @@ def relpos_attention_forward(q_u, q_v, k, v, p, bias, scale, rate=0.0, seed=None
 def relpos_attention_backward(q_u, q_v, k, v, p, bias, g, out, stats, seed,
                               scale: float, rate: float = 0.0):
     """(dq_u, dq_v, dK, dV, dP) of ``relpos_attention``: on the card
-    ``csrc/relpos_attention_bwd.cu`` then ``csrc/relpos_attention_dp.cu`` (one
-    call here, counted once; dP through per-batch partials [B, H, R, D] that a
-    second kernel adds in batch order); on the CPU
-    ``relpos_attention_backward_reference``."""
+    ``csrc/relpos_attention_bwd.cu`` (one fused pass over the scores that
+    writes dq_u, dq_v and per-query-tile dK/dV/dP partials into a scratch of
+    ``relpos_backward_scratch`` floats, then an ordered reduction; one call
+    here, counted once); on the CPU ``relpos_attention_backward_reference``."""
     b, h, t, d = q_u.shape
     if not build.on_card(q_u, "relpos_attention_backward"):
         return relpos_attention_backward_reference(
@@ -612,18 +611,26 @@ def relpos_attention_backward(q_u, q_v, k, v, p, bias, g, out, stats, seed,
     _check_backward(g, out, stats, q_u)
     _check_seed(seed, q_u.device, rate)
     dqu, dqv, dk, dv, dp = (torch.empty_like(x) for x in (q_u, q_v, k, v, p))
-    delta, dp_parts = q_u.new_empty((b, h, t)), q_u.new_empty((b, *p.shape))
-    seed_ptr = _ptr(seed) if rate > 0 else None
-    inputs = (q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-              bias.data_ptr(), g.data_ptr())
-    sizes = (b, h, t, d, p.shape[1], bias.shape[1], float(scale), float(rate))
-    build.launch(_RELPOS_BWD, q_u.device, *inputs, out.data_ptr(), stats.data_ptr(),
-                 seed_ptr, delta.data_ptr(), dqu.data_ptr(), dqv.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), *sizes)
-    build.launch(_RELPOS_DP, q_u.device, *inputs, stats.data_ptr(), delta.data_ptr(),
-                 seed_ptr, dp_parts.data_ptr(), dp.data_ptr(), *sizes)
+    part = q_u.new_empty(relpos_backward_scratch(b, h, t, d))
+    build.launch(_RELPOS_BWD, q_u.device, q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), p.data_ptr(), bias.data_ptr(), g.data_ptr(), out.data_ptr(),
+                 stats.data_ptr(), _ptr(seed) if rate > 0 else None, part.data_ptr(),
+                 dqu.data_ptr(), dqv.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp.data_ptr(),
+                 b, h, t, d, p.shape[1], bias.shape[1], float(scale), float(rate))
     _count(relpos_attention_backward, rate)
     return dqu, dqv, dk, dv, dp
+
+
+@functools.lru_cache(maxsize=None)
+def relpos_backward_scratch(b: int, h: int, t: int, d: int) -> int:
+    """The floats of fp32 scratch ``csrc/relpos_attention_bwd.cu`` takes at
+    this shape: its per-query-tile dK and dV partials and dP windows. The
+    count comes from the built library, which owns the tile size."""
+    n = build.bind(*_RELPOS_BWD_SCRATCH)(b, h, t, d)
+    if n < 0:
+        raise ValueError(f"rel-pos backward scratch at B={b}, H={h}, T={t}, D={d} "
+                         "is past 2^31 - 1 floats or the head dim is not taken")
+    return n
 
 
 class _RelposAttention(torch.autograd.Function):

@@ -43,10 +43,11 @@ def synthetic_batch(cfg: StreamSpeechConfig, batch: int = 4, frames: int = 64,
     }
 
 
-def batch_to_tensors(batch: Dict[str, np.ndarray], device="cpu"
+def batch_to_tensors(batch: Dict[str, np.ndarray], *, device
                      ) -> Dict[str, Union[torch.Tensor, int]]:
-    """A numpy batch on ``device``: float arrays as float32, integer arrays as
-    int64, the scalar ``n2`` as a Python int."""
+    """A numpy batch on ``device`` (required: a caller names the card or the
+    CPU): float arrays as float32, integer arrays as int64, the scalar ``n2``
+    as a Python int."""
     out: Dict[str, Union[torch.Tensor, int]] = {}
     for key, val in batch.items():
         arr = np.asarray(val)

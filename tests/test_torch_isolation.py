@@ -72,7 +72,8 @@ model = random_init_(StreamSpeechModel(cfg), 0)
 tx = make_optimizer(OptimizationConfig(update_freq=1, warmup_updates=10))
 step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1,
                        specaugment_cfg={}, rdrop_alpha=0.5)
-state, metrics = step(TrainState.create(model, tx), batch_to_tensors(synthetic_batch(cfg)),
+state, metrics = step(TrainState.create(model, tx),
+                      batch_to_tensors(synthetic_batch(cfg), device="cpu"),
                       torch.Generator().manual_seed(0), 4, 8)
 assert torch.isfinite(metrics["loss_mean"]) and state.step == 1
 bad = sorted(m for m in sys.modules

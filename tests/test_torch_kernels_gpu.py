@@ -367,8 +367,11 @@ def test_kernel_mask_equals_the_plain_mask(hopper, b, h, tq, tk, rate):
 def _run_fwd_bwd(fn, bwd, ref, ref_bwd, diff, const, g, scale, rate, seed, keep,
                  floors=None):
     """The wrapper's forward and backward (through autograd) against the plain
-    forward and the plain backward under the same keep mask; ``floors`` adds
-    an absolute term to each gradient's tolerance."""
+    forward and the plain backward under the same keep mask, which must be the
+    mask the kernels draw; ``floors`` adds an absolute term to each gradient's
+    tolerance."""
+    if keep is not None:
+        assert torch.equal(attention.dropout_keep(seed, *keep.shape, rate), keep)
     before = (fn.launches, bwd.launches, attention.mask_draws,
               attention.dropout_keep.launches)
     xs = [x.clone().requires_grad_() for x in diff]
@@ -428,16 +431,21 @@ def test_bias_attention_backward_matches_plain_version(hopper, b, tq, tk, d, rat
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("b,t,d,bias_heads,extra_rows", [
-    (8, 256, 64, 1, 0), (1, 512, 64, 4, 0), (2, 128, 24, 1, 5), (1, 128, 112, 1, 0),
-    (1, 128, 224, 4, 0), (1, 64, 256, 1, 0), (1, 64, 8, 1, 0)])
+@pytest.mark.parametrize("b,t,d,bias_heads,extra_rows,first_valid", [
+    (8, 256, 64, 1, 0, 216), (1, 512, 64, 4, 0, 472), (2, 128, 24, 1, 5, 88),
+    (1, 128, 112, 1, 0, 88), (1, 128, 224, 4, 0, 88), (1, 64, 256, 1, 0, 24),
+    (1, 64, 8, 1, 0, 24), (2, 128, 8, 4, 0, 88), (2, 128, 64, 4, 0, 88),
+    (2, 128, 128, 1, 0, 88), (2, 128, 128, 4, 0, 88), (2, 128, 256, 4, 0, 88),
+    (2, 384, 64, 1, 0, 300)])
 def test_relpos_attention_backward_matches_plain_version(hopper, b, t, d, bias_heads,
-                                                         extra_rows, rate):
-    """B2 at the encoder's train shape, at every tile size of the three passes
-    (64, 32 and 16 rows), with a table longer than 2T-1 (its extra rows get a
-    zero gradient) and with a wholly masked row (T - 40 valid keys, chunk 8)."""
+                                                         extra_rows, first_valid, rate):
+    """B2 (one fused pass on the tensor cores, ordered partial sums) at the
+    encoder's train shape and at both of its tile sizes (32 rows up to
+    D = 136, 16 above), the bias per batch row or per head, a table longer
+    than 2T-1 (its extra rows get a zero gradient), and a first batch row with
+    ``first_valid`` keys (chunk 8: wholly masked rows past them)."""
     qu, qv, k, v, p, bias = (torch.from_numpy(a).to(hopper) for a in _relpos_inputs(
-        b, 4, t, d, seed=t + d, n_valid=[t - 40] + [t] * (b - 1), chunk=8,
+        b, 4, t, d, seed=t + d, n_valid=[first_valid] + [t] * (b - 1), chunk=8,
         bias_heads=bias_heads))
     if extra_rows:
         p = torch.cat([p, torch.ones(4, extra_rows, d, device=hopper)], dim=1).contiguous()
@@ -503,7 +511,7 @@ def test_kernel_train_step_on_the_card_matches_the_cpu(hopper):
                                            kernel_attention=True)
             before = [f.launches for f in wrappers]
             _, metrics = step(trainer.TrainState.create(model, tx),
-                              batch_to_tensors(nb, device),
+                              batch_to_tensors(nb, device=device),
                               torch.Generator(device=device).manual_seed(0), 8, 8)
             runs[str(device)] = (float(metrics["loss"]),
                                  {n: p.grad.cpu() for n, p in model.named_parameters()},
@@ -594,3 +602,49 @@ def test_causal_backward_tensor_core_forms(hopper, t, d, rate):
                  attention.masked_attention_reference,
                  attention.masked_attention_backward_reference, (q, k, v), (kvb,), g,
                  d ** -0.5, rate, seed, keep)
+
+
+HEAD_DIMS = list(range(8, 257, 8))
+# (T_pad, valid keys): the unit decoder's serving buckets and the forward's 24 x 25
+CAUSAL_FORWARD_SHAPES = [(512, 400), (896, 800), (1664, 1600), (3200, 3200), (640, 600)]
+
+
+def _causal_stats(q, k, kvb, scale):
+    """The row max and 1 / sum of the causal scores, the backward's residual."""
+    t = q.shape[2]
+    i = torch.arange(t, device=q.device)
+    s = torch.einsum("bhsd,bhtd->bhst", q, k) * scale + kvb[:, :, None, :] \
+        + torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF).float()
+    mx = s.max(-1).values
+    return torch.stack([mx, 1.0 / torch.exp(s - mx[..., None]).sum(-1)], -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("t_pad,n_valid", CAUSAL_FORWARD_SHAPES)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_causal_forward_tensor_core_forms(hopper, d, t_pad, n_valid, rate):
+    """B3 (3xTF32 on the tensor cores) at every head dim it takes, at the
+    serving buckets and the forward's length, ragged keys: within 1e-5 of the
+    plain version without dropout, its training form within 1e-4 max|ref|
+    under the plain mask with it, the row statistics the plain ones, the mask
+    the one ``dropout_keep_reference`` draws, two calls bit-identical."""
+    b, h = 1, 2
+    q, k, v, kvb = (torch.from_numpy(a).to(hopper)
+                    for a in _inputs(b, h, t_pad, d, seed=t_pad + d, n_valid=[n_valid]))
+    scale = d ** -0.5
+    seed = _seed(hopper, 31) if rate > 0 else None
+    out, stats = attention.masked_attention_forward(q, k, v, kvb, scale, rate, seed, True)
+    again, stats_again = attention.masked_attention_forward(q, k, v, kvb, scale, rate,
+                                                            seed, True)
+    assert torch.equal(out, again) and torch.equal(stats, stats_again)
+    keep = None
+    if rate > 0:
+        keep = attention.dropout_keep_reference(seed, b, h, t_pad, t_pad, rate)
+        assert torch.equal(attention.dropout_keep(seed, b, h, t_pad, t_pad, rate), keep)
+    want = attention.masked_attention_reference(q, k, v, kvb, scale, keep, rate)
+    tol = ATOL if rate == 0 else GRAD_RTOL * float(want.abs().max())
+    assert float((out - want).abs().max()) <= tol
+    want_stats = _causal_stats(q, k, kvb, scale)
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-6)
+

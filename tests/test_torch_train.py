@@ -77,7 +77,7 @@ def _run_both(jax_setup, update_freq, calls):
     ptx = ptrain.make_optimizer(OptimizationConfig(update_freq=update_freq, **OPT))
     pstep = ptrain.make_train_step(pmodel, ptx, unit_blank=unit_blank)
     pstate = ptrain.TrainState.create(pmodel, ptx)
-    pbatch = batch_to_tensors(synthetic_batch(tiny_config(), batch=4))
+    pbatch = batch_to_tensors(synthetic_batch(tiny_config(), batch=4), device="cpu")
     history = []
     for i in range(calls):
         jstate, jm = jstep(jstate, jbatch, jax.random.PRNGKey(i), chunk_size=CHUNK,
@@ -163,8 +163,8 @@ def test_step_one_gradients_match_jax(jax_setup):
     ptx = ptrain.make_optimizer(OptimizationConfig(update_freq=1, **OPT))
     pstep = ptrain.make_train_step(pmodel, ptx, unit_blank=unit_blank)
     pstate = ptrain.TrainState.create(pmodel, ptx)
-    pstep(pstate, batch_to_tensors(synthetic_batch(tiny_config(), batch=4)), None, CHUNK,
-          CONV_CHUNK)
+    pstep(pstate, batch_to_tensors(synthetic_batch(tiny_config(), batch=4), device="cpu"),
+          None, CHUNK, CONV_CHUNK)
     nonzero = 0
     for name, p in pmodel.named_parameters():
         g, w = p.grad.numpy(), want[name].detach().numpy()
@@ -212,7 +212,7 @@ def test_train_step_routes(route_counts):
     cfg = tiny_config(vocab_text=512, upsample=25)
     model = random_init_(StreamSpeechModel(cfg), 0)
     batch = batch_to_tensors(synthetic_batch(cfg, batch=2, frames=1024, mt_len=24,
-                                             units_len=120, text_len=16))
+                                             units_len=120, text_len=16), device="cpu")
     tx = ptrain.make_optimizer(OptimizationConfig(update_freq=1, **OPT))
     step = ptrain.make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1)
     state = ptrain.TrainState.create(model, tx)
@@ -239,7 +239,7 @@ def _dropout_setup(dropout=0.1, **step_kw):
     tx = ptrain.make_optimizer(OptimizationConfig(update_freq=1, **OPT))
     step = ptrain.make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1,
                                   **step_kw)
-    return model, tx, step, batch_to_tensors(synthetic_batch(cfg, batch=2))
+    return model, tx, step, batch_to_tensors(synthetic_batch(cfg, batch=2), device="cpu")
 
 
 def _one_step_loss(seed, **step_kw):
@@ -268,7 +268,7 @@ def test_deterministic_forward_ignores_the_dropout_config():
     m0 = random_init_(StreamSpeechModel(cfg0), 5)
     m1 = StreamSpeechModel(cfg1)
     m1.load_state_dict(m0.state_dict())
-    b = batch_to_tensors(synthetic_batch(cfg0, batch=2))
+    b = batch_to_tensors(synthetic_batch(cfg0, batch=2), device="cpu")
     args = (b["src_tokens"], b["src_lengths"], b["prev_output_tokens_mt"])
     with torch.no_grad():
         o0, o1 = (m(*args, chunk_size=CHUNK, conv_chunk_size=CONV_CHUNK, n2=2)

@@ -92,7 +92,7 @@ def test_kernel_route_is_entered_with_the_switch_on_and_not_with_it_off(entries)
     wrapper once each (1 unit-decoder layer), and as many backwards; off, none."""
     cfg = tiny_config(vocab_text=512, upsample=25)
     batch = batch_to_tensors(synthetic_batch(cfg, batch=2, frames=1024, mt_len=24,
-                                             units_len=120, text_len=16))
+                                             units_len=120, text_len=16), device="cpu")
     losses = {}
     for on in (True, False):
         before = dict(entries)
@@ -130,7 +130,7 @@ def test_default_route_is_unmoved_by_the_switchs_code():
     stream differs), only when the rate is above 0."""
     cfg = tiny_config()
     cfg.encoder.dropout = cfg.mt_decoder.dropout = cfg.unit_decoder.dropout = 0.1
-    batch = batch_to_tensors(synthetic_batch(cfg, batch=2))
+    batch = batch_to_tensors(synthetic_batch(cfg, batch=2), device="cpu")
     out = []
     for on in (False, False):
         step, state = _step(random_init_(StreamSpeechModel(cfg), 3), cfg, on)
@@ -252,7 +252,8 @@ def test_kernel_train_step_matches_jax_pallas_train(monkeypatch, entries):
         monkeypatch.setattr(players, gate, lambda t, dh: True)
     step, state = _step(pmodel, pcfg, True)
     _, pm = step(state, batch_to_tensors(synthetic_batch(pcfg, batch=2, frames=64,
-                                                         mt_len=8)), None, CHUNK, CONV_CHUNK)
+                                                         mt_len=8), device="cpu"),
+                 None, CHUNK, CONV_CHUNK)
     # 2 encoder layers; the MT decoder's and the unit decoder's causal
     # self-attention and both cross-attentions (per-query masks) take their
     # kernel wrappers once the gates are open, forward and backward

@@ -245,7 +245,7 @@ def test_synthetic_batch_matches_jax(name, kw):
     assert sorted(got) == sorted(want)
     for key in want:
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
-    tensors = psyn.batch_to_tensors(got)
+    tensors = psyn.batch_to_tensors(got, device="cpu")
     assert tensors["n2"] == 2 and tensors["src_tokens"].dtype == torch.float32
     assert tensors["target_units"].dtype == torch.int64
 

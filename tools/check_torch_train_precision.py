@@ -22,8 +22,10 @@ JSON line each, then the card's name and power limit:
 For each pair of steps: the gradient tensors further than 1e-3·max|g_ref| +
 1e-7 apart, with their distance over max|g_ref| and the two rows furthest off
 (a ReLU unit that switched at one position shows as one row of its layer's
-weight and one element of its bias), how many are past 3e-4, the worst tensor
-and the distance of grad_norm. Needs a CUDA device.
+weight and one element of its bias), how many are past 3e-4, the worst tensor,
+the distance of grad_norm, and the verdict of ``chip_smoke.py``'s row rule
+(the ReLU ties' rows it leaves out, the worst distance that remains). Needs a
+CUDA device.
 """
 
 from __future__ import annotations
@@ -60,14 +62,27 @@ def _rows(got, want):
 
 
 def summary(got, want):
-    (m, g, _, _), (ref_m, ref_g, _, _) = got, want
+    """The pair's distances, and the verdict of ``chip_smoke.py``'s row rule
+    (``_grad_check`` with the ReLU ties of the ``want`` step): the rows it
+    leaves out, the tensors still past their tolerance, the worst remaining
+    distance."""
+    (m, g, _, _, _), (ref_m, ref_g, _, _, ties) = got, want
     d = distances(g, ref_g)
     worst = max(d, key=d.get)
+    errs, left_out = chip_smoke._grad_check(g, ref_g, ties)
+    held = {n: e / max(float(ref_g[n].abs().max()), 1e-30) for n, (e, _) in errs.items()}
+    worst_held = max(held, key=held.get)
     return {"past_1e-3": {n: {"distance": e, "furthest": _rows(g[n], ref_g[n])}
                           for n, e in sorted(d.items()) if e > 1e-3},
             "past_3e-4": sum(e > 3e-4 for e in d.values()), "tensors": len(d),
             "worst": [worst, d[worst]],
-            "grad_norm_rel": abs(m["grad_norm"] - ref_m["grad_norm"]) / ref_m["grad_norm"]}
+            "grad_norm_rel": abs(m["grad_norm"] - ref_m["grad_norm"]) / ref_m["grad_norm"],
+            "row_rule": {"ties": sum(len(u) for u in ties.values()),
+                         "rows_left_out": left_out,
+                         "units_left_out": len({(r["tensor"].rsplit(".", 1)[0], r["row"])
+                                                for r in left_out}),
+                         "past_tolerance": [n for n, (e, tol) in errs.items() if e > tol],
+                         "worst_remaining": [worst_held, held[worst_held]]}}
 
 
 def _rel(got, want):

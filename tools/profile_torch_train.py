@@ -57,9 +57,9 @@ KERNELS = {
     "relpos_attention_kernel": ("relpos_attention_kernel",),
     "causal_attention_kernel": ("causal_attention_kernel",),
     "bias_attention_kernel": ("bias_attention_kernel",),
-    "relpos_dq_kernel": ("relpos_dq_kernel",),
-    "relpos_dkv_kernel": ("relpos_dkv_kernel",),
-    "relpos_dp_kernel": ("relpos_dp_kernel",),
+    # B2: the fused pass over the scores, then the ordered partial sums
+    "relpos_bwd_kernel": ("relpos_bwd_kernel",),
+    "relpos_reduce_kernel": ("relpos_reduce_kernel",),
     "causal_dq_kernel": ("attn_bwd::dq_kernel", "CausalBias"),
     "causal_dkv_kernel": ("attn_bwd::dkv_kernel", "CausalBias"),
     "bias_dq_kernel": ("attn_bwd::dq_kernel", "FullBias"),
@@ -84,7 +84,7 @@ def profile_route(kernel_attention: bool, seed: int) -> str:
                            kernel_attention=kernel_attention)
     state = TrainState.create(model, tx)
     batch = batch_to_tensors(synthetic_batch(cfg, batch=8, frames=1024, mt_len=48,
-                                             units_len=256, text_len=32), "cuda")
+                                             units_len=256, text_len=32), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
