@@ -47,7 +47,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             NLL within 1e-5·max(1, |ref|), the occupancy gradient within 1e-6,
             and the NLL within 1e-4·max(1, |ref|) of one ``F.ctc_loss`` call
             on the same log-probs, the library yardstick (eager CUDA-event
-            time: forward for alpha, forward + backward minus forward for beta).
+            time: forward for alpha, forward + backward minus forward for beta);
+            each row adds the cut the kernels launch (``kernels.ctc.cluster_plan``:
+            blocks a cluster, states a block and a lane, warps a block, ring
+            slots, frames handed over at once) and ``ms_per_serial_step``.
 8. train    the train step at ``full_config`` (fp32, dropout 0.1) at
             ``measure_train_step``'s shape: B=8, 1024 fbank frames, MT 48
             (unit T 1200), 256 target units, 32 text tokens, n2=2, chunk 8,
@@ -405,6 +408,8 @@ def _check_ctc(dev, gen, b, t, vocab, n, blank):
                                                        "skipmask", "validmask"))
     s = lp.shape[2]
     shape = {"b": b, "t": t, "s": s, "v": vocab, "serial_steps": t}
+    # the cut of the state axis both kernels launch: a cluster of blocks a row
+    plan = ctc.cluster_plan(s)
 
     alpha = ctc.ctc_alpha(lp, init, skip, valid)
     want = ctc.ctc_alpha_reference(lp, init, skip, valid)
@@ -437,7 +442,7 @@ def _check_ctc(dev, gen, b, t, vocab, n, blank):
     lib_fwd_bwd_ms = _time_ms(library_fwd_bwd, reps=10, warmup=2)
     n_el = b * t * s
     alpha_row = {
-        "phase": "kernel", "name": "ctc_alpha", **shape, "max_abs_err": alpha_abs,
+        "phase": "kernel", "name": "ctc_alpha", **shape, **plan, "max_abs_err": alpha_abs,
         "max_scaled_err": alpha_scaled, "nll_max_scaled_err": nll_scaled,
         "library_nll_max_scaled_err": lib_scaled, "tol": f"{CTC_RTOL}*max(1,|ref|)",
         "ms": _device_ms(lambda: ctc.ctc_alpha(lp, init, skip, valid), calls=5, reps=10),
@@ -450,7 +455,7 @@ def _check_ctc(dev, gen, b, t, vocab, n, blank):
     alpha_row["ms_per_serial_step"] = alpha_row["ms"] / t
     emit(alpha_row)
     beta_row = {
-        "phase": "kernel", "name": "ctc_beta", **shape, "max_abs_err": grad_err,
+        "phase": "kernel", "name": "ctc_beta", **shape, **plan, "max_abs_err": grad_err,
         "atol": CTC_GRAD_ATOL,
         "ms": _device_ms(lambda: ctc.ctc_beta_grad(lp, end, skip, zbias, valid, alpha),
                          calls=5, reps=10),

@@ -12,6 +12,10 @@ versions, and the loss's ``torch.autograd.Function``
 
 For CPU tensors each wrapper computes its ``*_reference``; for CUDA tensors it
 launches its kernel or raises. There is no fallback. Each counts its launches.
+On the card each call is one launch of a thread-block cluster per batch row,
+the row's states cut into slices over the cluster's blocks (``cluster_plan``
+gives the cut; ``csrc/ctc.cu`` says how the slices hand their boundary states
+over).
 
 Everything is expressed through additive fp32 masks (0 or ``NNEG``), as in
 the TPU kernels: ``skipmask``/``initmask``/``endmask`` [B, S] and
@@ -35,11 +39,13 @@ from streamspeech_tpu_torch.ops.ctc import (
     lse3,
 )
 
-MAX_STATES = 4096  # 16 states per thread over 256 threads (`csrc/ctc.cu`)
+MAX_STATES = 4096  # `csrc/ctc.cu` kMaxStates: at most 16 blocks a cluster
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ALPHA = ("ctc", "ctc_alpha_f32", (_P,) * 5 + (_I,) * 3 + (_P,))
 _BETA = ("ctc", "ctc_beta_grad_f32", (_P,) * 7 + (_I,) * 3 + (_P,))
+_PLAN_KEYS = ("cluster_size", "states_per_block", "states_per_lane", "warps_per_block",
+              "ring_slots", "frames_ahead", "frames_per_handover")
 
 
 def _shift_right(a: torch.Tensor, k: int) -> torch.Tensor:
@@ -144,6 +150,20 @@ def ctc_beta_grad(lp_ext: torch.Tensor, endmask: torch.Tensor, skipmask: torch.T
 
 ctc_alpha.launches = 0
 ctc_beta_grad.launches = 0
+
+
+def cluster_plan(s: int) -> Dict[str, int]:
+    """How the kernels cut S states on the card (asks the built library):
+    the cluster's size (blocks a batch row), states a block, states a lane,
+    warps a block, the boundary ring's slots, the frames fetched ahead and the
+    frames handed over at once."""
+    if not 1 <= s <= MAX_STATES:
+        raise ValueError(f"S must be in [1, {MAX_STATES}], got {s}")
+    fn = build.bind("ctc", "ctc_cluster_plan", (_I, _P))
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    if fn(s, ctypes.cast(out, ctypes.c_void_p)) != 0:
+        raise RuntimeError(f"ctc_cluster_plan failed for S={s}")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def nll_from_alpha(alpha: torch.Tensor, endmask: torch.Tensor

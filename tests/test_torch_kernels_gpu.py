@@ -238,20 +238,46 @@ def _within(got, want, rel):
     return bool((err <= rel * want.abs().clamp(min=1.0)).all()), float(err.max())
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,t,v,n,n_valid,label_lengths", [
-    (8, 1200, 1005, 256, None, None),              # the train step's unit CTC
-    (16, 256, 6000, 32, None, None),               # the fused ASR + ST pair
-    (1, 1200, 1005, 256, None, None),
-    (2, 300, 900, 800, [300, 290], [800, 700]),    # S = 1601 > 1024
-    (3, 37, 40, 5, [37, 20, 1], [5, 0, 2]),        # odd T, padded frames, empty labels
-    (1, 3, 8, 4, [3], [4]),                        # more labels than frames
-])
-def test_ctc_kernels_match_plain_versions(hopper, b, t, v, n, n_valid, label_lengths):
+def _pad_states(parts, s):
+    """The DP inputs padded to ``s`` states with unreachable ones (NNEG log-probs
+    and masks), as the fused multi-head launch pads its heads."""
     from streamspeech_tpu_torch.kernels import ctc
 
+    extra = s - parts["lp_ext"].shape[2]
+    return {k: (v if k == "validmask" else
+                torch.nn.functional.pad(v, (0, extra), value=ctc.NNEG))
+            for k, v in parts.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,v,n,n_valid,label_lengths,s_cut", [
+    (8, 1200, 1005, 256, None, None, None),        # the train step's unit CTC
+    (16, 256, 6000, 32, None, None, None),         # the fused ASR + ST pair
+    (1, 1200, 1005, 256, None, None, None),        # one row, S = 513: one cluster
+    (2, 300, 900, 800, [300, 290], [800, 700], None),   # S = 1601 > 1024
+    (3, 37, 40, 5, [37, 20, 1], [5, 0, 2], None),  # odd T, padded frames, empty labels
+    (1, 3, 8, 4, [3], [4], None),                  # more labels than frames
+    # the cluster's cut: S exactly 3 blocks of states (the last state padded
+    # in), S one state past one block, the largest odd S (16 blocks a cluster)
+    (2, 700, 300, None, [700, 650], None, "multiple"),
+    (3, 200, 300, None, [200, 150, 180], None, "plus_one"),
+    (1, 2100, 100, 2047, None, None, None),
+    (1, 1000, 1005, 256, [900], [250], None),      # B = 1, S = 513, padded frames
+])
+def test_ctc_kernels_match_plain_versions(hopper, b, t, v, n, n_valid, label_lengths,
+                                          s_cut):
+    from streamspeech_tpu_torch.kernels import ctc
+
+    s_target = None
+    if s_cut is not None:
+        w = ctc.cluster_plan(513)["states_per_block"]
+        s_target = 3 * w if s_cut == "multiple" else w + 1
+        n = (s_target - 1) // 2
     parts = _ctc_parts(b, t, v, n, seed=t + n, device=hopper, n_valid=n_valid,
                        label_lengths=label_lengths)
+    if s_target is not None:
+        parts = _pad_states(parts, s_target)
+        assert parts["lp_ext"].shape[2] == s_target
     lp, init, end, skip, valid = (parts[k].contiguous() for k in (
         "lp_ext", "initmask", "endmask", "skipmask", "validmask"))
     before = (ctc.ctc_alpha.launches, ctc.ctc_beta_grad.launches)
@@ -272,6 +298,36 @@ def test_ctc_kernels_match_plain_versions(hopper, b, t, v, n, n_valid, label_len
     torch.testing.assert_close(grad, want_grad, atol=1e-6, rtol=0)
     if t < n:                                          # impossible: grad exactly 0
         assert float(nll.min()) > 1e29 and not grad.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,v,n", [(8, 1200, 1005, 256), (16, 256, 6000, 32)])
+def test_ctc_kernels_bit_identical_twice(hopper, b, t, v, n):
+    """No atomics and a fixed order of every sum: two calls give the same bits."""
+    from streamspeech_tpu_torch.kernels import ctc
+
+    parts = _ctc_parts(b, t, v, n, seed=3, device=hopper, n_valid=[t] * (b - 1) + [t - 9])
+    lp, init, end, skip, valid = (parts[k].contiguous() for k in (
+        "lp_ext", "initmask", "endmask", "skipmask", "validmask"))
+    alphas = [ctc.ctc_alpha(lp, init, skip, valid) for _ in range(2)]
+    _, logz = ctc.nll_from_alpha(alphas[0], end)
+    zbias = torch.where(logz > ctc.NNEG / 2, -logz, torch.full_like(logz, ctc.NNEG))
+    grads = [ctc.ctc_beta_grad(lp, end, skip, zbias, valid, alphas[0]) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(alphas[0], alphas[1])
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.gpu
+def test_ctc_cluster_plan_covers_every_state_count(hopper):
+    """The cut fits the cluster limit and holds every state, S = 1 to 4096."""
+    from streamspeech_tpu_torch.kernels import ctc
+
+    for s in list(range(1, 70)) + [129, 513, 1601, 2049, 4095, 4096]:
+        plan = ctc.cluster_plan(s)
+        assert 1 <= plan["cluster_size"] <= 16
+        assert plan["cluster_size"] * plan["states_per_block"] >= s
+        assert (plan["cluster_size"] - 1) * plan["states_per_block"] < s
 
 
 @pytest.mark.gpu
