@@ -20,10 +20,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             one ``F.scaled_dot_product_attention`` call as a yardstick; the
             kernel's eager per-call ms (host launch cost included); and the
             bound: max(flops / 67 TFLOP/s fp32, bytes / 3.35 TB/s), each
-            input read and each output written once; for the causal kernel,
-            which runs its products as 3xTF32 on the tensor cores,
-            max(3 flops / 495 TFLOP/s, bytes / 3.35 TB/s), with
-            ``cuda_core_bound_ms`` beside it.
+            input read and each output written once; for the causal, rel-pos
+            and bias kernels, which run their products as 3xTF32 on the
+            tensor cores, max(3 flops / 495 TFLOP/s, bytes / 3.35 TB/s), with
+            ``cuda_core_bound_ms`` beside it (the rel-pos rows add the flops
+            its band products run, ``kernel_flops``, with their bound).
 4. serving  the full-width StreamSpeech model (``full_config``, seeded random
             weights, doctored so the policy writes) with a full-width
             CodeHiFiGAN vocoder, through the S2ST agent over three synthetic
@@ -78,10 +79,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             plain forward, and (causal, bias)
             ``F.scaled_dot_product_attention`` under the same float mask with
             the same ``dropout_p``: forward, and forward + backward minus forward.
-            B2, B3, B4 and B6 run their products as 3xTF32 on the tensor cores:
+            B1-B6 run their products as 3xTF32 on the tensor cores:
             their ``bound_ms`` is max(3 flops / 495 TFLOP/s, bytes / 3.35
             TB/s), with ``cuda_core_bound_ms`` (the fp32 CUDA cores' 67
-            TFLOP/s) beside it; B2's rows add the flops its band products run
+            TFLOP/s) beside it; B1's and B2's rows add the flops their band
+            products run
             (``kernel_flops``, their bound beside) and the bytes of its
             scratch, B6's its form, query-tile groups G and the bytes of its
             scratch (these stay off the ``kernels`` line).
@@ -193,14 +195,16 @@ def phase_env():
 def _ptxas_summary(log: str) -> dict:
     """``-Xptxas -v`` output → {entry: [registers, spill store bytes]}; a
     template instance ``...9dq_kernelILi64E...`` is keyed by its kernel and
-    head dim, ``dq_kernel<64>``."""
+    integer arguments (head dim first, then a cut), ``dq_kernel<64>``,
+    ``relpos_attention_kernel<64,2,2>``."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            arg = re.search(r"\d+([a-z_]+_kernel)ILi(\d+)E", m.group(1))
-            fused = ",fused" if arg and "Lb1E" in m.group(1) else ""
-            entry = f"{arg.group(1)}<{arg.group(2)}{fused}>" if arg else m.group(1)
+            arg = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)", m.group(1))
+            ints = ",".join(re.findall(r"Li(\d+)E", arg.group(2))) if arg else ""
+            fused = ",fused" if arg and "Lb1E" in arg.group(2) else ""
+            entry = f"{arg.group(1)}<{ints}{fused}>" if arg else m.group(1)
             out[entry] = out.get(entry, [None, 0])
         elif entry and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[entry][1] = int(m.group(1))
@@ -264,7 +268,7 @@ def _bound(flops: float, nbytes: float) -> dict:
 
 
 def _bound_3xtf32(flops: float, nbytes: float) -> dict:
-    """The bound of fp32-faithful work on the tensor cores (B4, B6: each
+    """The bound of fp32-faithful work on the tensor cores (B1-B6: each
     product is three TF32 products): max(3 flops / 495 TFLOP/s, bytes /
     3.35 TB/s), with the CUDA-core bound of ``_bound`` beside it, labelled."""
     by_ops, by_bytes = 3 * flops / TF32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
@@ -341,7 +345,9 @@ def phase_kernel():
         allowed = (j < ((i // 8 + 1) * 8).clamp(max=t))[None, None] & \
             (torch.arange(t, device=dev) < n_valid[:, None])[:, None, None, :]
         bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
-        bound = _bound(6 * b * 4 * t * t * 64, _nbytes(qu, qv, k, v, p, bias, qu))
+        pairs = b * 4 * t * t * 64
+        nbytes = _nbytes(qu, qv, k, v, p, bias, qu)
+        bound = {**_bound_3xtf32(6 * pairs, nbytes), **_relpos_fwd_plan(pairs, nbytes)}
         rows["relpos_attention"].append(_check_kernel(
             "relpos_attention", lambda *a: A.relpos_attention(*a, 0.125),
             lambda *a: A.relpos_attention_reference(*a, 0.125), None,
@@ -356,7 +362,7 @@ def phase_kernel():
         allowed = (jk[None] < (iq // 25 + 1).clamp(max=tk))[None] & \
             (jk[None, None, :] < n_valid[:, None, None])
         bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
-        bound = _bound(4 * b * 8 * tq * tk * 64, _nbytes(q, k, v, bias, q))
+        bound = _bound_3xtf32(4 * b * 8 * tq * tk * 64, _nbytes(q, k, v, bias, q))
         rows["bias_attention"].append(_check_kernel(
             "bias_attention", lambda *a: A.bias_attention(*a, 0.125),
             lambda *a: A.bias_attention_reference(*a, 0.125),
@@ -604,6 +610,15 @@ def _relpos_bwd_plan(A, b, h, t, d, pairs, nbytes) -> dict:
             "scratch_bytes": 4 * A.relpos_backward_scratch(b, h, t, d)}
 
 
+def _relpos_fwd_plan(pairs, nbytes) -> dict:
+    """B1's extra work: its band products run 16 x (KS + 16) scores for each
+    16 x KS they yield (KS = 16 keys a warp), so 8 flops a (query, key,
+    channel) where the function's three products have 6; with their 3xTF32
+    bound."""
+    run = _bound_3xtf32(8 * pairs, nbytes)
+    return {"kernel_flops": run["flops"], "kernel_flops_bound_ms": run["bound_ms"]}
+
+
 def _bias_train_inputs(b, tq, tk, randn):
     """q, K, V, g [b, 8, *, 64] from ``randn`` and the unit decoder's wait-k
     cross mask (n2 = 2, upsample 25) as a bias [b, tq, tk], the last row with
@@ -654,9 +669,10 @@ def phase_kernel_train():
         stats_bytes = b * 4 * t * 8
         # ac, bd and g.v recomputed; dq_u, dq_v, dK, dV, dP: 8 products
         bwd_bytes = _nbytes(qu, qv, k, v, p, bias, g, qu, qu, qv, k, v, p) + stats_bytes + 8
+        fwd_bytes = _nbytes(qu, qv, k, v, p, bias, qu) + stats_bytes + 8
         collect("relpos", _check_train_kernel(
             "relpos", A, (qu, qv, k, v, p), (bias,), g, 0.125, (b, 4, t, t), None,
-            _bound(6 * pairs, _nbytes(qu, qv, k, v, p, bias, qu) + stats_bytes + 8),
+            {**_bound_3xtf32(6 * pairs, fwd_bytes), **_relpos_fwd_plan(pairs, fwd_bytes)},
             _bound_3xtf32(16 * pairs, bwd_bytes), timed=n == 0,
             bwd_extra=_relpos_bwd_plan(A, b, 4, t, 64, pairs, bwd_bytes), b=b, h=4, t=t,
             d=64, valid=valid))
@@ -687,7 +703,7 @@ def phase_kernel_train():
         collect("bias", _check_train_kernel(
             "bias", A, (q, k, v), (bias,), g, 0.125, (b, 8, tq, tk),
             bias[:, None] if n == 0 else None,
-            _bound(4 * pairs, _nbytes(q, k, v, bias, q) + stats_bytes + 8),
+            _bound_3xtf32(4 * pairs, _nbytes(q, k, v, bias, q) + stats_bytes + 8),
             _bound_3xtf32(10 * pairs,
                           _nbytes(q, k, v, bias, g, q, q, k, v) + stats_bytes + 8),
             timed=n == 0, bwd_extra=_bias_bwd_plan(A, b, 8, tq, tk, 64), b=b, h=8, tq=tq,
@@ -1231,6 +1247,8 @@ def main():
     }
     # sources a kernel is built from beside the one named in its entry
     also = {"masked_attention": ["tc_mma.cuh", "dropout.cuh"],
+            "relpos_attention": ["tc_mma.cuh", "dropout.cuh"],
+            "bias_attention": ["tc_mma.cuh", "dropout.cuh"],
             "relpos_attention_bwd": ["tc_mma.cuh", "dropout.cuh"],
             "masked_attention_bwd": ["attention_bwd.cuh", "tc_mma.cuh", "dropout.cuh"],
             "bias_attention_bwd": ["attention_bwd.cuh", "tc_mma.cuh", "dropout.cuh"],

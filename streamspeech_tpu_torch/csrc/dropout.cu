@@ -1,8 +1,8 @@
 // Writes the attention kernels' dropout keep mask out, for Hopper (sm_90a).
 //
 // The six attention kernels regenerate the mask of dropout.cuh inside their
-// tile loops and never store it. This entry point stores it, through the same
-// `fill_keep_tile` and `keep_frag` they call, so that a check can hold the
+// tile loops and never store it. This entry point stores it, drawn on score
+// fragments by the `keep_frag` they all call, so that a check can hold the
 // kernels' mask against `dropout_keep_reference` bit for bit. It is bound by
 // the Philox integer operations (~18 an element), not by the one byte written.
 
@@ -15,10 +15,8 @@ namespace {
 constexpr int kTile = 64;
 constexpr int kThreads = 256;
 
-// Even query tiles go through fill_keep_tile (the way of the CUDA-core
-// forwards, B1 and B5), odd ones through keep_frag (the tensor-core kernels'
-// way, B2, B3, B4 and B6: warp w draws rows 16 (w % 4).. and the 8-column
-// slabs from 32 (w / 4)).
+// Warp w draws rows 16 (w % 4).. of the 64 x 64 tile and its 8-column slabs
+// from 32 (w / 4), as the tensor-core kernels draw their score fragments.
 __global__ void __launch_bounds__(kThreads)
 keep_mask_kernel(const long long* __restrict__ seed, unsigned char* __restrict__ out,
                  int H, int TQ, int TK, float rate) {
@@ -26,19 +24,13 @@ keep_mask_kernel(const long long* __restrict__ seed, unsigned char* __restrict__
   const int k0 = blockIdx.x * kTile, q0 = blockIdx.y * kTile;
   const int bh = blockIdx.z, b = bh / H, h = bh % H;
   const unsigned long long sd = (unsigned long long)*seed;
-  const bool by_tile = blockIdx.y % 2 == 0;
-  if (by_tile) {
-    dropout::fill_keep_tile<kTile, kTile>(tile, kTile + 1, sd, b, h, q0, k0, rate, 1.f,
-                                          threadIdx.x, kThreads);
-  } else {
-    const int w = threadIdx.x / 32, g = threadIdx.x % 32 / 4, q = threadIdx.x % 4;
-    const int r0 = 16 * (w % 4);
-    for (int c0 = 32 * (w / 4); c0 < 32 * (w / 4) + 32; c0 += 8) {
-      float kf[4];
-      tc::keep_frag(sd, b, h, q0 + r0 + g, k0 + c0, q, rate, 1.f, kf);
-      for (int e = 0; e < 4; ++e)
-        tile[(r0 + g + 8 * (e >> 1)) * (kTile + 1) + c0 + 2 * q + (e & 1)] = kf[e];
-    }
+  const int w = threadIdx.x / 32, g = threadIdx.x % 32 / 4, q = threadIdx.x % 4;
+  const int r0 = 16 * (w % 4);
+  for (int c0 = 32 * (w / 4); c0 < 32 * (w / 4) + 32; c0 += 8) {
+    float kf[4];
+    tc::keep_frag(sd, b, h, q0 + r0 + g, k0 + c0, q, rate, 1.f, kf);
+    for (int e = 0; e < 4; ++e)
+      tile[(r0 + g + 8 * (e >> 1)) * (kTile + 1) + c0 + 2 * q + (e & 1)] = kf[e];
   }
   __syncthreads();
   for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {

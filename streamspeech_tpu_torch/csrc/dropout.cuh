@@ -52,24 +52,4 @@ __device__ __forceinline__ bool keeps(uint32_t bits, float rate) {
   return (float)(bits >> 8) * (1.0f / 16777216.0f) >= rate;
 }
 
-// tile[r * ld + c] = keep factor of element (row0 + r, col0 + c) for r < ROWS,
-// c < COLS, by all `nthreads` threads of the block: one Philox call per four
-// columns. col0 and COLS must be multiples of 4.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void fill_keep_tile(float* tile, int ld,
-                                               unsigned long long seed, int b, int h,
-                                               int row0, int col0, float rate,
-                                               float inv_keep, int tid, int nthreads) {
-  static_assert(COLS % 4 == 0, "tile width must be a multiple of 4");
-  constexpr int G = COLS / 4;
-  for (int i = tid; i < ROWS * G; i += nthreads) {
-    const int r = i / G, cg = i % G;
-    uint32_t bits[4];
-    draw4(seed, b, h, row0 + r, (col0 >> 2) + cg, bits);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      tile[r * ld + cg * 4 + e] = keeps(bits[e], rate) ? inv_keep : 0.f;
-  }
-}
-
 }  // namespace dropout

@@ -2,8 +2,8 @@
 // (sm_90a): fp32-faithful products on TF32 `mma.sync` (3xTF32), 16-byte
 // `cp.async` tile loads, dropout keep factors drawn on an accumulator
 // fragment, and the dynamic shared-memory limit. Included by
-// attention_bwd.cuh (B4, B6), masked_attention.cu (B3) and
-// relpos_attention_bwd.cu (B2).
+// attention_bwd.cuh (B4, B6), masked_attention.cu (B3), relpos_attention.cu
+// (B1), relpos_attention_bwd.cu (B2), bias_attention.cu (B5) and dropout.cu.
 //
 // Fragments of `mma.sync.m16n8k8` with TF32 inputs; lane = 4 g + q, g the
 // group (0..7), q the thread in it (0..3):
@@ -152,8 +152,8 @@ __device__ __forceinline__ void load_b(const float* t, int ld, int k0, int n0, i
 // col + 1), col = 8-column slab + 2 * (lane % 4), as kf[0..3] in the order of
 // the accumulator. Lanes q and q ^ 1 share one Philox group of 4 columns:
 // the even lane draws it for row `row`, the odd one for row + 8, and each
-// hands the other the two factors it needs. One draw per 4 elements, as
-// dropout::fill_keep_tile, with no shared-memory tile; all 32 lanes must call.
+// hands the other the two factors it needs. One draw per 4 elements, with no
+// shared-memory tile; all 32 lanes must call.
 __device__ __forceinline__ void keep_frag(unsigned long long seed, int b, int h, int row,
                                           int slab, int q, float rate, float inv_keep,
                                           float kf[4]) {

@@ -704,3 +704,79 @@ def test_causal_forward_tensor_core_forms(hopper, d, t_pad, n_valid, rate):
     want_stats = _causal_stats(q, k, kvb, scale)
     torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-6)
 
+
+
+def _relpos_stats(qu, qv, k, p, bias, scale):
+    """The row max and 1 / sum of the rel-pos scores, the backward's residual."""
+    t = qu.shape[2]
+    s = torch.einsum("bhsd,bhtd->bhst", qu, k) + torch.gather(
+        torch.einsum("bhsd,hrd->bhsr", qv, p), -1,
+        attention._relpos_rows(t, qu.device)[None, None].expand(*qu.shape[:2], t, t))
+    s = s * scale + bias
+    mx = s.max(-1).values
+    return torch.stack([mx, 1.0 / torch.exp(s - mx[..., None]).sum(-1)], -1)
+
+
+def _forward_form_check(fwd, ref, args, const, keep_shape, scale, rate, seed, want_stats):
+    """A forward kernel's training form: within 1e-5 of the plain version
+    without dropout and 1e-4 max|ref| under the plain mask with it, the row
+    statistics the plain ones, the mask the one ``dropout_keep_reference``
+    draws, one launch, two calls bit-identical."""
+    out, stats = fwd(*args, *const, scale, rate, seed, True)
+    again, stats_again = fwd(*args, *const, scale, rate, seed, True)
+    assert torch.equal(out, again) and torch.equal(stats, stats_again)
+    keep = None
+    if rate > 0:
+        keep = attention.dropout_keep_reference(seed, *keep_shape, rate)
+        assert torch.equal(attention.dropout_keep(seed, *keep_shape, rate), keep)
+    want = ref(*args, *const, scale, keep, rate)
+    tol = ATOL if rate == 0 else GRAD_RTOL * float(want.abs().max())
+    assert float((out - want).abs().max()) <= tol
+    torch.testing.assert_close(stats, want_stats, rtol=1e-5, atol=1e-6)
+
+
+# (B, T): both of the launcher's cuts (1 x 8 below two row groups an SM, 4 x 4
+# above) at one key tile and at the longest, each head dim's fallback cut
+RELPOS_FORWARD_CUTS = [(1, 64), (17, 64), (1, 512), (3, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,t", RELPOS_FORWARD_CUTS)
+@pytest.mark.parametrize("d", [8, 64, 136, 144, 256])
+def test_relpos_forward_tensor_core_forms(hopper, d, b, t, rate):
+    """B1 (3xTF32 on the tensor cores, key slices merged) at both of its cuts
+    and the head dims where the cut shrinks to fit, the bias per head, the
+    first batch row with 40 keys masked (wholly masked rows past them)."""
+    qu, qv, k, v, p, bias = (torch.from_numpy(a).to(hopper) for a in _relpos_inputs(
+        b, 4, t, d, seed=t + d + b, n_valid=[t - 40] + [t] * (b - 1), chunk=8,
+        bias_heads=4))
+    scale = d ** -0.5
+    before = attention.relpos_attention.launches
+    _forward_form_check(attention.relpos_attention_forward,
+                        attention.relpos_attention_reference, (qu, qv, k, v, p), (bias,),
+                        (b, 4, t, t), scale, rate, _seed(hopper, 41) if rate > 0 else None,
+                        _relpos_stats(qu, qv, k, p, bias, scale))
+    assert attention.relpos_attention.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("tk", [1, 8, 30, 64, 65, 130])
+@pytest.mark.parametrize("d", [8, 64, 256])
+def test_bias_forward_tensor_core_forms(hopper, d, tk, rate):
+    """B5 (3xTF32, key tiles of TK rounded up to 8) at one key, one slab, a
+    ragged row of 30 (bias rows by 4-byte copies), one whole tile, one past it
+    and two past it, TQ = 70 (not a multiple of the query tile)."""
+    b, h, tq = 2, 3, 70
+    q, k, v, bias = (torch.from_numpy(a).to(hopper)
+                     for a in _bias_inputs(b, h, tq, tk, d, seed=tk + d))
+    scale = d ** -0.5
+    s = torch.einsum("bhsd,bhtd->bhst", q, k) * scale + bias[:, None]
+    mx = s.max(-1).values
+    want_stats = torch.stack([mx, 1.0 / torch.exp(s - mx[..., None]).sum(-1)], -1)
+    before = attention.bias_attention.launches
+    _forward_form_check(attention.bias_attention_forward, attention.bias_attention_reference,
+                        (q, k, v), (bias,), (b, h, tq, tk), scale, rate,
+                        _seed(hopper, 43) if rate > 0 else None, want_stats)
+    assert attention.bias_attention.launches == before + 2
