@@ -14,7 +14,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             (T_pad 640); rel-pos attention at [1|8, 4, 256, 64] and
             [1, 4, 512, 64]; bias attention at TQ/TK 600/24 (B=1) and
             1200/48 (B=8), H=8, D=64; the not-blank posterior at
-            [1|8, 256, 6000]. Max abs error against its tolerance; the device
+            [1|8, 256, 6000], and untimed at [3, 65, 513] with blank V - 1
+            (its 4-byte loads). Max abs error against its tolerance; the device
             ms of one call (CUDA-graph replay of 20 calls, median CUDA-event
             time) of the kernel, the plain version and (attention with a mask)
             one ``F.scaled_dot_product_attention`` call as a yardstick; the
@@ -78,12 +79,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             forward, the backward, the plain backward, autograd through the
             plain forward, and (causal, bias)
             ``F.scaled_dot_product_attention`` under the same float mask with
-            the same ``dropout_p``: forward, and forward + backward minus forward.
-            B1-B6 run their products as 3xTF32 on the tensor cores:
-            their ``bound_ms`` is max(3 flops / 495 TFLOP/s, bytes / 3.35
-            TB/s), with ``cuda_core_bound_ms`` (the fp32 CUDA cores' 67
-            TFLOP/s) beside it; B1's and B2's rows add the flops their band
-            products run
+            the same ``dropout_p``: forward, and forward + backward minus forward;
+            at 0.1 each timed row's ``dropout_gap_ms``, its time at 0.1 less its
+            time at 0. The mask's writer at [8, 8, 1280, 1280], its bound the
+            least integer work of its draws on each of the two integer pipes
+            (``DRAW_FMA_OPS``, ``DRAW_ALU_OPS`` over ``INT_PIPE_OPS``) or its
+            bytes, whichever is larger. B1-B6 run
+            their products as 3xTF32 on the tensor cores: their ``bound_ms``
+            is max(3 flops / 495 TFLOP/s, bytes / 3.35 TB/s), with
+            ``cuda_core_bound_ms`` (the fp32 CUDA cores' 67 TFLOP/s) beside
+            it; B1's and B2's rows add the flops their band products run
             (``kernel_flops``, their bound beside) and the bytes of its
             scratch, B6's its form, query-tile groups G and the bytes of its
             scratch (these stay off the ``kernels`` line).
@@ -134,6 +139,7 @@ MASKED_SHAPES = [(512, 400), (896, 800), (1664, 1600), (3200, 3200), (640, 600)]
 RELPOS_SHAPES = [(1, 256), (8, 256), (1, 512)]            # (B, T); H=4, D=64
 BIAS_SHAPES = [(1, 600, 24), (8, 1200, 48)]               # (B, TQ, TK); H=8, D=64
 NOT_BLANK_SHAPES = [(1, 256, 6000), (8, 256, 6000)]       # (B, T, V)
+NOT_BLANK_ODD_SHAPES = [(3, 65, 513)]                     # checked, not timed; blank V - 1
 # (B, T, V, N, blank): the train step's unit CTC, its fused ASR + ST pair, B=1
 CTC_SHAPES = [(8, 1200, 1005, 256, 1004), (16, 256, 6000, 32, 0),
               (1, 1200, 1005, 256, 1004)]
@@ -164,6 +170,17 @@ BIAS_TRAIN_SHAPES = [(8, 1200, 48), (2, 650, 30)]         # (B, TQ, TK)
 UTTERANCE_SECONDS = (3.0, 6.0, 10.0)
 SEED = 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
+# Integer instructions a second on each of an SM's two integer pipes, which
+# issue side by side: the FMA pipe (IMAD) and the ALU pipe (LOP3, ISETP, IADD3)
+# take 16 lanes a sub-partition a clock each, 64 an SM, at the clock that 67
+# TFLOP/s implies (67e12 / (2 * 128 * 132) = 1.98 GHz).
+INT_PIPE_OPS = 16.75e12
+# The least integer work of one B10 draw (Philox-4x32-10, 4 elements), with a
+# row's fixed rounds formed once a row as dropout.cuh does: 16 32 x 32 -> 64-bit
+# products on the FMA pipe (one issue each at least); 18 XORs (three-input where
+# a round key joins) and 4 compares with the threshold on the ALU pipe. A row's
+# own rounds (3 products a row) add under 0.2 % at the writer's shape.
+DRAW_FMA_OPS, DRAW_ALU_OPS = 16, 22
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core peak, FLOP/s
 HBM_BYTES = 3.35e12         # H100 SXM device-memory rate, B/s
 
@@ -192,19 +209,26 @@ def phase_env():
     return smi
 
 
+def _instance_key(mangled: str) -> str:
+    """A kernel's mangled name → its kernel and integer arguments (head dim
+    first, then a cut): ``...9dq_kernelILi64E...`` → ``dq_kernel<64>``,
+    ``relpos_attention_kernel<64,2,2>``; other names as they are."""
+    arg = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)", mangled)
+    if arg is None:
+        return mangled
+    ints = ",".join(re.findall(r"Li(\d+)E", arg.group(2)))
+    fused = ",fused" if "Lb1E" in arg.group(2) else ""
+    return f"{arg.group(1)}<{ints}{fused}>"
+
+
 def _ptxas_summary(log: str) -> dict:
-    """``-Xptxas -v`` output → {entry: [registers, spill store bytes]}; a
-    template instance ``...9dq_kernelILi64E...`` is keyed by its kernel and
-    integer arguments (head dim first, then a cut), ``dq_kernel<64>``,
-    ``relpos_attention_kernel<64,2,2>``."""
+    """``-Xptxas -v`` output → {entry: [registers, spill store bytes]}, each
+    entry keyed by ``_instance_key``."""
     out, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            arg = re.search(r"\d+([a-z_]+_kernel)I((?:L[ib]\d+E)+)", m.group(1))
-            ints = ",".join(re.findall(r"Li(\d+)E", arg.group(2))) if arg else ""
-            fused = ",fused" if arg and "Lb1E" in arg.group(2) else ""
-            entry = f"{arg.group(1)}<{ints}{fused}>" if arg else m.group(1)
+            entry = _instance_key(m.group(1))
             out[entry] = out.get(entry, [None, 0])
         elif entry and (m := re.search(r"(\d+) bytes spill stores", line)):
             out[entry][1] = int(m.group(1))
@@ -278,6 +302,19 @@ def _bound_3xtf32(flops: float, nbytes: float) -> dict:
             "bound_rate": "3xTF32 tensor cores, 495/3 TFLOP/s",
             "cuda_core_bound_ms": cuda_core["bound_ms"],
             "cuda_core_bound_by": cuda_core["bound_by"]}
+
+
+def _bound_draws(draws: float, nbytes: float) -> dict:
+    """B10's bound: the larger of its draws' FMA-pipe and ALU-pipe instructions,
+    each pipe at INT_PIPE_OPS, and its bytes at 3.35 TB/s."""
+    fma = draws * DRAW_FMA_OPS / INT_PIPE_OPS * 1e3
+    alu = draws * DRAW_ALU_OPS / INT_PIPE_OPS * 1e3
+    by_bytes = nbytes / HBM_BYTES * 1e3
+    return {"draws": draws, "bytes": nbytes, "fma_pipe_ms": fma, "alu_pipe_ms": alu,
+            "bytes_ms": by_bytes, "bound_ms": max(fma, alu, by_bytes),
+            "bound_by": "operations" if max(fma, alu) >= by_bytes else "bytes",
+            "bound_rate": f"integer pipes at 16.75 T instructions/s each, {DRAW_FMA_OPS} "
+                          f"FMA-pipe and {DRAW_ALU_OPS} ALU-pipe a draw of 4 elements"}
 
 
 def _nbytes(*tensors) -> int:
@@ -378,6 +415,16 @@ def phase_kernel():
             "not_blank_probs", policy.not_blank_probs,
             policy.not_blank_probs_reference, None, (logits,), NOT_BLANK_ATOL,
             bound, b=b, t=t, v=vocab))
+    for b, t, vocab in NOT_BLANK_ODD_SHAPES:  # 4-byte loads, a ragged last round
+        logits = randn(b, t, vocab) * 4
+        err = float((policy.not_blank_probs(logits, vocab - 1) -
+                     policy.not_blank_probs_reference(logits, vocab - 1)).abs().max())
+        row = {"phase": "kernel", "name": "not_blank_probs", "b": b, "t": t, "v": vocab,
+               "blank": vocab - 1, "max_abs_err": err, "atol": NOT_BLANK_ATOL}
+        emit(row)
+        if not err <= NOT_BLANK_ATOL:
+            raise AssertionError(f"not_blank_probs disagrees at {row}")
+        rows["not_blank_probs"].append(row)
     rows["ctc_alpha"], rows["ctc_beta"] = [], []
     for shape in CTC_SHAPES:
         alpha_row, beta_row = _check_ctc(dev, gen, *shape)
@@ -579,6 +626,9 @@ def _check_train_kernel(family, A, diff, const, g, scale, keep_shape, library_ma
                 bwd_row["library_ms"] = both - fwd_row["library_ms"]
                 bwd_row["library_timing"] = ("SDPA forward + backward minus forward, "
                                              "the same float mask and dropout_p")
+            if rate > 0:  # what drawing the mask costs, in this call
+                for row, at_zero in ((fwd_row, fwd_rows[0]), (bwd_row, bwd_rows[0])):
+                    row["dropout_gap_ms"] = row["ms"] - at_zero["ms"]
         emit(fwd_row)
         emit(bwd_row)
         fwd_rows.append(fwd_row)
@@ -721,11 +771,9 @@ def phase_kernel_train():
            "plain_ms": _device_ms(lambda: A.dropout_keep_reference(seed, *shape,
                                                                    ATTN_DROPOUT),
                                   calls=1, reps=3),
-           "library_ms": None,
-           # Philox-4x32-10 is ~70 integer operations per 4 elements, plus the
-           # shift, convert, multiply and compare: ~22 an element, held against
-           # the fp32 rate (the card's int32 rate is no higher); one byte written
-           **_bound(22 * n_el, n_el + 8)}
+           "library_ms": None}
+    # a draw for each 4 columns of a row; one byte written an element
+    row.update(_bound_draws(n_el // shape[3] * -(-shape[3] // 4), n_el + 8))
     emit(row)
     rows["dropout_keep"].append(row)
     return rows
@@ -1252,6 +1300,7 @@ def main():
             "relpos_attention_bwd": ["tc_mma.cuh", "dropout.cuh"],
             "masked_attention_bwd": ["attention_bwd.cuh", "tc_mma.cuh", "dropout.cuh"],
             "bias_attention_bwd": ["attention_bwd.cuh", "tc_mma.cuh", "dropout.cuh"],
+            "not_blank_probs": ["tc_mma.cuh"],
             "dropout_keep": ["dropout.cu", "tc_mma.cuh"]}
     paths = {"serving": serving_launches, "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches}
@@ -1275,7 +1324,7 @@ def main():
             # the forward kernels' training form at the train shape with dropout
             "training_form": next(
                 ({k: r.get(k) for k in ("rate", "ms", "plain_ms", "library_ms", "bound_ms",
-                                        "bound_by", "max_rel_err")}
+                                        "bound_by", "max_rel_err", "dropout_gap_ms")}
                  for r in rows.get(f"{name}_train", []) if train_shape(r)), None),
             # the backward kernels at the same shape without dropout
             "without_dropout": next(
@@ -1286,6 +1335,7 @@ def main():
                 None),
             "shape": {k: row[k] for k in ("b", "h", "t", "t_pad", "tq", "tk", "d", "v",
                                           "s") if k in row},
+            **({"dropout_gap_ms": row["dropout_gap_ms"]} if "dropout_gap_ms" in row else {}),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})

@@ -7,7 +7,8 @@
 // Replaces `_causal_bwd_kernel` and `_bias_bwd_kernel` of
 // streamspeech_tpu/ops/pallas_attention.py. Each block recomputes
 // p = exp(s * scale + bias - max) / sum from the forward's row statistics,
-// regenerates the keep factors kf of dropout.cuh, and forms
+// regenerates the keep factors kf of dropout.cuh (drawn beside the
+// exponentials, tc_mma.cuh keep_slab), and forms
 //   s = q Kᵀ,  dp = (g Vᵀ) * kf,  ds = p * (dp - delta) * scale,
 //   dq = ds K,  dK = dsᵀ q,  dV = (p * kf)ᵀ g.
 // The TPU kernels carry dK and dV across query blocks along their ordered
@@ -186,19 +187,57 @@ __device__ __forceinline__ void scores(const float* qs, const float* gs, const f
 
 // In place: s <- p = exp(s * scale + bias - max) / sum (0 outside [TQ, TK]),
 // dp <- dp * kf; with pks, also p * kf into that [BT][BT] tile. Rows q0 +
-// 16 wr + g (+ 8), columns k0 + 8 (wc NT + n) + 2 q (+ 1).
+// 16 wr + g (+ 8), columns k0 + 8 (wc NT + n) + 2 q (+ 1). kf drawn from
+// the lane's Philox row `dr` where `dropped`, else 1.
 template <int D, class Bias>
 __device__ __forceinline__ void probs(float s[][4], float dp[][4], float* pks, const Bias& bias,
-                                      int b, int h, int q0, int k0, int TQ, int TK,
-                                      const float mx[2], const float il[2], float scale,
-                                      bool drop, unsigned long long sd, float rate,
-                                      float inv_keep, int wr, int wc, int g, int q) {
+                                      int b, int q0, int k0, int TQ, int TK, const float mx[2],
+                                      const float il[2], float scale, bool dropped,
+                                      const dropout::Row& dr, uint32_t thr, float inv_keep,
+                                      int wr, int wc, int g, int q) {
+  constexpr int LDS = Tiles<D>::LDS, NT = Tiles<D>::NT;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int slab = 8 * (wc * NT + n);
+    const uint32_t kb = dropped ? keep_slab(dr, k0 + slab, q, thr) : 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = 16 * wr + g + (e >> 1) * 8, cl = slab + 2 * q + (e & 1);
+      const int row = q0 + rl, col = k0 + cl;
+      float p = 0.f;
+      if (row < TQ && col < TK)
+        p = expf(bias.add(s[n][e] * scale, b, row, col) - mx[e >> 1]) * il[e >> 1];
+      s[n][e] = p;
+      if (dropped) dp[n][e] = keep_apply(kb, e, dp[n][e], inv_keep);
+      if (pks) pks[rl * LDS + cl] = dropped ? keep_apply(kb, e, p, inv_keep) : p;
+    }
+  }
+}
+
+// probs for the fused B6 pass: one copy for both rates; each slab's keep
+// factors kf (1 at rate 0) drawn from a Philox row formed for that slab, so
+// that no row state lives across the products and the slabs' draws are
+// independent. tools/sweep_dropout.py read B6's dropout gap 0.006-0.008 ms
+// this way, 0.011-0.014 with `probs` in a copy for dropout (the row formed
+// once a tile), 0.011-0.012 with one row a tile in this form.
+template <int D, class Bias>
+__device__ __forceinline__ void probs_fused(float s[][4], float dp[][4], float* pks,
+                                            const Bias& bias, int b, int h, int q0, int k0,
+                                            int TQ, int TK, const float mx[2],
+                                            const float il[2], float scale, bool drop,
+                                            unsigned long long sd, uint32_t thr,
+                                            float inv_keep, int wr, int wc, int g, int q) {
   constexpr int LDS = Tiles<D>::LDS, NT = Tiles<D>::NT;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     const int slab = 8 * (wc * NT + n);
     float kf[4] = {1.f, 1.f, 1.f, 1.f};
-    if (drop) keep_frag(sd, b, h, q0 + 16 * wr + g, k0 + slab, q, rate, inv_keep, kf);
+    if (drop) {
+      const uint32_t kb =
+          keep_slab(keep_lane(sd, b, h, q0 + 16 * wr + g, q), k0 + slab, q, thr);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kf[e] = (kb >> e) & 1u ? inv_keep : 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int rl = 16 * wr + g + (e >> 1) * 8, cl = slab + 2 * q + (e & 1);
@@ -208,9 +247,28 @@ __device__ __forceinline__ void probs(float s[][4], float dp[][4], float* pks, c
         p = expf(bias.add(s[n][e] * scale, b, row, col) - mx[e >> 1]) * il[e >> 1];
       s[n][e] = p;
       dp[n][e] *= kf[e];
-      if (pks) pks[rl * LDS + cl] = p * kf[e];
+      pks[rl * LDS + cl] = p * kf[e];
     }
   }
+}
+
+// One score tile (rows q0.., keys k0..) from the products to p and dp * kf:
+// kDraw, the copy for dropout (`dr` the lane's Philox row), or `serial_drop`
+// where the head dim has none.
+template <int D, bool kDraw, class Bias>
+__device__ __forceinline__ void score_tile(const float* qs, const float* gs, const float* ks,
+                                           const float* vs, float s[][4], float dp[][4],
+                                           float* pks, const Bias& bias, int b, int h, int q0,
+                                           int k0, int TQ, int TK, const float mx[2],
+                                           const float il[2], float scale, bool serial_drop,
+                                           unsigned long long sd, uint32_t thr,
+                                           const dropout::Row& dr, float inv_keep, int wr,
+                                           int wc, int g, int q) {
+  scores<D>(qs, gs, ks, vs, wr, wc, g, q, s, dp);
+  const dropout::Row r =
+      kDraw || !serial_drop ? dr : keep_lane(sd, b, h, q0 + 16 * wr + g, q);
+  probs<D>(s, dp, pks, bias, b, q0, k0, TQ, TK, mx, il, scale, kDraw || serial_drop, r, thr,
+           inv_keep, wr, wc, g, q);
 }
 
 // ds = p * (dp * kf - delta) * scale into the [BT][BT] tile dss.
@@ -236,8 +294,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ g,
           const float* __restrict__ stats, const float* __restrict__ delta, Bias bias,
-          const long long* __restrict__ seed, float rate, float* __restrict__ dq, int B,
-          int H, int TQ, int TK, float scale) {
+          const long long* __restrict__ seed, float rate, uint32_t thr,
+          float* __restrict__ dq, int B, int H, int TQ, int TK, float scale) {
   using T = Tiles<D>;
   constexpr int BT = T::BT, TILE = BT * T::LDD;
   extern __shared__ __align__(16) float smem[];
@@ -258,6 +316,9 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
+  const bool serial_drop = D > kDropoutCopyMaxD && drop;  // no copy for dropout
+  // the lane's Philox row: the block's rows are fixed along its key tiles
+  const dropout::Row dr = keep_lane(sd, b, h, q0 + 16 * wr + lg, lq);
 
   async_tile<D>(qs, q + base_q * D, q0, TQ, tid);
   async_tile<D>(gs, g + base_q * D, q0, TQ, tid);
@@ -290,9 +351,11 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_commit();
     cp_wait<1>();
     __syncthreads();
-    scores<D>(qs, gs, ks, vs, wr, wc, lg, lq, s, dp);
-    probs<D>(s, dp, nullptr, bias, b, h, q0, k0, TQ, TK, mx, il, scale, drop, sd, rate,
-             inv_keep, wr, wc, lg, lq);
+    with_draws<D>(drop, [&](auto draw) {
+      score_tile<D, decltype(draw)::value>(qs, gs, ks, vs, s, dp, nullptr, bias, b, h, q0, k0,
+                                           TQ, TK, mx, il, scale, serial_drop, sd, thr, dr,
+                                           inv_keep, wr, wc, lg, lq);
+    });
     grads<D>(s, dp, dss, dl, scale, wr, wc, lg, lq);
     __syncthreads();
     product<BT, T::NO, T::WC, D / 8, false>(acc, dss, T::LDS, 16 * wr, ks, T::LDD, wc, lg, lq);
@@ -317,9 +380,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ g,
            const float* __restrict__ stats, const float* __restrict__ delta, Bias bias,
-           const long long* __restrict__ seed, float rate, float* __restrict__ dq,
-           float* __restrict__ dk, float* __restrict__ dv, int B, int H, int TQ, int TK,
-           int G, float scale) {
+           const long long* __restrict__ seed, float rate, uint32_t thr,
+           float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv, int B,
+           int H, int TQ, int TK, int G, float scale) {
   using T = Tiles<D>;
   constexpr int BT = T::BT, TILE = BT * T::LDD;
   extern __shared__ __align__(16) float smem[];
@@ -345,6 +408,7 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
+  const bool serial_drop = D > kDropoutCopyMaxD && drop;  // no copy for dropout
   // causal: query tiles above the key tile see none of its keys
   const int first = kFused ? tile : (Bias::kCausal ? k0 / BT : 0);
   const int stride = kFused ? G : 1;
@@ -381,9 +445,20 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       il[i] = st[2 * rl + 1];
       dl[i] = kFused ? 0.f : st[2 * BT + rl];
     }
-    scores<D>(qs, gs, ks, vs, wr, wc, lg, lq, s, dp);
-    probs<D>(s, dp, pks, bias, b, h, q0, k0, TQ, TK, mx, il, scale, drop, sd, rate,
-             inv_keep, wr, wc, lg, lq);
+    if constexpr (kFused) {
+      scores<D>(qs, gs, ks, vs, wr, wc, lg, lq, s, dp);
+      probs_fused<D>(s, dp, pks, bias, b, h, q0, k0, TQ, TK, mx, il, scale, drop, sd, thr,
+                     inv_keep, wr, wc, lg, lq);
+    } else {
+      with_draws<D>(drop, [&](auto draw) {
+        constexpr bool kDraw = decltype(draw)::value;
+        // the lane's Philox row, recomputed for each query tile
+        const dropout::Row dr =
+            kDraw ? keep_lane(sd, b, h, q0 + 16 * wr + lg, lq) : dropout::Row{};
+        score_tile<D, kDraw>(qs, gs, ks, vs, s, dp, pks, bias, b, h, q0, k0, TQ, TK, mx, il,
+                             scale, serial_drop, sd, thr, dr, inv_keep, wr, wc, lg, lq);
+      });
+    }
     if (kFused) {
       // delta = sum_j p * dp * kf: the four lanes of a row, then the WC warps
 #pragma unroll
@@ -487,14 +562,15 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* g,
     return (int)cudaErrorMisalignedAddress;
   static bool raised_dq[kMaxDevices] = {}, raised_dkv[kMaxDevices] = {},
               raised_fused[kMaxDevices] = {};
+  const uint32_t thr = dropout::threshold(rate);
   int err;
   if (groups > 0) {
     err = raise_smem(dkv_kernel<D, Bias, true>, T::kSmem, raised_fused);
     if (err != 0) return err;
     const size_t half = (size_t)groups * B * H * TK * D;
     dkv_kernel<D, Bias, true><<<(unsigned)(groups * heads), kThreads, T::kSmem, stream>>>(
-        q, k, v, g, stats, nullptr, bias, seed, rate, dq, part, part + half, B, H, TQ, TK,
-        groups, scale);
+        q, k, v, g, stats, nullptr, bias, seed, rate, thr, dq, part, part + half, B, H, TQ,
+        TK, groups, scale);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
     const long long n4 = heads * TK * D / 4;
@@ -511,11 +587,12 @@ int launch_bwd(const float* q, const float* k, const float* v, const float* g,
   err = launch_rowdot(g, out, delta, heads * TQ, D, stream);
   if (err != 0) return err;
   dq_kernel<D, Bias><<<(unsigned)(nq * heads), kThreads, dq_smem, stream>>>(
-      q, k, v, g, stats, delta, bias, seed, rate, dq, B, H, TQ, TK, scale);
+      q, k, v, g, stats, delta, bias, seed, rate, thr, dq, B, H, TQ, TK, scale);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   dkv_kernel<D, Bias, false><<<(unsigned)(nk * heads), kThreads, T::kSmem, stream>>>(
-      q, k, v, g, stats, delta, bias, seed, rate, nullptr, dk, dv, B, H, TQ, TK, 0, scale);
+      q, k, v, g, stats, delta, bias, seed, rate, thr, nullptr, dk, dv, B, H, TQ, TK, 0,
+      scale);
   return (int)cudaGetLastError();
 }
 

@@ -43,9 +43,9 @@
 //
 // Training adds dropout (rate > 0, `_bias_kernel` :614-617) and the row
 // statistics output (stats != null, [B, H, TQ, 2]: max and 1 / sum), both
-// exactly as in masked_attention.cu: the keep factors drawn on the score
-// fragments (keep_frag) multiply the weights that go into p V only, never the
-// running sum; bias_attention_bwd.cu reads the statistics.
+// exactly as in masked_attention.cu: the keep bits drawn on the score
+// fragments beside the exponentials scale the weights that go into p V only,
+// never the running sum; bias_attention_bwd.cu reads the statistics.
 
 #include <math.h>
 
@@ -129,8 +129,8 @@ __global__ void __launch_bounds__(kThreads)
 bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ bias,
                       float* __restrict__ out, const long long* __restrict__ seed,
-                      float rate, float* __restrict__ stats, int B, int H, int TQ, int TK,
-                      int bk, float scale) {
+                      float rate, uint32_t thr, float* __restrict__ stats, int B, int H,
+                      int TQ, int TK, int bk, float scale) {
   using F = Fwd<D>;
   constexpr int LD = F::LD, NT = F::NT, NO = F::NO;
   extern __shared__ __align__(16) float smem[];
@@ -218,16 +218,16 @@ bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[i] = m_new;
     }
     // p = exp(x - max); the sum takes p, the V accumulation p * kf
+    const dropout::Row dr = drop ? keep_lane(sd, b, h, row0, lq) : dropout::Row{};
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       if (n >= ns) break;
-      float kf[4] = {1.f, 1.f, 1.f, 1.f};
-      if (drop) keep_frag(sd, b, h, row0, k0 + 8 * n, lq, rate, inv_keep, kf);
+      const uint32_t kb = drop ? keep_slab(dr, k0 + 8 * n, lq, thr) : 0u;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pr = expf(s[n][e] - m_use[e >> 1]);
         sum[e >> 1] += pr;
-        s[n][e] = pr * kf[e];
+        s[n][e] = drop ? keep_apply(kb, e, pr, inv_keep) : pr;
       }
     }
 #pragma unroll
@@ -314,7 +314,8 @@ int launch(const float* q, const float* k, const float* v, const float* bias,
   const int bk = bk8 < F::BK ? bk8 : F::BK;
   const size_t smem = F::floats(bk, TK > bk ? 2 : 1) * 4;
   bias_attention_kernel<D><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      q, k, v, bias, out, seed, rate, stats, B, H, TQ, TK, bk, scale);
+      q, k, v, bias, out, seed, rate, dropout::threshold(rate), stats, B, H, TQ, TK, bk,
+      scale);
   return (int)cudaGetLastError();
 }
 

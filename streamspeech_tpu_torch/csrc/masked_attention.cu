@@ -45,12 +45,13 @@
 //
 // Training adds two options (`_causal_kernel` :414-417 and the backward's
 // residual). rate > 0 drops attention probabilities after the softmax: the
-// keep factors of dropout.cuh, drawn on the score fragments (keep_frag),
-// multiply each tile's un-normalised weights in the V accumulation only,
-// never in the running sum. stats != null writes each row's max and 1 / sum,
-// [B, H, T, 2], which masked_attention_bwd.cu reads instead of recomputing
-// whole rows. (Two numbers, not one log-sum-exp: a wholly masked row sits at
-// -1e9, where fp32 cannot carry log(sum).)
+// keep bits of dropout.cuh, drawn on the score fragments (tc_mma.cuh
+// keep_slab) beside the exponentials, scale each tile's un-normalised weights in
+// the V accumulation only, never in the running sum. stats != null writes
+// each row's max and 1 / sum, [B, H, T, 2], which masked_attention_bwd.cu
+// reads instead of recomputing whole rows. (Two numbers, not one
+// log-sum-exp: a wholly masked row sits at -1e9, where fp32 cannot carry
+// log(sum).)
 
 #include <math.h>
 
@@ -102,8 +103,8 @@ __global__ void __launch_bounds__(kThreads)
 causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ kvb,
                         float* __restrict__ out, const long long* __restrict__ seed,
-                        float rate, float* __restrict__ stats, int B, int H, int T,
-                        float scale) {
+                        float rate, uint32_t thr, float* __restrict__ stats, int B, int H,
+                        int T, float scale) {
   using F = Fwd<D>;
   constexpr int LD = F::LD, BK = F::BK, NT = F::NT, NO = F::NO;
   constexpr int kUnrollQ = F::kQInRegisters ? NO : 4;  // in full while q is in registers
@@ -126,6 +127,7 @@ causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
+  const bool serial_drop = D > kDropoutCopyMaxD && drop;  // no copy for dropout
   const int kend = q0 + kBQ;  // key tiles past the diagonal weigh 0
 
   stage_keys<D>(ring, kh, vh, kb, 0, T, tid);
@@ -160,75 +162,82 @@ causal_attention_kernel(const float* __restrict__ q, const float* __restrict__ k
     cp_wait<1>();
     __syncthreads();
 
-    // s = q Kᵀ over the warp's [16, BK] part of the tile
-    float s[NT][4];
-    zero<NT>(s);
+    // s = q Kᵀ over the warp's [16, BK] part of the tile, then the weights of
+    // p V; kDraw: the copy for dropout (tc_mma.cuh with_draws)
+    float s[NT][4], alpha[2];
+    auto weights = [&](auto draw) {
+      constexpr bool kDraw = decltype(draw)::value;
+      zero<NT>(s);
 #pragma unroll kUnrollQ
-    for (int kk = 0; kk < NO; ++kk) {
-      uint32_t ah[4], al[4];
-      if constexpr (F::kQInRegisters) {
+      for (int kk = 0; kk < NO; ++kk) {
+        uint32_t ah[4], al[4];
+        if constexpr (F::kQInRegisters) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[e] = qa[kk][0][e];
-          al[e] = qa[kk][1][e];
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = qa[kk][0][e];
+            al[e] = qa[kk][1][e];
+          }
+        } else {
+          const int a0 = (rw + g) * LD + 8 * kk + lq;
+          const int offs[4] = {a0, a0 + 8 * LD, a0 + 4, a0 + 8 * LD + 4};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ah[e] = qhi[offs[e]];
+            al[e] = qlo[offs[e]];
+          }
         }
-      } else {
-        const int a0 = (rw + g) * LD + 8 * kk + lq;
-        const int offs[4] = {a0, a0 + 8 * LD, a0 + 4, a0 + 8 * LD + 4};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[e] = qhi[offs[e]];
-          al[e] = qlo[offs[e]];
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bh_[2], bl_[2];
+          load_b<true>(ks, LD, 8 * kk, 8 * n, g, lq, bh_, bl_);
+          mma3(s[n], ah, al, bh_, bl_);
         }
       }
+
+      // scale, key bias and causal mask in the forward's order; the tile's
+      // row max over the 4 lanes of a row
+      float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * lq + (e & 1);
+          float x = s[n][e] * scale + bs[c];
+          if (k0 + c > row0 + 8 * (e >> 1)) x += kNegInf;
+          s[n][e] = x;
+          tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+        }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+        tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+        const float m_new = fmaxf(m[i], tmax[i]);
+        alpha[i] = expf(m[i] - m_new);  // 0 on the first tile
+        m[i] = m_new;
+      }
+      // p = exp(x - max); the sum takes p, the V accumulation p * kf (the
+      // lane's Philox row recomputed a tile: registers are short)
+      const bool dropped = kDraw || serial_drop;
+      const dropout::Row dr = dropped ? keep_lane(sd, b, h, row0, lq) : dropout::Row{};
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        uint32_t bh_[2], bl_[2];
-        load_b<true>(ks, LD, 8 * kk, 8 * n, g, lq, bh_, bl_);
-        mma3(s[n], ah, al, bh_, bl_);
+        const uint32_t kb = dropped ? keep_slab(dr, k0 + 8 * n, lq, thr) : 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[n][e] - m[e >> 1]);
+          sum[e >> 1] += p;
+          s[n][e] = dropped ? keep_apply(kb, e, p, inv_keep) : p;
+        }
       }
-    }
-
-    // scale, key bias and causal mask in the forward's order; the tile's
-    // row max over the 4 lanes of a row
-    float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * n + 2 * lq + (e & 1);
-        float x = s[n][e] * scale + bs[c];
-        if (k0 + c > row0 + 8 * (e >> 1)) x += kNegInf;
-        s[n][e] = x;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], x);
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+        sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+        l[i] = l[i] * alpha[i] + sum[i];
       }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m[i], tmax[i]);
-      alpha[i] = expf(m[i] - m_new);  // 0 on the first tile
-      m[i] = m_new;
-    }
-    // p = exp(x - max); the sum takes p, the V accumulation p * kf
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      float kf[4] = {1.f, 1.f, 1.f, 1.f};
-      if (drop) keep_frag(sd, b, h, row0, k0 + 8 * n, lq, rate, inv_keep, kf);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += p;
-        s[n][e] = p * kf[e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
-      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
-      l[i] = l[i] * alpha[i] + sum[i];
-    }
+    };
+    with_draws<D>(drop, weights);
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       acc[j][0] *= alpha[0];
@@ -290,7 +299,7 @@ int launch(const float* q, const float* k, const float* v, const float* kvb,
   const int err = raise_smem(causal_attention_kernel<D>, F::kSmem, raised);
   if (err != 0) return err;
   causal_attention_kernel<D><<<(unsigned)blocks, kThreads, F::kSmem, stream>>>(
-      q, k, v, kvb, out, seed, rate, stats, B, H, T, scale);
+      q, k, v, kvb, out, seed, rate, dropout::threshold(rate), stats, B, H, T, scale);
   return (int)cudaGetLastError();
 }
 

@@ -12,84 +12,162 @@
 // logit, the output only [B, T]: the least the card can do is read the logits
 // once (B*T*V*4 bytes; 6.1 MB per head at [1, 256, 6000]). The TPU kernel
 // walks time in order and carries the previous posterior row in scratch;
-// blocks on the card run in no order, so nothing is carried: one block per
-// (b, t) row reads rows t and t-1 itself. Each row's max, its sum of
-// exponentials and the dot of the two rows' exponentials take two passes over
-// the two rows, so the kernel reads every logit about four times (twice as
-// row t, twice as row t-1 of the next block), the repeats mostly from L1/L2.
-// Nothing of size [B, T, V] is written.
+// blocks on the card run in no order, so nothing is carried: the warps of a
+// row read rows t and t - 1 themselves, in one pass. Each lane keeps, for its
+// columns, an online max and sum of exponentials of each row and the dot of
+// the two rows' exponentials; when a max rises, the sum and the dot it
+// touches are rescaled by exp(old max - new max). Lanes merge by shuffles
+// (a butterfly: xor 16, 8, 4, 2, 1), then the warps of a row in order through
+// shared memory. Loads are 16 bytes (V % 4 == 0 and a 16-byte aligned base;
+// otherwise 4), kUnroll of them in flight per row and lane. Consecutive rows
+// go to consecutive warps, so row t - 1 comes again from L1/L2, not device
+// memory. Nothing of size [B, T, V] is written.
+//
+// A row's columns go to WPR warps (1, 2, 4 or 8; the launcher picks the
+// fewest that put 8 warps an SM in flight, while each warp keeps two rounds
+// of kUnroll loads): one warp a row at [8, 256, 6000], four at [1, 256, 6000]
+// on an H100's 132 SMs. tools/sweep_dropout.py timed 1, 2, 4 and 8 at both
+// by building with -DNOT_BLANK_WPR=<n>, a define for that sweep alone.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tc_mma.cuh"
+
+#ifndef NOT_BLANK_WPR
+#define NOT_BLANK_WPR 0  // sweep only: warps a row at every shape; 0: the launcher's rule
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 4;  // loads of each row in flight per lane
+constexpr int kWarpsAnSm = 8;  // warps in flight an SM that the launcher aims for
 
-// sum (max) of `v` over the block; every thread gets the result
-template <bool kMax>
-__device__ float block_reduce(float v, float* scratch) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kMax ? fmaxf(v, w) : v + w;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();  // scratch may still be read by a previous reduction
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = lane < kWarps ? scratch[lane] : (kMax ? -INFINITY : 0.f);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {  // all 32 lanes end with the total
-    const float w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kMax ? fmaxf(v, w) : v + w;
-  }
-  return v;
+// A partial over some columns: row t's max and sum of exp(x - mc), row t-1's
+// likewise, and sum exp(x_t - mc) exp(x_{t-1} - mp).
+struct Online {
+  float mc, sc, mp, sp, dot;
+};
+
+// exp(m - m_new), exactly 1 where they are equal (both -inf included)
+__device__ __forceinline__ float rescale(float m, float m_new) {
+  return m == m_new ? 1.f : expf(m - m_new);
 }
 
-__global__ void __launch_bounds__(kThreads)
-not_blank_kernel(const float* __restrict__ logits, float* __restrict__ out,
-                 int T, int V, int blank) {
-  __shared__ float scratch[kWarps];
-  const int t = blockIdx.x, b = blockIdx.y;
-  const float* cur = logits + ((size_t)b * T + t) * V;
-  const float* prev = cur - V;  // read only when t > 0
-  const bool has_prev = t > 0;
-
-  float mc = -INFINITY, mp = -INFINITY;
-  for (int v = threadIdx.x; v < V; v += kThreads) {
-    mc = fmaxf(mc, cur[v]);
-    if (has_prev) mp = fmaxf(mp, prev[v]);
+// Fold N columns (xc of row t, xp of row t - 1; -inf where there is none)
+// into o, in order.
+template <int N>
+__device__ __forceinline__ void fold(Online& o, const float (&xc)[N], const float (&xp)[N]) {
+  float mc = o.mc, mp = o.mp;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mc = fmaxf(mc, xc[i]);
+    mp = fmaxf(mp, xp[i]);
   }
-  mc = block_reduce<true>(mc, scratch);
-  if (has_prev) mp = block_reduce<true>(mp, scratch);
-
-  float sc = 0.f, sp = 0.f, dot = 0.f;
-  for (int v = threadIdx.x; v < V; v += kThreads) {
-    const float ec = expf(cur[v] - mc);
+  const float ac = rescale(o.mc, mc), ap = rescale(o.mp, mp);
+  float sc = o.sc * ac, sp = o.sp * ap, dot = o.dot * (ac * ap);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float ec = expf(xc[i] - mc), ep = expf(xp[i] - mp);
     sc += ec;
-    if (has_prev) {
-      const float ep = expf(prev[v] - mp);
-      sp += ep;
-      dot = fmaf(ec, ep, dot);
-    }
+    sp += ep;
+    dot = fmaf(ec, ep, dot);
   }
-  sc = block_reduce<false>(sc, scratch);
-  if (has_prev) {
-    sp = block_reduce<false>(sp, scratch);
-    dot = block_reduce<false>(dot, scratch);
-  }
+  o = {mc, sc, mp, sp, dot};
+}
 
-  if (threadIdx.x == 0) {
-    const float blank_p = expf(cur[blank] - mc) / sc;
-    float repeat = 0.f;
-    if (has_prev) {
-      const float prev_blank = expf(prev[blank] - mp) / sp;
-      repeat = dot / (sc * sp) - blank_p * prev_blank;
-    }
-    out[(size_t)b * T + t] = 1.f - (repeat + blank_p);
+__device__ __forceinline__ Online merge(const Online& a, const Online& b) {
+  const float mc = fmaxf(a.mc, b.mc), mp = fmaxf(a.mp, b.mp);
+  const float ca = rescale(a.mc, mc), cb = rescale(b.mc, mc);
+  const float pa = rescale(a.mp, mp), pb = rescale(b.mp, mp);
+  return {mc, a.sc * ca + b.sc * cb, mp, a.sp * pa + b.sp * pb,
+          a.dot * (ca * pa) + b.dot * (cb * pb)};
+}
+
+// Columns W j .. W j + W - 1 of a row, -inf past n units of W floats.
+template <int W>
+__device__ __forceinline__ void load(const float* row, int j, int n, float* x) {
+  if constexpr (W == 4) {
+    float4 v = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    if (j < n) v = __ldg(reinterpret_cast<const float4*>(row) + j);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  } else {
+    x[0] = j < n ? __ldg(row + j) : -INFINITY;
   }
+}
+
+// W: floats a load (4: V % 4 == 0 and the logits 16-byte aligned; else 1).
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+not_blank_kernel(const float* __restrict__ logits, float* __restrict__ out, long long rows,
+                 int T, int V, int blank, int wpr) {
+  __shared__ Online part[kWarps];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, slice = warp % wpr;
+  const long long row = (long long)blockIdx.x * (kWarps / wpr) + warp / wpr;
+  const bool live = row < rows;
+  const int t = live ? (int)(row % T) : 0;
+  const float* cur = logits + (live ? row : 0) * V;
+  const float* prev = t > 0 ? cur - V : cur;  // t = 0: read, never used
+
+  // the blank logits the last lane-0 step needs, fetched before the pass
+  const bool last = live && lane == 0 && slice == 0;
+  const float xb = last ? __ldg(cur + blank) : 0.f, xpb = last ? __ldg(prev + blank) : 0.f;
+
+  Online o = {-INFINITY, 0.f, -INFINITY, 0.f, 0.f};
+  if (live) {
+    const int n = V / W, stride = 32 * wpr;
+    for (int i = 32 * slice + lane; i < n; i += kUnroll * stride) {
+      float xc[kUnroll * W], xp[kUnroll * W];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        load<W>(cur, i + u * stride, n, xc + u * W);
+        load<W>(prev, i + u * stride, n, xp + u * W);
+      }
+      fold(o, xc, xp);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const Online x = {__shfl_xor_sync(0xffffffffu, o.mc, off),
+                      __shfl_xor_sync(0xffffffffu, o.sc, off),
+                      __shfl_xor_sync(0xffffffffu, o.mp, off),
+                      __shfl_xor_sync(0xffffffffu, o.sp, off),
+                      __shfl_xor_sync(0xffffffffu, o.dot, off)};
+    o = merge(o, x);
+  }
+  if (wpr > 1) {  // the row's warps in order
+    if (lane == 0) part[warp] = o;
+    __syncthreads();
+    if (lane == 0 && slice == 0)
+      for (int s = 1; s < wpr; ++s) o = merge(o, part[warp + s]);
+  }
+  if (last) {
+    const float blank_p = expf(xb - o.mc) / o.sc;
+    float repeat = 0.f;
+    if (t > 0) {
+      const float prev_blank = expf(xpb - o.mp) / o.sp;
+      repeat = o.dot / (o.sc * o.sp) - blank_p * prev_blank;
+    }
+    out[row] = 1.f - (repeat + blank_p);
+  }
+}
+
+// Warps a row: the fewest (1, 2, 4, 8) that put kWarpsAnSm warps an SM on
+// the card, while each warp keeps two rounds of kUnroll loads of the row's n
+// units.
+int warps_a_row(long long rows, int n) {
+  if (NOT_BLANK_WPR > 0) return NOT_BLANK_WPR;
+  const long long in_flight = (long long)kWarpsAnSm * tc::sm_count();
+  int wpr = 1;
+  while (wpr < kWarps && rows * wpr < in_flight && n >= 2 * kUnroll * 32 * (2 * wpr))
+    wpr *= 2;
+  return wpr;
 }
 
 }  // namespace
@@ -98,10 +176,20 @@ not_blank_kernel(const float* __restrict__ logits, float* __restrict__ out,
 // Launches on `stream` without synchronising; returns the cudaError_t code.
 extern "C" int not_blank_probs_f32(const float* logits, float* out, int B, int T,
                                    int V, int blank, void* stream) {
-  if (B <= 0 || T <= 0 || V <= 0 || blank < 0 || blank >= V || B > 65535)
+  if (B <= 0 || T <= 0 || V <= 0 || blank < 0 || blank >= V)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(T, B);
-  not_blank_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      logits, out, T, V, blank);
+  const long long rows = (long long)B * T;
+  const bool vec = V % 4 == 0 && (uintptr_t)logits % 16 == 0;
+  const int wpr = warps_a_row(rows, vec ? V / 4 : V);
+  if (wpr < 1 || wpr > kWarps || kWarps % wpr != 0) return (int)cudaErrorInvalidValue;
+  const long long blocks = (rows * wpr + kWarps - 1) / kWarps;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    not_blank_kernel<4><<<(unsigned)blocks, kThreads, 0, s>>>(logits, out, rows, T, V, blank,
+                                                             wpr);
+  else
+    not_blank_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(logits, out, rows, T, V, blank,
+                                                             wpr);
   return (int)cudaGetLastError();
 }

@@ -57,9 +57,10 @@
 //
 // Training adds dropout (rate > 0, `_kernel` :84-87) and the row statistics
 // output (stats != null, [B, H, T, 2]: max and 1 / sum), both exactly as in
-// masked_attention.cu: the keep factors of dropout.cuh drawn on the score
-// fragments (keep_frag), multiplying the weights that go into p V only, never
-// the running sum; relpos_attention_bwd.cu reads the statistics.
+// masked_attention.cu: the keep bits of dropout.cuh drawn on the score
+// fragments beside the exponentials (tc_mma.cuh keep_slab), scaling the
+// weights that go into p V only, never the running sum;
+// relpos_attention_bwd.cu reads the statistics.
 //
 // Head dims: every multiple of 8 from 8 to 256. T must be a multiple of 64.
 
@@ -185,8 +186,8 @@ relpos_attention_kernel(const float* __restrict__ qu, const float* __restrict__ 
                         const float* __restrict__ k, const float* __restrict__ v,
                         const float* __restrict__ p, const float* __restrict__ bias,
                         float* __restrict__ out, const long long* __restrict__ seed,
-                        float rate, float* __restrict__ stats, int B, int H, int T, int R,
-                        int bias_heads, float scale) {
+                        float rate, uint32_t thr, float* __restrict__ stats, int B, int H,
+                        int T, int R, int bias_heads, float scale) {
   using F = Rel<D, RW, KW>;
   constexpr int BQ = F::BQ, BK = F::BK, LD = F::LD, LDB = F::LDB, LDW = F::LDW;
   constexpr int NT = F::NT, NB = F::NB, NO = F::NO;
@@ -293,16 +294,17 @@ relpos_attention_kernel(const float* __restrict__ qu, const float* __restrict__ 
       alpha[i] = expf(m[i] - m_new);  // 0 on the first tile
       m[i] = m_new;
     }
-    // p = exp(x - max); the sum takes p, the V accumulation p * kf
+    // p = exp(x - max); the sum takes p, the V accumulation p * kf (the
+    // lane's Philox row recomputed a tile: registers are short)
+    const dropout::Row dr = drop ? keep_lane(sd, b, h, row0, lq) : dropout::Row{};
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      float kf[4] = {1.f, 1.f, 1.f, 1.f};
-      if (drop) keep_frag(sd, b, h, row0, k0 + kc + 8 * n, lq, rate, inv_keep, kf);
+      const uint32_t kb = drop ? keep_slab(dr, k0 + kc + 8 * n, lq, thr) : 0u;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float pr = expf(s[n][e] - m[e >> 1]);
         sum[e >> 1] += pr;
-        s[n][e] = pr * kf[e];
+        s[n][e] = drop ? keep_apply(kb, e, pr, inv_keep) : pr;
       }
     }
 #pragma unroll
@@ -424,7 +426,8 @@ int launch_cut(const float* qu, const float* qv, const float* k, const float* v,
   const int err = raise_smem(relpos_attention_kernel<D, RW, KW>, F::kSmem, raised);
   if (err != 0) return err;
   relpos_attention_kernel<D, RW, KW><<<(unsigned)blocks, F::kThreads, F::kSmem, stream>>>(
-      qu, qv, k, v, p, bias, out, seed, rate, stats, B, H, T, R, bias_heads, scale);
+      qu, qv, k, v, p, bias, out, seed, rate, dropout::threshold(rate), stats, B, H, T, R,
+      bias_heads, scale);
   return (int)cudaGetLastError();
 }
 
@@ -442,18 +445,6 @@ int launch_fitted(const float* qu, const float* qv, const float* k, const float*
                                    R, bias_heads, scale, stream);
   return launch_cut<D, RW, KW>(qu, qv, k, v, p, bias, out, seed, rate, stats, B, H, T, R,
                                bias_heads, scale, stream);
-}
-
-// The multiprocessors of the current device, asked once per device.
-int sm_count() {
-  static int count[kMaxDevices] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (dev < kMaxDevices && count[dev] > 0) return count[dev];
-  int n = 0;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
-  if (dev < kMaxDevices) count[dev] = n;
-  return n;
 }
 
 // The cut: 4 x 4 once the 16-row groups number at least two per SM, 1 x 8,

@@ -38,10 +38,11 @@
 //
 // What bounds it: operations at the train shape [8,4,256,64] (eight products,
 // 2.15 GFLOP, against 24 MB; the band products add 0.81 GFLOP of multiplies by
-// the zeros off the band, and the partials 52 MB of traffic). The keep
-// factors are drawn on the score fragments (keep_frag), one Philox call per 4
-// elements. Tiles of BT = 32 rows up to D = 136 (256 blocks at the train
-// shape for 132 SMs, 123 KB of shared memory at D = 64), 16 above; 8 warps.
+// the zeros off the band, and the partials 52 MB of traffic). The keep bits
+// are drawn on the score fragments beside the exponentials (tc_mma.cuh
+// keep_slab), one Philox call per 4 elements. Tiles of BT = 32 rows up to
+// D = 136 (256 blocks at the train shape for 132 SMs, 123 KB of shared memory
+// at D = 64), 16 above; 8 warps.
 // Head dims: every multiple of 8 from 8 to 256. T a multiple of 64, R >= 2T-1.
 
 #include <math.h>
@@ -105,7 +106,7 @@ relpos_bwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
                   const float* __restrict__ p, const float* __restrict__ bias,
                   const float* __restrict__ g, const float* __restrict__ out,
                   const float* __restrict__ stats, const long long* __restrict__ seed,
-                  float rate, float* __restrict__ part, float* __restrict__ dqu,
+                  float rate, uint32_t thr, float* __restrict__ part, float* __restrict__ dqu,
                   float* __restrict__ dqv, int B, int H, int T, int R, int bias_heads,
                   float scale) {
   using F = Rel<D>;
@@ -142,6 +143,9 @@ relpos_bwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
+  const bool serial_drop = D > kDropoutCopyMaxD && drop;  // no copy for dropout
+  // the lane's Philox row: the block's rows are fixed along its key tiles
+  const dropout::Row dr = keep_lane(sd, b, h, q0 + 16 * wr + lg, lq);
 
   async_load<BT, D, LD>(qus, qu + head, q0, T, tid, kThreads);
   async_load<BT, D, LD>(qvs, qv + head, q0, T, tid, kThreads);
@@ -187,67 +191,73 @@ relpos_bwd_kernel(const float* __restrict__ qu, const float* __restrict__ qv,
     cp_wait<1>();
     __syncthreads();
 
-    // s = q_u Kᵀ, dp = g Vᵀ and the band product W = q_v Pwᵀ, over D
-    float s[NTS][4], dp[NTS][4], wf[NTW][4];
-    zero<NTS>(s);
-    zero<NTS>(dp);
-    zero<NTW>(wf);
+    // s = q_u Kᵀ, dp = g Vᵀ and the band product W = q_v Pwᵀ, over D; then p
+    // and ds; kDraw: the copy for dropout (tc_mma.cuh with_draws)
+    auto tile = [&](auto draw) {
+      constexpr bool kDraw = decltype(draw)::value;
+      float s[NTS][4], dp[NTS][4], wf[NTW][4];
+      zero<NTS>(s);
+      zero<NTS>(dp);
+      zero<NTW>(wf);
 #pragma unroll 2
-    for (int kk = 0; kk < D; kk += 8) {
-      uint32_t uh[4], ul[4], gh[4], gl[4], vh4[4], vl4[4];
-      load_a<false>(qus, LD, 16 * wr, kk, lg, lq, uh, ul);
-      load_a<false>(gs, LD, 16 * wr, kk, lg, lq, gh, gl);
-      load_a<false>(qvs, LD, 16 * wr, kk, lg, lq, vh4, vl4);
+      for (int kk = 0; kk < D; kk += 8) {
+        uint32_t uh[4], ul[4], gh[4], gl[4], vh4[4], vl4[4];
+        load_a<false>(qus, LD, 16 * wr, kk, lg, lq, uh, ul);
+        load_a<false>(gs, LD, 16 * wr, kk, lg, lq, gh, gl);
+        load_a<false>(qvs, LD, 16 * wr, kk, lg, lq, vh4, vl4);
 #pragma unroll
-      for (int n = 0; n < NTS; ++n) {
-        const int slab = wc + WC * n;
-        if (NS % WC != 0 && slab >= NS) break;
-        uint32_t fh[2], fl[2];
-        load_b<true>(ks, LD, kk, 8 * slab, lg, lq, fh, fl);
-        mma3(s[n], uh, ul, fh, fl);
-        load_b<true>(vs, LD, kk, 8 * slab, lg, lq, fh, fl);
-        mma3(dp[n], gh, gl, fh, fl);
+        for (int n = 0; n < NTS; ++n) {
+          const int slab = wc + WC * n;
+          if (NS % WC != 0 && slab >= NS) break;
+          uint32_t fh[2], fl[2];
+          load_b<true>(ks, LD, kk, 8 * slab, lg, lq, fh, fl);
+          mma3(s[n], uh, ul, fh, fl);
+          load_b<true>(vs, LD, kk, 8 * slab, lg, lq, fh, fl);
+          mma3(dp[n], gh, gl, fh, fl);
+        }
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          const int slab = wc + WC * n;
+          if (NW % WC != 0 && slab >= NW) break;
+          uint32_t fh[2], fl[2];
+          load_b<true>(pw, LD, kk, 8 * slab, lg, lq, fh, fl);
+          mma3(wf[n], vh4, vl4, fh, fl);
+        }
       }
 #pragma unroll
       for (int n = 0; n < NTW; ++n) {
         const int slab = wc + WC * n;
         if (NW % WC != 0 && slab >= NW) break;
-        uint32_t fh[2], fl[2];
-        load_b<true>(pw, LD, kk, 8 * slab, lg, lq, fh, fl);
-        mma3(wf[n], vh4, vl4, fh, fl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          wt[(16 * wr + lg + 8 * (e >> 1)) * LW + 8 * slab + 2 * lq + (e & 1)] = wf[n][e];
       }
-    }
-#pragma unroll
-    for (int n = 0; n < NTW; ++n) {
-      const int slab = wc + WC * n;
-      if (NW % WC != 0 && slab >= NW) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        wt[(16 * wr + lg + 8 * (e >> 1)) * LW + 8 * slab + 2 * lq + (e & 1)] = wf[n][e];
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // the sheared term from W's band; p, ds; ds and p * kf into their tiles,
-    // ds also onto Z's band
+      // the sheared term from W's band; p, ds; ds and p * kf into their
+      // tiles, ds also onto Z's band
+      const bool dropped = kDraw || serial_drop;
 #pragma unroll
-    for (int n = 0; n < NTS; ++n) {
-      const int slab = wc + WC * n;
-      if (NS % WC != 0 && slab >= NS) break;
-      float kf[4] = {1.f, 1.f, 1.f, 1.f};
-      if (drop) keep_frag(sd, b, h, q0 + 16 * wr + lg, k0 + 8 * slab, lq, rate, inv_keep, kf);
+      for (int n = 0; n < NTS; ++n) {
+        const int slab = wc + WC * n;
+        if (NS % WC != 0 && slab >= NS) break;
+        const uint32_t kb = dropped ? keep_slab(dr, k0 + 8 * slab, lq, thr) : 0u;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int a = 16 * wr + lg + 8 * (e >> 1), c = 8 * slab + 2 * lq + (e & 1);
-        const int band = (BT - 1) - a + c;
-        const float x = (s[n][e] + wt[a * LW + band]) * scale +
-                        bb[(size_t)(q0 + a) * T + k0 + c];
-        const float pr = expf(x - mx[e >> 1]) * il[e >> 1];
-        const float ds = pr * (dp[n][e] * kf[e] - dl[e >> 1]) * scale;
-        dss[a * LS + c] = ds;
-        pks[a * LS + c] = pr * kf[e];
-        zs[a * LW + band] = ds;
+        for (int e = 0; e < 4; ++e) {
+          const int a = 16 * wr + lg + 8 * (e >> 1), c = 8 * slab + 2 * lq + (e & 1);
+          const int band = (BT - 1) - a + c;
+          const float x = (s[n][e] + wt[a * LW + band]) * scale +
+                          bb[(size_t)(q0 + a) * T + k0 + c];
+          const float pr = expf(x - mx[e >> 1]) * il[e >> 1];
+          const float dpk = dropped ? keep_apply(kb, e, dp[n][e], inv_keep) : dp[n][e];
+          const float ds = pr * (dpk - dl[e >> 1]) * scale;
+          dss[a * LS + c] = ds;
+          pks[a * LS + c] = dropped ? keep_apply(kb, e, pr, inv_keep) : pr;
+          zs[a * LW + band] = ds;
+        }
       }
-    }
+    };
+    with_draws<D>(drop, tile);
     __syncthreads();
 
     // dq_u += ds K, dq_v += Z Pw
@@ -341,8 +351,8 @@ int launch(const float* qu, const float* qv, const float* k, const float* v,
   int err = raise_smem(relpos_bwd_kernel<D>, F::kSmem, raised);
   if (err != 0) return err;
   relpos_bwd_kernel<D><<<(unsigned)blocks, kThreads, F::kSmem, stream>>>(
-      qu, qv, k, v, p, bias, g, out, stats, seed, rate, part, dqu, dqv, B, H, T, R,
-      bias_heads, scale);
+      qu, qv, k, v, p, bias, g, out, stats, seed, rate, dropout::threshold(rate), part, dqu,
+      dqv, B, H, T, R, bias_heads, scale);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long n = (long long)B * H * T * D * 2 + (long long)H * R * D;

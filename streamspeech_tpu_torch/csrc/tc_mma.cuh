@@ -1,9 +1,10 @@
 // The tensor-core and copy helpers the attention kernels share, for Hopper
 // (sm_90a): fp32-faithful products on TF32 `mma.sync` (3xTF32), 16-byte
-// `cp.async` tile loads, dropout keep factors drawn on an accumulator
-// fragment, and the dynamic shared-memory limit. Included by
+// `cp.async` tile loads, dropout keep bits drawn on accumulator fragments,
+// the dynamic shared-memory limit and the device's SM count. Included by
 // attention_bwd.cuh (B4, B6), masked_attention.cu (B3), relpos_attention.cu
-// (B1), relpos_attention_bwd.cu (B2), bias_attention.cu (B5) and dropout.cu.
+// (B1), relpos_attention_bwd.cu (B2), bias_attention.cu (B5) and not_blank.cu
+// (B7, for the SM count).
 //
 // Fragments of `mma.sync.m16n8k8` with TF32 inputs; lane = 4 g + q, g the
 // group (0..7), q the thread in it (0..3):
@@ -21,6 +22,37 @@
 namespace tc {
 
 constexpr int kMaxDevices = 64;
+// Head dims up to this take a second copy of the score stage of B2, B3 and
+// B4 for dropout, in which whether to draw is known at compile time (one copy
+// that tests the rate at run time read 3-12 % slower at rate 0 at D = 64);
+// wider ones keep the single copy, which holds the build's time. B1, B5 and
+// B6 keep one copy at every D: they are short, and a launch of the host-bound
+// paths starts with its code and data cold, where their second copy read
+// 0.002-0.005 ms slower (tools/sweep_dropout.py, step_like_ms). The define is
+// for that sweep alone: ATTN_DROPOUT_COPY_MAX_D=0 builds no copy anywhere.
+#ifndef ATTN_DROPOUT_COPY_MAX_D
+#define ATTN_DROPOUT_COPY_MAX_D 64
+#endif
+constexpr int kDropoutCopyMaxD = ATTN_DROPOUT_COPY_MAX_D;
+
+// A compile-time flag as a value.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// f(Flag<true>{}) where head dim D has a copy for dropout and `drop`; else
+// f(Flag<false>{}).
+template <int D, class Fn>
+__device__ __forceinline__ void with_draws(bool drop, Fn&& f) {
+  if constexpr (D <= kDropoutCopyMaxD) {
+    if (drop) {
+      f(Flag<true>{});
+      return;
+    }
+  }
+  f(Flag<false>{});
+}
 constexpr size_t kMaxSmem = 232448;  // an H100 block's dynamic shared-memory limit
 
 // Raise a kernel's dynamic shared-memory limit once per device.
@@ -36,6 +68,18 @@ int raise_smem(Kernel kernel, size_t smem, bool* raised) {
     if (dev < kMaxDevices) raised[dev] = true;
   }
   return 0;
+}
+
+// The multiprocessors of the current device, asked once per device.
+inline int sm_count() {
+  static int count[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices && count[dev] > 0) return count[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  if (dev < kMaxDevices) count[dev] = n;
+  return n;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
@@ -148,27 +192,36 @@ __device__ __forceinline__ void load_b(const float* t, int ld, int k0, int n0, i
   split(x[1], hi[1], lo[1]);
 }
 
-// The keep factors of a score fragment: rows (row, row + 8), columns (col,
-// col + 1), col = 8-column slab + 2 * (lane % 4), as kf[0..3] in the order of
-// the accumulator. Lanes q and q ^ 1 share one Philox group of 4 columns:
-// the even lane draws it for row `row`, the odd one for row + 8, and each
-// hands the other the two factors it needs. One draw per 4 elements, with no
-// shared-memory tile; all 32 lanes must call.
-__device__ __forceinline__ void keep_frag(unsigned long long seed, int b, int h, int row,
-                                          int slab, int q, float rate, float inv_keep,
-                                          float kf[4]) {
-  const bool odd = q & 1;
-  uint32_t bits[4];
-  dropout::draw4(seed, b, h, odd ? row + 8 : row, (slab >> 2) + (q >> 1), bits);
-  float k[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) k[e] = dropout::keeps(bits[e], rate) ? inv_keep : 0.f;
-  const float r0 = __shfl_xor_sync(0xffffffffu, odd ? k[0] : k[2], 1);
-  const float r1 = __shfl_xor_sync(0xffffffffu, odd ? k[1] : k[3], 1);
-  kf[0] = odd ? r0 : k[0];
-  kf[1] = odd ? r1 : k[1];
-  kf[2] = odd ? k[2] : r0;
-  kf[3] = odd ? k[3] : r1;
+// Dropout on score fragments. A warp's lane (g, q) holds the accumulator
+// elements (row, col), (row, col + 1), (row + 8, col), (row + 8, col + 1) of
+// each 8-column slab, row = r0 + g, col = slab + 2 q. Lanes q and q ^ 1 share
+// one Philox group of 4 columns: the even lane draws it for row `row`, the odd
+// one for row + 8 (keep_lane gives the lane its row's state), and a shuffle
+// hands each the two bits it needs from the other (keep_slab). A kernel draws
+// each slab's bits in the loop that applies them, beside its exponentials:
+// tools/sweep_dropout.py timed that against a tile's slabs drawn side by side
+// after the score product and against draws between the product's mma.sync
+// issues, and it was the fastest of the three (B6's fused pass forms the row
+// for each slab instead: attention_bwd.cuh probs_fused).
+
+__device__ __forceinline__ dropout::Row keep_lane(unsigned long long seed, int b, int h,
+                                                  int row, int q) {
+  return dropout::row_state(seed, b, h, (q & 1) ? row + 8 : row);
+}
+
+// The keep bits of the lane's four accumulator elements of the slab at column
+// `col` (a multiple of 8), bit e for element e: the lane's draw of columns
+// 4 (col / 4 + q / 2) .. + 3 and, by one shuffle, its pair's. All 32 lanes call.
+__device__ __forceinline__ uint32_t keep_slab(const dropout::Row& r, int col, int q,
+                                              uint32_t thr) {
+  const uint32_t own = dropout::keep4(r, (uint32_t)((col >> 2) + (q >> 1)), thr);
+  const uint32_t other = __shfl_xor_sync(0xffffffffu, own, 1);
+  return (q & 1) ? ((other >> 2) & 3u) | (own & 12u) : (own & 3u) | ((other & 3u) << 2);
+}
+
+// x times the keep factor of bit e: x / (1 - rate) kept, 0 dropped.
+__device__ __forceinline__ float keep_apply(uint32_t bits, int e, float x, float inv_keep) {
+  return (bits >> e) & 1u ? x * inv_keep : 0.f;
 }
 
 // acc[j] += A B over depth K for the warp's 16 rows m0.. of a [*, 8 NSLAB]

@@ -144,7 +144,7 @@ def dropout_keep(seed: torch.Tensor, b: int, h: int, tq: int, tk: int,
     build.launch(_KEEP, seed.device, seed.data_ptr(), out.data_ptr(), b, h, tq, tk,
                  float(rate))
     dropout_keep.launches += 1
-    return out.bool()
+    return out.view(torch.bool)  # the kernel stores 0 or 1: valid bools, no copy
 
 
 def _keep_or_none(seed, b, h, tq, tk, rate):

@@ -780,3 +780,121 @@ def test_bias_forward_tensor_core_forms(hopper, d, tk, rate):
                         (q, k, v), (bias,), (b, h, tq, tk), scale, rate,
                         _seed(hopper, 43) if rate > 0 else None, want_stats)
     assert attention.bias_attention.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("last_blank", [False, True])
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("t", [64, 65, 256])
+@pytest.mark.parametrize("v", [512, 513, 6000, 6001])
+def test_not_blank_one_pass_at_even_and_odd_widths(hopper, v, t, b, last_blank):
+    """B7's one pass (16-byte loads where V % 4 == 0, 4-byte otherwise; one to
+    eight warps a row) against its plain version, one launch a call."""
+    from streamspeech_tpu_torch.kernels import policy
+
+    blank = v - 1 if last_blank else 0
+    logits = torch.from_numpy(np.random.RandomState(v + t + b).randn(b, t, v).astype(
+        np.float32) * 4).to(hopper)
+    before = policy.not_blank_probs.launches
+    got = policy.not_blank_probs(logits, blank)
+    torch.cuda.synchronize()
+    assert policy.not_blank_probs.launches == before + 1
+    torch.testing.assert_close(got, policy.not_blank_probs_reference(logits, blank),
+                               atol=1e-6, rtol=0)
+
+
+# a rate on a step of the kernels' integer threshold (k·2⁻²⁴, exact in float32)
+# and its float32 neighbours, whose thresholds differ by one step above it
+STEP_RATE = 1677722 * 2.0 ** -24
+STEP_RATES = [float(np.nextafter(np.float32(STEP_RATE), np.float32(0))), STEP_RATE,
+              float(np.nextafter(np.float32(STEP_RATE), np.float32(1))),
+              float(np.nextafter(np.float32(0.1), np.float32(0))), 0.1,
+              float(np.nextafter(np.float32(0.1), np.float32(1)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", STEP_RATES)
+def test_mask_next_to_a_threshold_step(hopper, rate):
+    """The kernels' mask (their device functions, written out) is the plain
+    mask bit for bit at rates next to a step of the integer threshold, and the
+    causal forward's training form holds against the plain one under it."""
+    seed = _seed(hopper, 2024)
+    for shape in [(2, 3, 130, 70), (1, 2, 1280, 1280)]:
+        assert torch.equal(attention.dropout_keep(seed, *shape, rate),
+                           attention.dropout_keep_reference(seed, *shape, rate))
+    b, h, t, d = 1, 2, 256, 64
+    q, k, v, kvb = (torch.from_numpy(a).to(hopper)
+                    for a in _inputs(b, h, t, d, seed=7, n_valid=[250]))
+    keep = attention.dropout_keep_reference(seed, b, h, t, t, rate)
+    out, _ = attention.masked_attention_forward(q, k, v, kvb, 0.125, rate, seed, True)
+    want = attention.masked_attention_reference(q, k, v, kvb, 0.125, keep, rate)
+    assert float((out - want).abs().max()) <= GRAD_RTOL * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["relpos", "masked", "bias"])
+def test_attention_kernels_at_rate_one_tenth_bit_identical_twice(hopper, family):
+    """Each forward (B1, B3, B5) and backward (B2, B4, B6) at dropout 0.1, at
+    the kernel train route's shapes, gives the same bits on a second call."""
+    rng = np.random.RandomState(3)
+    if family == "relpos":
+        diff = tuple(torch.from_numpy(a).to(hopper) for a in _relpos_inputs(
+            8, 4, 256, 64, seed=3, n_valid=[256] * 7 + [200], chunk=8))
+        diff, const, shape = diff[:5], diff[5:], (8, 4, 256, 64)
+    elif family == "masked":
+        q, k, v, kvb = (torch.from_numpy(a).to(hopper)
+                        for a in _inputs(8, 8, 1280, 64, seed=3, n_valid=[1200] * 8))
+        diff, const, shape = (q, k, v), (kvb,), (8, 8, 1280, 64)
+    else:
+        q, k, v, bias, _ = (torch.from_numpy(a).to(hopper)
+                            for a in _bias_bwd_inputs(8, 8, 1200, 48, 64, seed=3))
+        diff, const, shape = (q, k, v), (bias,), (8, 8, 1200, 64)
+    fwd = getattr(attention, f"{family}_attention_forward")
+    bwd = getattr(attention, f"{family}_attention_backward")
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(hopper)
+    seed = _seed(hopper, 555)
+    runs = []
+    for _ in range(2):
+        out, stats = fwd(*diff, *const, 0.125, 0.1, seed, True)
+        runs.append((out, stats, *bwd(*diff, *const, g, out, stats, seed, 0.125, 0.1)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [64, 128])  # D = T: each kernel's copy for dropout, and D > 64's
+@pytest.mark.parametrize("family", ["relpos", "masked", "bias"])
+def test_kernels_keep_bits_equal_the_plain_mask(hopper, family, t):
+    """Each kernel's own keep bits, element by element, as drawn on its
+    accumulator fragments. With v the identity a forward (B1, B3, B5) gives
+    out[i, j] = p[i, j] keep[i, j] / (1 - rate); with g the identity a backward
+    (B2, B4, B6) gives dV[j, i] the same. So the elements that are not 0 are
+    the kept ones among those the attention mask allows, which
+    ``dropout_keep_reference`` gives, at rate 0.1."""
+    b, h, d, rate, scale = 2, 3, t, 0.1, t ** -0.5
+    eye = torch.eye(t, device=hopper).expand(b, h, t, t).contiguous()
+    if family == "relpos":
+        qu, qv, k, _, p, bias = (torch.from_numpy(a).to(hopper) for a in _relpos_inputs(
+            b, h, t, d, seed=t, n_valid=[t - 8, t], chunk=8))
+        diff, const, v_at = (qu, qv, k, eye, p), (bias,), 3
+    elif family == "masked":
+        q, k, _, kvb = (torch.from_numpy(a).to(hopper)
+                        for a in _inputs(b, h, t, d, seed=t, n_valid=[t - 8, t]))
+        diff, const, v_at = (q, k, eye), (kvb,), 2
+    else:
+        rng = np.random.RandomState(t)
+        q, k = (torch.from_numpy(rng.randn(b, h, t, d).astype(np.float32)).to(hopper)
+                for _ in range(2))
+        diff, const, v_at = (q, k, eye), (torch.zeros(b, t, t, device=hopper),), 2
+    fwd = getattr(attention, f"{family}_attention_forward")
+    bwd = getattr(attention, f"{family}_attention_backward")
+    ref = getattr(attention, f"{family}_attention_reference")
+    seed = _seed(hopper, 99 + t)
+    allowed = ref(*diff, *const, scale, None, 0.0) != 0  # p itself, 0 where masked
+    want = attention.dropout_keep_reference(seed, b, h, t, t, rate) & allowed
+    out, stats = fwd(*diff, *const, scale, rate, seed, True)
+    dv = bwd(*diff, *const, eye, out, stats, seed, scale, rate)[v_at]
+    torch.cuda.synchronize()
+    assert 0.3 < float(allowed.float().mean()) and 0.8 < float(want.sum() / allowed.sum()) < 0.99
+    assert torch.equal(out != 0, want)
+    assert torch.equal(dv.transpose(-1, -2) != 0, want)

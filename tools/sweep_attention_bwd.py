@@ -7,7 +7,7 @@ the grid has about ``ATTN_BWD_BLOCKS_PER_SM`` blocks an SM
 (``csrc/attention_bwd.cuh``, 2 as built). For each value asked, the tool
 builds ``csrc/bias_attention_bwd.cu`` with ``-DATTN_BWD_BLOCKS_PER_SM=<n>``
 into ``build/attention_bwd_variants/bps<n>/`` (2: the port's own build) and,
-in a process of its own, calls ``bias_attention_backward`` on that library at
+in a process of its own (``tools/sweeps.py``), calls ``bias_attention_backward`` on that library at
 the kernel train route's shape, [8, 8, 1200 x 48, 64] under the unit
 decoder's wait-k mask (``chip_smoke._bias_train_inputs``), at dropout 0 and
 0.1. One JSON line per value and rate: G, the scratch bytes, device ms by
@@ -20,17 +20,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+import sweeps
 
-import chip_smoke as C  # noqa: E402
+import chip_smoke as C  # noqa: E402  (sweeps puts the checkout on sys.path)
 from streamspeech_tpu_torch.kernels import attention as A  # noqa: E402
 from streamspeech_tpu_torch.kernels import build  # noqa: E402
 
@@ -38,30 +35,18 @@ B, TQ, TK, RATE = 8, 1200, 48, 0.1
 
 
 def build_variants(values) -> dict:
-    """{value: its library directory}, the builds started together; 2 is the
+    """{"bps<n>": its library directory}, the builds started together; 2 is the
     port's own build, and each variant takes the port's forward library."""
-    dirs, procs = {}, []
-    for n in values:
-        if n == 2:
-            dirs[n] = build.BUILD_DIR
-            continue
-        dirs[n] = out = ROOT / "build" / "attention_bwd_variants" / f"bps{n}"
-        out.mkdir(parents=True, exist_ok=True)
-        shutil.copy(build.library_path("bias_attention"), out)
-        procs.append(subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, f"-DATTN_BWD_BLOCKS_PER_SM={n}", "-I",
-             str(build.CSRC), "-o", str(out / "libbias_attention_bwd.so"),
-             str(build.CSRC / "bias_attention_bwd.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    for proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise SystemExit(f"sweep_attention_bwd: nvcc failed:\n{log}")
-    return dirs
+    variants = {f"bps{n}": (["bias_attention_bwd"], [f"-DATTN_BWD_BLOCKS_PER_SM={n}"])
+                for n in values if n != 2}
+    dirs = {"bps2": build.BUILD_DIR} if 2 in values else {}
+    return {**dirs, **sweeps.build_variants(
+        sweeps.ROOT / "build" / "attention_bwd_variants", variants,
+        base=["bias_attention", "bias_attention_bwd"])}
 
 
-def time_variant(blocks_per_sm: int, lib_dir: Path) -> None:
-    build.BUILD_DIR = lib_dir
+def time_variant(name: str, lib_dir: Path) -> None:
+    sweeps.use_libraries(lib_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(C.SEED + 5)
     q, k, v, g, bias = C._bias_train_inputs(
@@ -80,7 +65,7 @@ def time_variant(blocks_per_sm: int, lib_dir: Path) -> None:
             *(x.double() for x in (q, k, v, bias, g)), 0.125, keep, rate)
         errs = {n: float((a.double() - w).abs().max() / w.abs().max())
                 for n, a, w in zip(("dq", "dk", "dv"), run(), want)}
-        print(json.dumps({"blocks_per_sm": blocks_per_sm, "groups": groups,
+        print(json.dumps({"blocks_per_sm": int(name[len("bps"):]), "groups": groups,
                           "scratch_bytes": 4 * int(torch.Size(shape).numel()), "rate": rate,
                           "ms": C._device_ms(run, calls=5, reps=10),
                           "rel_err_vs_float64": errs}), flush=True)
@@ -89,20 +74,16 @@ def time_variant(blocks_per_sm: int, lib_dir: Path) -> None:
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--blocks-per-sm", type=int, nargs="+", default=[2, 4, 8])
-    parser.add_argument("--time", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--time", nargs=2, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.time is not None:
-        time_variant(args.blocks_per_sm[0], args.time)
+        time_variant(args.time[0], Path(args.time[1]))
         return
     if not torch.cuda.is_available():
         raise SystemExit("sweep_attention_bwd: needs a CUDA device")
-    build.build(["bias_attention", "bias_attention_bwd"])
-    for n, lib_dir in build_variants(args.blocks_per_sm).items():
-        subprocess.run([sys.executable, __file__, "--blocks-per-sm", str(n),
-                        "--time", str(lib_dir)], check=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip(), flush=True)
+    ok = sweeps.time_each(__file__, build_variants(args.blocks_per_sm))
+    print(sweeps.card_line(), flush=True)
+    sys.exit(0 if ok else 1)
 
 
 if __name__ == "__main__":

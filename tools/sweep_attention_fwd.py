@@ -11,10 +11,11 @@ a cut whose tiles do not fit); ``rule`` is the port's own build, whose
 launcher picks its small or large cut from B·H·T. A bias variant ``<BQ>``
 builds ``csrc/bias_attention.cu`` with ``-DBIAS_FWD_BQ=<BQ>`` (16, 32 or 64;
 ``64`` is the port's own build). Each goes into
-``build/attention_fwd_variants/<source>_<variant>/``; the builds start together.
-``--lib DIR`` adds a directory holding ``librelpos_attention.so`` and
-``libbias_attention.so`` built elsewhere with the same C interface (for
-example the parent commit's ``build/torch_kernels``), timed under its name.
+``build/attention_fwd_variants/<source>_<variant>/``; the builds start together
+(``tools/sweeps.py``). ``--lib DIR`` adds a directory holding
+``librelpos_attention.so`` and ``libbias_attention.so`` built elsewhere with
+the same C interface (for example the parent commit's ``build/torch_kernels``),
+timed under its name.
 
 Each library is timed in a process of its own at the shapes of
 ``chip_smoke.py``: rel-pos [1,4,256,64] and [1,4,512,64] at dropout 0 and
@@ -30,33 +31,29 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+import sweeps
 
-import chip_smoke as C  # noqa: E402
+import chip_smoke as C  # noqa: E402  (sweeps puts the checkout on sys.path)
 from streamspeech_tpu_torch.kernels import attention as A  # noqa: E402
 from streamspeech_tpu_torch.kernels import build  # noqa: E402
 from streamspeech_tpu_torch.ops.masks import NEG_INF  # noqa: E402
 
 RELPOS_SHAPES = [(1, 256, 0.0), (8, 256, 0.1), (1, 512, 0.0)]      # (B, T, rate); H 4, D 64
 BIAS_SHAPES = [(1, 600, 24, 1, 0.0), (8, 1200, 48, 2, 0.1)]       # (B, TQ, TK, n2, rate); H 8
-VARIANT_DIR = ROOT / "build" / "attention_fwd_variants"
+VARIANT_DIR = sweeps.ROOT / "build" / "attention_fwd_variants"
 
 
 def build_variants(relpos, bias) -> dict:
-    """{name: its library directory}, the nvcc runs started together; a
-    variant's directory takes the port's build of the other source."""
+    """{name: its library directory}, the nvcc runs started together."""
     build.build(["relpos_attention", "bias_attention"])
-    dirs, procs = {}, []
-    for source, variants in (("relpos_attention", relpos), ("bias_attention", bias)):
-        other = "bias_attention" if source == "relpos_attention" else "relpos_attention"
-        for var in variants:
+    dirs, variants = {}, {}
+    for source, names in (("relpos_attention", relpos), ("bias_attention", bias)):
+        for var in names:
             name = f"{source}_{var}"
             if var in ("rule", "64"):
                 dirs[name] = build.BUILD_DIR
@@ -71,18 +68,8 @@ def build_variants(relpos, bias) -> dict:
                 if not re.match(r"^\d+$", var):
                     raise SystemExit(f"sweep_attention_fwd: {var!r} is not <BQ>")
                 defines = [f"-DBIAS_FWD_BQ={var}"]
-            dirs[name] = out = VARIANT_DIR / name
-            out.mkdir(parents=True, exist_ok=True)
-            (out / f"lib{other}.so").write_bytes(build.library_path(other).read_bytes())
-            procs.append((name, subprocess.Popen(
-                [build._nvcc(), *build.NVCC_FLAGS, *defines, "-I", str(build.CSRC), "-o",
-                 str(out / f"lib{source}.so"), str(build.CSRC / f"{source}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for name, proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise SystemExit(f"sweep_attention_fwd: nvcc failed for {name}:\n{log}")
-    return dirs
+            variants[name] = ([source], defines)
+    return {**dirs, **sweeps.build_variants(VARIANT_DIR, variants)}
 
 
 def _errors(got, want):
@@ -91,7 +78,7 @@ def _errors(got, want):
 
 
 def time_library(name: str, lib_dir: Path) -> None:
-    build.BUILD_DIR = lib_dir
+    sweeps.use_libraries(lib_dir)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(C.SEED)
@@ -156,12 +143,9 @@ def main():
         raise SystemExit("sweep_attention_fwd: needs a CUDA device")
     libs = {str(d): d.resolve() for d in args.lib}
     libs.update(build_variants(args.relpos, args.bias))
-    for name, lib_dir in libs.items():
-        subprocess.run([sys.executable, __file__, "--time", name, str(lib_dir)], check=True,
-                       timeout=300)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip(), flush=True)
+    ok = sweeps.time_each(__file__, libs, timeout=300)
+    print(sweeps.card_line(), flush=True)
+    sys.exit(0 if ok else 1)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ A variant ``<L>x<NW>r<R>k<K>`` builds ``csrc/ctc.cu`` with
 ``-DCTC_LANE_STATES=L -DCTC_WARPS=NW -DCTC_RING=R -DCTC_BATCH=K`` (states a
 lane, warps a block, slots of the boundary ring, frames handed over at once
 and unrolled, K - 1 of them fetched ahead) into
-``build/ctc_variants/<variant>/``; the builds start together. ``--lib DIR``
+``build/ctc_variants/<variant>/``; the builds start together
+(``tools/sweeps.py``). ``--lib DIR``
 adds a library already built with the same C interface (for example the
 parent commit's ``build/torch_kernels``), timed under its directory's name.
 Each library is timed in a process of its own at the three ``CTC_SHAPES`` of
@@ -25,17 +26,14 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+import sweeps
 
-import chip_smoke as C  # noqa: E402
-from streamspeech_tpu_torch.kernels import build  # noqa: E402
+import chip_smoke as C  # noqa: E402  (sweeps puts the checkout on sys.path)
 from streamspeech_tpu_torch.kernels import ctc  # noqa: E402
 
 DEFAULT_VARIANTS = ["1x4r4k8", "1x4r4k4", "1x2r4k4", "1x4r8k8", "1x4r4k16", "2x2r4k8",
@@ -45,25 +43,15 @@ VARIANT = re.compile(r"^(\d+)x(\d+)r(\d+)k(\d+)$")
 
 def build_variants(names) -> dict:
     """{name: its library directory}, the nvcc runs started together."""
-    dirs, procs = {}, []
+    variants = {}
     for name in names:
         m = VARIANT.match(name)
         if m is None:
             raise SystemExit(f"sweep_ctc: variant {name!r} is not <L>x<NW>r<R>k<K>")
         lane, warps, ring, batch = m.groups()
-        dirs[name] = out = ROOT / "build" / "ctc_variants" / name
-        out.mkdir(parents=True, exist_ok=True)
-        procs.append((name, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, f"-DCTC_LANE_STATES={lane}",
-             f"-DCTC_WARPS={warps}", f"-DCTC_RING={ring}", f"-DCTC_BATCH={batch}",
-             "-I", str(build.CSRC), "-o", str(out / "libctc.so"),
-             str(build.CSRC / "ctc.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    for name, proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise SystemExit(f"sweep_ctc: nvcc failed for {name}:\n{log}")
-    return dirs
+        variants[name] = (["ctc"], [f"-DCTC_LANE_STATES={lane}", f"-DCTC_WARPS={warps}",
+                                    f"-DCTC_RING={ring}", f"-DCTC_BATCH={batch}"])
+    return sweeps.build_variants(sweeps.ROOT / "build" / "ctc_variants", variants)
 
 
 def _plan(s: int):
@@ -75,7 +63,7 @@ def _plan(s: int):
 
 
 def time_library(name: str, lib_dir: Path) -> None:
-    build.BUILD_DIR = lib_dir
+    sweeps.use_libraries(lib_dir)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(C.SEED)
     for b, t, vocab, n, blank in C.CTC_SHAPES:
@@ -120,16 +108,10 @@ def main():
         raise SystemExit("sweep_ctc: needs a CUDA device")
     libs = {str(d): d.resolve() for d in args.lib}
     libs.update(build_variants(args.variants))
-    for name, lib_dir in libs.items():
-        # a library that hangs is cut after 120 s and reported, the others still run
-        try:
-            subprocess.run([sys.executable, __file__, "--time", name, str(lib_dir)],
-                           check=True, timeout=120)
-        except (subprocess.TimeoutExpired, subprocess.CalledProcessError) as err:
-            print(json.dumps({"library": name, "failed": str(err)}), flush=True)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip(), flush=True)
+    # a library that hangs is cut after 120 s and reported, the others still run
+    ok = sweeps.time_each(__file__, libs, timeout=120)
+    print(sweeps.card_line(), flush=True)
+    sys.exit(0 if ok else 1)
 
 
 if __name__ == "__main__":
