@@ -109,11 +109,39 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             past the tolerance, its fc1 weight row and bias element are left
             out, at most ``RELU_TIES_MAX`` units a step. The row prints them,
             their distance, and the worst remaining distance.
-Then the ``kernels`` summary line (ten kernels, launches by path; the mask's
-own kernel runs on no path, so its entry carries the draws by path), the card's
-name and power limit, and last the ``ok`` line.
+Phases 13-15 run after phases 3, 4 and 6 in turn:
+13. kernel  (continued) the bf16 forms of B3, B5 and B7 (``csrc/attention_bf16.cuh``,
+            ``not_blank.cu``) at the shapes of phase 3, bf16 q/k/v (logits),
+            against their plain bf16 versions: each attention output element
+            within 2^-7 sum_j p_j |v_j| + 1e-5, p the plain version's fp32
+            probabilities (each probability rounded to bf16, at most 2^-8
+            relative, once on each side,
+            the kernel before normalising, the plain version after; the row
+            gives the largest share of its bound an element reached), B7
+            within 1e-6; ms,
+            plain ms, one bf16 SDPA call under the mask cast to bf16 (none for
+            B7), and the bound at the bf16 tensor-core peak, max(flops / 989
+            TFLOP/s, bytes / 3.35 TB/s).
+14. forward_bf16  phase 6's model and inputs with ``dtype=torch.bfloat16``
+            (fp32 weights, bf16 compute): card against the same bf16 model on
+            the CPU, each float output's RMS distance within 2x the CPU bf16
+            model's own from the CPU fp32 forward, the CTC streaming mask in 99 %
+            of places; the card's distance from its fp32 forward reported; in
+            one card forward 2 bf16 causal, 2 bf16 bias, 2 bf16 not-blank and 12
+            rel-pos (fp32) launches and no fp32 causal, bias or not-blank one;
+            times at B=1 MT 24 and B=8 MT 48 beside phase 6's.
+15. serving_bf16  phase 4's agent and utterances with the bf16 model (the
+            vocoder float32): writes, units, RTF, bf16 causal launches (> 0); the
+            counterpart of ``measure_bf16_drift`` against phase 4: each
+            utterance's unit normalised edit distance and write positions that
+            differ, reported, not gated.
+Then the ``kernels`` summary line (thirteen entries, the ten kernels and the
+bf16 forms of B3, B5 and B7, launches by path; the mask's own kernel runs on no
+path, so its entry carries the draws by path), the card's name and power
+limit, and last the ``ok`` line.
 
-fp32 throughout: TF32 is switched off for matmuls and cuDNN convolutions.
+fp32 throughout but the bf16 phases: TF32 is switched off for matmuls and
+cuDNN convolutions.
 """
 
 from __future__ import annotations
@@ -182,7 +210,11 @@ INT_PIPE_OPS = 16.75e12
 # own rounds (3 products a row) add under 0.2 % at the writer's shape.
 DRAW_FMA_OPS, DRAW_ALU_OPS = 16, 22
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 tensor-core peak, FLOP/s
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core peak, FLOP/s
 HBM_BYTES = 3.35e12         # H100 SXM device-memory rate, B/s
+BF16_ROUNDING = 2.0 ** -8   # bf16's unit roundoff (8 significant bits), relative
+BF16_DRIFT = 2.0            # card bf16 vs CPU bf16: of the bf16 model's own drift
+BF16_AGREEMENT = 0.99       # the bf16 forward's CTC streaming mask, card vs CPU
 
 
 def emit(obj):
@@ -304,6 +336,32 @@ def _bound_3xtf32(flops: float, nbytes: float) -> dict:
             "cuda_core_bound_by": cuda_core["bound_by"]}
 
 
+def _bound_bf16(flops: float, nbytes: float) -> dict:
+    """The bound of one bf16 product on the tensor cores: max(flops / 989
+    TFLOP/s, bytes / 3.35 TB/s)."""
+    by_ops, by_bytes = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "bound_rate": "bf16 tensor cores, 989 TFLOP/s"}
+
+
+def _bf16_bound(reference, q, k, v, bias) -> torch.Tensor:
+    """Each output element's bound for a bf16 attention form against its plain
+    version ``reference``: each probability p_j is rounded to bf16 once on each
+    side (at most 2^-8 p_j, round to nearest with 8 significant bits; the
+    kernel before normalising, the plain version after), so the two differ by
+    at most 2^-7 sum_j p_j |v_j|, plus the fp32 summation order. ``reference``
+    on |v| in float32 forms that sum from its own fp32 probabilities, rounding
+    none."""
+    return 2 * BF16_ROUNDING * reference(q, k, v.float().abs(), bias, 0.125) + KERNEL_ATOL
+
+
+def _bound_share(got: torch.Tensor, want: torch.Tensor, atol) -> float:
+    """The largest share of its bound that any element's |got - want| reached
+    (``atol`` a number or a tensor of per-element bounds)."""
+    return float(((got - want).abs() / atol).max())
+
+
 def _bound_draws(draws: float, nbytes: float) -> dict:
     """B10's bound: the larger of its draws' FMA-pipe and ALU-pipe instructions,
     each pipe at INT_PIPE_OPS, and its bytes at 3.35 TB/s."""
@@ -328,15 +386,18 @@ def _check_kernel(name, fn, plain, library, args, atol, bound, **shape):
     want = plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    share = _bound_share(got, want, atol)
+    if torch.is_tensor(atol):   # a bound for each element
+        atol = {"per_element_max": float(atol.max()), "per_element_min": float(atol.min())}
     row = {"phase": "kernel", "name": name, **shape, "max_abs_err": err,
-           "atol": atol, "ms": _device_ms(lambda: fn(*args)),
+           "atol": atol, "bound_share": share, "ms": _device_ms(lambda: fn(*args)),
            "plain_ms": _device_ms(lambda: plain(*args)),
            "library_ms": None if library is None else _device_ms(lambda: library(*args)),
            "eager_call_ms": _time_ms(lambda: fn(*args)), **bound}
     emit(row)
-    if not err <= atol:
+    if not share <= 1.0:
         raise AssertionError(f"{name} disagrees with its plain version at {shape}: "
-                             f"{err} > {atol}")
+                             f"an error {share} of its bound {atol}")
     return row
 
 
@@ -430,6 +491,80 @@ def phase_kernel():
         alpha_row, beta_row = _check_ctc(dev, gen, *shape)
         rows["ctc_alpha"].append(alpha_row)
         rows["ctc_beta"].append(beta_row)
+    return rows
+
+
+def phase_kernel_bf16():
+    """The bf16 forms of B3, B5 and B7 against their plain bf16 versions at
+    phase 3's shapes (bf16 q/k/v or logits, the biases fp32, fp32 outputs)."""
+    import torch.nn.functional as F
+
+    from streamspeech_tpu_torch.kernels import attention as A
+    from streamspeech_tpu_torch.kernels import policy
+    from streamspeech_tpu_torch.ops.masks import NEG_INF
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = {"masked_attention_bf16": [], "bias_attention_bf16": [],
+            "not_blank_probs_bf16": []}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev, torch.bfloat16)
+
+    for t_pad, t in MASKED_SHAPES:
+        q, k, v = (randn(1, 8, t_pad, 64) for _ in range(3))
+        kvb = torch.where(torch.arange(t_pad) < t, 0.0, NEG_INF)
+        kvb = kvb.to(torch.float32).view(1, 1, t_pad).to(dev)
+        i = torch.arange(t_pad, device=dev)
+        mask = (kvb[:, :, None, :]
+                + torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF).float()).bfloat16()
+        pairs = t_pad * (t_pad + 1) / 2        # the causal half the data needs
+        # bf16 q, k, v read, the fp32 key bias read and the fp32 output written
+        bound = _bound_bf16(4 * 8 * pairs * 64, _nbytes(q, k, v, kvb) + 4 * q.numel())
+        rows["masked_attention_bf16"].append(_check_kernel(
+            "masked_attention_bf16", lambda *a: A.masked_attention(*a, 0.125),
+            lambda *a: A.masked_attention_reference(*a, 0.125),
+            lambda q, k, v, _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              scale=0.125),
+            (q, k, v, kvb), _bf16_bound(A.masked_attention_reference, q, k, v, kvb), bound,
+            b=1, h=8, t_pad=t_pad, t=t, d=64))
+        del mask
+
+    for b, tq, tk in BIAS_SHAPES:
+        q, k, v = randn(b, 8, tq, 64), randn(b, 8, tk, 64), randn(b, 8, tk, 64)
+        iq, jk = torch.arange(tq, device=dev)[:, None], torch.arange(tk, device=dev)
+        n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
+        allowed = (jk[None] < (iq // 25 + 1).clamp(max=tk))[None] & \
+            (jk[None, None, :] < n_valid[:, None, None])
+        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        mask = bias[:, None].bfloat16()
+        bound = _bound_bf16(4 * b * 8 * tq * tk * 64, _nbytes(q, k, v, bias) + 4 * q.numel())
+        rows["bias_attention_bf16"].append(_check_kernel(
+            "bias_attention_bf16", lambda *a: A.bias_attention(*a, 0.125),
+            lambda *a: A.bias_attention_reference(*a, 0.125),
+            lambda q, k, v, _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              scale=0.125),
+            (q, k, v, bias), _bf16_bound(A.bias_attention_reference, q, k, v, bias), bound,
+            b=b, h=8, tq=tq, tk=tk, d=64))
+
+    for b, t, vocab in NOT_BLANK_SHAPES:
+        logits = randn(b, t, vocab) * 4
+        # ~4 fp32 ops a logit on the CUDA cores; bf16 logits read once
+        bound = _bound(4 * b * t * vocab, b * t * vocab * 2 + b * t * 4)
+        rows["not_blank_probs_bf16"].append(_check_kernel(
+            "not_blank_probs_bf16", policy.not_blank_probs,
+            policy.not_blank_probs_reference, None, (logits,), NOT_BLANK_ATOL,
+            bound, b=b, t=t, v=vocab))
+    for b, t, vocab in NOT_BLANK_ODD_SHAPES:  # single-logit loads, a ragged last round
+        logits = randn(b, t, vocab) * 4
+        err = float((policy.not_blank_probs(logits, vocab - 1) -
+                     policy.not_blank_probs_reference(logits, vocab - 1)).abs().max())
+        row = {"phase": "kernel", "name": "not_blank_probs_bf16", "b": b, "t": t,
+               "v": vocab, "blank": vocab - 1, "max_abs_err": err, "atol": NOT_BLANK_ATOL}
+        emit(row)
+        if not err <= NOT_BLANK_ATOL:
+            raise AssertionError(f"not_blank_probs (bf16) disagrees at {row}")
+        rows["not_blank_probs_bf16"].append(row)
     return rows
 
 
@@ -790,7 +925,7 @@ def _dicts(text_vocab: int, code_size: int):
     return text, units
 
 
-def _build_agent(cfg, voc_cfg, device, seed, **engine_sizes):
+def _build_agent(cfg, voc_cfg, device, seed, dtype=torch.float32, **engine_sizes):
     from streamspeech_tpu_torch.agents.streamspeech import (
         StreamSpeechAgentConfig,
         StreamSpeechS2STAgent,
@@ -800,7 +935,7 @@ def _build_agent(cfg, voc_cfg, device, seed, **engine_sizes):
     from streamspeech_tpu_torch.runtime.session import StreamSpeechEngine
     from streamspeech_tpu_torch.weights import doctor_params, random_init_
 
-    model = doctor_params(random_init_(StreamSpeechModel(cfg), seed))
+    model = doctor_params(random_init_(StreamSpeechModel(cfg, dtype=dtype), seed))
     vocoder = random_init_(CodeGenerator(voc_cfg), seed + 1)
     engine = StreamSpeechEngine(model, vocoder, device=device, **engine_sizes)
     text, units = _dicts(cfg.mt_decoder.vocab_size, voc_cfg["num_embeddings"])
@@ -830,74 +965,108 @@ def _babble(rng, seconds: float) -> np.ndarray:
 def _run_utterance(agent, samples):
     from streamspeech_tpu_torch.agents.base import stream_utterance
 
-    wav, turns, writes = [], 0, 0
+    wav, turns, write_turns = [], 0, []
     t0 = time.perf_counter()
     for out in stream_utterance(agent, samples):
         turns += 1
         if not out.is_empty:
-            writes += 1
+            write_turns.append(turns)
             wav.extend(out.content)
     if agent.engine.device.type == "cuda":
         torch.cuda.synchronize()
-    return {"segments": turns, "writes": writes,
+    return {"segments": turns, "writes": len(write_turns), "write_turns": write_turns,
             "text_tokens": len(agent.session.mt_tokens),
             "units": len(agent.units), "wav_samples": len(wav),
             "wall_s": time.perf_counter() - t0}, np.asarray(wav, np.float32), \
         list(agent.session.mt_tokens), list(agent.units)
 
 
-def _kernel_wrappers() -> dict:
+def _kernel_counters() -> dict:
+    """Each kernel's (wrapper, counter attribute): a bf16 form is counted on
+    its wrapper apart from the fp32 one."""
     from streamspeech_tpu_torch.kernels import attention, ctc, policy
 
-    return {"masked_attention": attention.masked_attention,
-            "relpos_attention": attention.relpos_attention,
-            "bias_attention": attention.bias_attention,
-            "not_blank_probs": policy.not_blank_probs,
-            "ctc_alpha": ctc.ctc_alpha,
-            "ctc_beta": ctc.ctc_beta_grad,
-            "relpos_attention_bwd": attention.relpos_attention_backward,
-            "masked_attention_bwd": attention.masked_attention_backward,
-            "bias_attention_bwd": attention.bias_attention_backward,
-            "dropout_keep": attention.dropout_keep}
+    return {"masked_attention": (attention.masked_attention, "launches"),
+            "relpos_attention": (attention.relpos_attention, "launches"),
+            "bias_attention": (attention.bias_attention, "launches"),
+            "not_blank_probs": (policy.not_blank_probs, "launches"),
+            "ctc_alpha": (ctc.ctc_alpha, "launches"),
+            "ctc_beta": (ctc.ctc_beta_grad, "launches"),
+            "relpos_attention_bwd": (attention.relpos_attention_backward, "launches"),
+            "masked_attention_bwd": (attention.masked_attention_backward, "launches"),
+            "bias_attention_bwd": (attention.bias_attention_backward, "launches"),
+            "dropout_keep": (attention.dropout_keep, "launches"),
+            "masked_attention_bf16": (attention.masked_attention, "bf16_launches"),
+            "bias_attention_bf16": (attention.bias_attention, "bf16_launches"),
+            "not_blank_probs_bf16": (policy.not_blank_probs, "bf16_launches")}
 
 
 def _zero_counts():
     from streamspeech_tpu_torch.kernels import attention
 
-    for fn in _kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in _kernel_counters().values():
+        setattr(fn, attr, 0)
     attention.mask_draws = 0
 
 
 def _read_counts() -> dict:
-    """Each wrapper's launches, and ``mask_draws``: the attention launches
+    """Each kernel's launches, and ``mask_draws``: the attention launches
     that drew the dropout mask inside their own kernels."""
     from streamspeech_tpu_torch.kernels import attention
 
-    return {**{name: fn.launches for name, fn in _kernel_wrappers().items()},
+    return {**{name: getattr(fn, attr) for name, (fn, attr) in _kernel_counters().items()},
             "mask_draws": attention.mask_draws}
 
 
-def phase_serving():
+def _edit_distance(a, b) -> int:
+    row = list(range(len(b) + 1))
+    for i, x in enumerate(a, 1):
+        prev, row[0] = row[0], i
+        for j, y in enumerate(b, 1):
+            prev, row[j] = row[j], min(row[j] + 1, row[j - 1] + 1, prev + (x != y))
+    return row[-1]
+
+
+def phase_serving(dtype=torch.float32, fp32_runs=None):
+    """Three utterances through the agent at ``full_config``; with a bf16
+    model, each utterance also against its fp32 run (``fp32_runs``): the
+    counterpart of ``measure_bf16_drift``, reported, not gated. Returns the
+    launches and each utterance's (units, write turns)."""
     from streamspeech_tpu_torch.config import full_config
     from streamspeech_tpu_torch.models.vocoder import DEFAULT_VOCODER_CFG
 
-    agent = _build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", SEED)
+    name = "serving" if dtype == torch.float32 else "serving_bf16"
+    agent = _build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", SEED, dtype)
     rng = np.random.RandomState(SEED)
     _zero_counts()
-    for seconds in UTTERANCE_SECONDS:
-        stats, wav, _, _ = _run_utterance(agent, _babble(rng, seconds))
-        stats = {"phase": "serving", "seconds_audio": seconds, **stats}
+    runs = []
+    for n, seconds in enumerate(UTTERANCE_SECONDS):
+        stats, wav, _, units = _run_utterance(agent, _babble(rng, seconds))
+        stats = {"phase": name, "seconds_audio": seconds, **stats,
+                 "rtf": stats["wall_s"] / seconds}
+        if fp32_runs is not None:
+            units32, turns32 = fp32_runs[n]
+            stats["unit_edit_distance_vs_fp32"] = (_edit_distance(units, units32)
+                                                   / max(len(units32), 1))
+            stats["write_turns_differing_vs_fp32"] = len(
+                set(stats["write_turns"]) ^ set(turns32))
         emit(stats)
+        runs.append((units, stats["write_turns"]))
         if stats["units"] < 1 or wav.size == 0:
             raise AssertionError(f"{seconds} s utterance wrote no units or no wav")
         if not np.isfinite(wav).all():
             raise AssertionError(f"{seconds} s utterance wrote non-finite wav")
     launches = _read_counts()
-    emit({"phase": "serving_total", "launches": launches})
-    if launches["masked_attention"] < 1:
-        raise AssertionError("serving never launched the masked-attention kernel")
-    return launches
+    emit({"phase": f"{name}_total", "launches": launches})
+    causal = "masked_attention" if dtype == torch.float32 else "masked_attention_bf16"
+    if launches[causal] < 1:
+        raise AssertionError(f"{name} never launched the {causal} kernel")
+    if dtype != torch.float32 and (launches["masked_attention"] or launches["bias_attention"]
+                                   or launches["not_blank_probs"]):
+        raise AssertionError(f"{name} launched an fp32 attention or not-blank kernel")
+    del agent
+    torch.cuda.empty_cache()
+    return launches, runs
 
 
 def phase_reference():
@@ -931,10 +1100,16 @@ def phase_reference():
 
 
 _NO_BACKWARD = {"relpos_attention_bwd": 0, "masked_attention_bwd": 0,
-                "bias_attention_bwd": 0, "dropout_keep": 0, "mask_draws": 0}
+                "bias_attention_bwd": 0, "dropout_keep": 0, "mask_draws": 0,
+                "masked_attention_bf16": 0, "bias_attention_bf16": 0,
+                "not_blank_probs_bf16": 0}
 FORWARD_LAUNCHES = {"relpos_attention": 12, "bias_attention": 2,
                     "not_blank_probs": 2, "masked_attention": 2, "ctc_alpha": 0,
                     "ctc_beta": 0, **_NO_BACKWARD}
+# one bf16 forward: the bf16 forms of B3, B5 and B7; rel-pos attention in fp32
+FORWARD_BF16_LAUNCHES = {**FORWARD_LAUNCHES, "masked_attention": 0, "bias_attention": 0,
+                         "not_blank_probs": 0, "masked_attention_bf16": 2,
+                         "bias_attention_bf16": 2, "not_blank_probs_bf16": 2}
 # one train step on the default route: attention takes its plain version; the
 # unit CTC and the fused aux pair each launch B8 and B9
 TRAIN_LAUNCHES = {"relpos_attention": 0, "bias_attention": 0, "not_blank_probs": 2,
@@ -1039,7 +1214,83 @@ def phase_forward():
                                                         reps=20, warmup=3)
     emit({"phase": "forward_time", "frames": 1024, **times,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-    return launches, times
+    return launches, times, model, ref, {k: v.cpu() for k, v in out.items()}
+
+
+def _rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(((a.double() - b.double()) ** 2).mean().sqrt())
+
+
+def phase_forward_bf16(model32, ref32, card32, times32):
+    """Phase 6's model (its fp32 weights) computing in bf16: the card against
+    the same bf16 model on the CPU, within BF16_DRIFT of the CPU bf16 model's
+    own distance from the CPU fp32 forward; launches in one card forward; its
+    times beside the fp32 ones."""
+    from streamspeech_tpu_torch.config import full_config
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+
+    kw = dict(chunk_size=8, conv_chunk_size=8, k1=0, n1=1, k2=0, n2=1,
+              mt_mask_mode="ctc")
+    model = StreamSpeechModel(full_config(), dtype=torch.bfloat16)
+    model.load_state_dict(model32.state_dict())
+    model.eval()
+    del model32
+    torch.cuda.empty_cache()
+    src, lens, mt = _forward_inputs(2, [1024, 800], 24, pad_after=18)
+    with torch.no_grad():
+        ref = model(src, lens, mt, **kw)
+        ref_mask = _streaming_mask(model, ref, 24)
+        model.cuda()
+        dev_args = (src.cuda(), lens.cuda(), mt.cuda())
+        torch.cuda.synchronize()
+        _zero_counts()
+        out = model(*dev_args, **kw)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        mask = _streaming_mask(model, out, 24).cpu()
+    dists, bad = {}, []
+    for key, want in ref.items():
+        got = out[key].cpu()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"bf16 forward output {key}: card {got.dtype} "
+                                 f"{tuple(got.shape)} vs CPU {want.dtype} "
+                                 f"{tuple(want.shape)}")
+        if want.dtype == torch.bfloat16:
+            own = _rms(want, ref32[key])
+            dists[key] = {"card_vs_cpu_bf16": _rms(got, want), "cpu_bf16_vs_fp32": own,
+                          "card_vs_card_fp32": _rms(got, card32[key]),
+                          "card_vs_cpu_bf16_max_abs": float((got.float() - want.float())
+                                                            .abs().max())}
+            if not dists[key]["card_vs_cpu_bf16"] <= BF16_DRIFT * own:
+                bad.append(key)
+        elif not torch.equal(got, want):
+            bad.append(key)
+    agreement = float((mask == ref_mask).float().mean())
+    row = {"phase": "forward_bf16", "batch": 2, "fbank_lengths": [1024, 800],
+           "mt_len": 24, "launches": launches, "expected_launches": FORWARD_BF16_LAUNCHES,
+           "rms_distances": dists, "drift_factor": BF16_DRIFT,
+           "allowed_cross_agreement": agreement, "agreement_min": BF16_AGREEMENT,
+           "allowed_cross_allowed_share": float(ref_mask.float().mean()),
+           "finite": all(bool(torch.isfinite(v.float()).all()) for v in out.values())}
+    emit(row)
+    if bad or agreement < BF16_AGREEMENT or not row["finite"]:
+        raise AssertionError(f"card and CPU bf16 forwards disagree: {bad} {row}")
+    if launches != FORWARD_BF16_LAUNCHES:
+        raise AssertionError(f"bf16 forward launches {launches}, "
+                             f"want {FORWARD_BF16_LAUNCHES}")
+    times = {}
+    for batch, mt_len in ((1, 24), (8, 48)):
+        s_b = torch.randn(batch, 1024, 80, generator=torch.Generator().manual_seed(SEED))
+        args = (s_b.cuda(), torch.full((batch,), 1024, device="cuda"),
+                torch.full((batch, mt_len), 4, device="cuda"))
+        with torch.no_grad():
+            times[f"b{batch}_mt{mt_len}_ms"] = _time_ms(lambda: model(*args, **kw),
+                                                        reps=20, warmup=3)
+    emit({"phase": "forward_bf16_time", "frames": 1024, **times,
+          "fp32": times32, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    del model
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _train_setup(cfg, device, seed, kernel_attention=False):
@@ -1220,7 +1471,8 @@ def phase_train_reference(kernel_attention=False, attention_dropout=0.0):
     name = "train_kernels_reference" if kernel_attention else "train_reference"
     expected = dict(TRAIN_LAUNCHES)
     if kernel_attention:     # 2 encoder layers, 2 unit-decoder layers
-        expected.update({k: 2 for k in TRAIN_KERNEL_LAUNCHES if "attention" in k},
+        expected.update({k: 2 for k in TRAIN_KERNEL_LAUNCHES
+                         if "attention" in k and not k.endswith("_bf16")},
                         mask_draws=12 if attention_dropout > 0 else 0)
     runs = {device: _reference_step(device, kernel_attention, attention_dropout)
             for device in ("cpu", "cuda")}
@@ -1262,9 +1514,13 @@ def main():
     smi = phase_env()
     phase_build()
     rows = phase_kernel()
-    serving_launches = phase_serving()
+    rows.update(phase_kernel_bf16())
+    serving_launches, fp32_runs = phase_serving()
+    serving_bf16_launches, _ = phase_serving(torch.bfloat16, fp32_runs)
     phase_reference()
-    forward_launches, _ = phase_forward()
+    forward_launches, times32, model32, ref32, card32 = phase_forward()
+    forward_bf16_launches = phase_forward_bf16(model32, ref32, card32, times32)
+    del model32, ref32, card32
     train_launches = phase_train()
     phase_train_reference()
     rows.update(phase_kernel_train())
@@ -1292,6 +1548,13 @@ def main():
                                train_shape),
         "dropout_keep": ("pallas_attention.py:36", "dropout.cuh",
                          lambda r: r.get("ms") is not None),
+        # the bf16 forms, at the fp32 forms' main shapes
+        "masked_attention_bf16": ("pallas_attention.py:425", "masked_attention_bf16.cu",
+                                  lambda r: r["t_pad"] == 3200),
+        "bias_attention_bf16": ("pallas_attention.py:625", "bias_attention_bf16.cu",
+                                lambda r: (r["b"], r["tq"]) == (1, 600)),
+        "not_blank_probs_bf16": ("pallas_policy.py:99", "not_blank.cu",
+                                 lambda r: r["b"] == 1 and "ms" in r),
     }
     # sources a kernel is built from beside the one named in its entry
     also = {"masked_attention": ["tc_mma.cuh", "dropout.cuh"],
@@ -1301,9 +1564,13 @@ def main():
             "masked_attention_bwd": ["attention_bwd.cuh", "tc_mma.cuh", "dropout.cuh"],
             "bias_attention_bwd": ["attention_bwd.cuh", "tc_mma.cuh", "dropout.cuh"],
             "not_blank_probs": ["tc_mma.cuh"],
-            "dropout_keep": ["dropout.cu", "tc_mma.cuh"]}
+            "dropout_keep": ["dropout.cu", "tc_mma.cuh"],
+            "masked_attention_bf16": ["attention_bf16.cuh", "tc_mma.cuh"],
+            "bias_attention_bf16": ["attention_bf16.cuh", "tc_mma.cuh"],
+            "not_blank_probs_bf16": ["tc_mma.cuh"]}
     paths = {"serving": serving_launches, "forward": forward_launches,
-             "train": train_launches, "train_kernels": train_kernel_launches}
+             "train": train_launches, "train_kernels": train_kernel_launches,
+             "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches}
     kernels = []
     for name, (replaces, source, main_shape) in sources.items():
         row = next(r for r in rows[name] if main_shape(r))

@@ -106,6 +106,8 @@ class StreamSpeechConfig:
     ctc_target_unigram_vocab: int = 0
     cascade: bool = False
     t2u_augmented_cross_attn: bool = False
+    # read by nothing, as in the JAX package: the compute dtype is
+    # StreamSpeechModel's ``dtype`` argument (float32 or bfloat16)
     dtype: str = "float32"
 
     @classmethod
@@ -124,7 +126,8 @@ class OptimizationConfig:
 
     ``dtype`` keeps the JAX default, ``"bfloat16"``, so that a configuration
     reads the same in both packages, but the port's train step computes in
-    float32 whatever it says (bf16 is ROADMAP §A item 3)."""
+    float32 whatever it says (bf16 training is the next slice of the port,
+    ROADMAP §A item 4)."""
 
     lr: float = 1e-3
     adam_betas: tuple = (0.9, 0.98)
@@ -139,6 +142,7 @@ class OptimizationConfig:
     max_tokens: int = 22000
     label_smoothing: float = 0.1
     dtype: str = "bfloat16"  # read by nothing: the port's train step runs float32
+    # (bf16 training is ROADMAP §A item 4)
 
 
 @dataclass

@@ -1,4 +1,5 @@
-// CTC not-blank posterior of one aux head, fp32, for Hopper (sm_90a).
+// CTC not-blank posterior of one aux head, fp32 or bf16 logits, for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernel `not_blank_probs_pallas` / `_nb_kernel` in
 // streamspeech_tpu/ops/pallas_policy.py (the streaming mask's input, built
@@ -28,7 +29,13 @@
 // of kUnroll loads): one warp a row at [8, 256, 6000], four at [1, 256, 6000]
 // on an H100's 132 SMs. tools/sweep_dropout.py timed 1, 2, 4 and 8 at both
 // by building with -DNOT_BLANK_WPR=<n>, a define for that sweep alone.
+//
+// bf16 logits (a bf16 model's CTC heads; the TPU kernel widens any float
+// input in VMEM, pallas_policy.py:76): the same pass, a 16-byte load carrying
+// 8 logits, each widened to fp32 in registers (exact: a bf16 is the top half
+// of an fp32); the bytes, and so the bound, are halved.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -87,10 +94,19 @@ __device__ __forceinline__ Online merge(const Online& a, const Online& b) {
           a.dot * (ca * pa) + b.dot * (cb * pb)};
 }
 
-// Columns W j .. W j + W - 1 of a row, -inf past n units of W floats.
-template <int W>
-__device__ __forceinline__ void load(const float* row, int j, int n, float* x) {
-  if constexpr (W == 4) {
+// One logit, widened to fp32.
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// Columns W j .. W j + W - 1 of a row, -inf past n units of W logits: a
+// 16-byte load (W = 4 floats or 8 bf16) or one logit (W = 1).
+template <int W, class L>
+__device__ __forceinline__ void load(const L* row, int j, int n, float* x) {
+  if constexpr (W == 1) {
+    x[0] = j < n ? ld1(row + j) : -INFINITY;
+  } else if constexpr (W == 4) {
     float4 v = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
     if (j < n) v = __ldg(reinterpret_cast<const float4*>(row) + j);
     x[0] = v.x;
@@ -98,26 +114,39 @@ __device__ __forceinline__ void load(const float* row, int j, int n, float* x) {
     x[2] = v.z;
     x[3] = v.w;
   } else {
-    x[0] = j < n ? __ldg(row + j) : -INFINITY;
+    static_assert(W == 8, "a 16-byte load holds 4 floats or 8 bf16");
+    if (j < n) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(row) + j);
+      const uint32_t words[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // the low half is the first logit
+        x[2 * i] = __uint_as_float(words[i] << 16);
+        x[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) x[i] = -INFINITY;
+    }
   }
 }
 
-// W: floats a load (4: V % 4 == 0 and the logits 16-byte aligned; else 1).
-template <int W>
+// W: logits a load (16 bytes when V % (16 / sizeof(L)) == 0 and the logits
+// are 16-byte aligned; else 1).
+template <int W, class L>
 __global__ void __launch_bounds__(kThreads)
-not_blank_kernel(const float* __restrict__ logits, float* __restrict__ out, long long rows,
+not_blank_kernel(const L* __restrict__ logits, float* __restrict__ out, long long rows,
                  int T, int V, int blank, int wpr) {
   __shared__ Online part[kWarps];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, slice = warp % wpr;
   const long long row = (long long)blockIdx.x * (kWarps / wpr) + warp / wpr;
   const bool live = row < rows;
   const int t = live ? (int)(row % T) : 0;
-  const float* cur = logits + (live ? row : 0) * V;
-  const float* prev = t > 0 ? cur - V : cur;  // t = 0: read, never used
+  const L* cur = logits + (live ? row : 0) * V;
+  const L* prev = t > 0 ? cur - V : cur;  // t = 0: read, never used
 
   // the blank logits the last lane-0 step needs, fetched before the pass
   const bool last = live && lane == 0 && slice == 0;
-  const float xb = last ? __ldg(cur + blank) : 0.f, xpb = last ? __ldg(prev + blank) : 0.f;
+  const float xb = last ? ld1(cur + blank) : 0.f, xpb = last ? ld1(prev + blank) : 0.f;
 
   Online o = {-INFINITY, 0.f, -INFINITY, 0.f, 0.f};
   if (live) {
@@ -170,26 +199,43 @@ int warps_a_row(long long rows, int n) {
   return wpr;
 }
 
-}  // namespace
-
-// logits: [B, T, V] contiguous fp32; out: [B, T] fp32; 0 <= blank < V.
-// Launches on `stream` without synchronising; returns the cudaError_t code.
-extern "C" int not_blank_probs_f32(const float* logits, float* out, int B, int T,
-                                   int V, int blank, void* stream) {
+// L: the logits' type, float or __nv_bfloat16.
+template <class L>
+int run(const L* logits, float* out, int B, int T, int V, int blank, void* stream) {
   if (B <= 0 || T <= 0 || V <= 0 || blank < 0 || blank >= V)
     return (int)cudaErrorInvalidValue;
+  constexpr int kVec = 16 / sizeof(L);  // logits a 16-byte load
   const long long rows = (long long)B * T;
-  const bool vec = V % 4 == 0 && (uintptr_t)logits % 16 == 0;
+  const bool vec = V % kVec == 0 && (uintptr_t)logits % 16 == 0;
+  // the rule counts 4 logits a unit for both types: bf16's loads carry 8, but
+  // at [1,256,6000] 4 warps a row (0.0068 ms) beat the 2 its loads would give
+  // (0.0076), and at [8,256,6000] one warp stays the fastest
+  // (tools/sweep_bf16.py)
   const int wpr = warps_a_row(rows, vec ? V / 4 : V);
   if (wpr < 1 || wpr > kWarps || kWarps % wpr != 0) return (int)cudaErrorInvalidValue;
   const long long blocks = (rows * wpr + kWarps - 1) / kWarps;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec)
-    not_blank_kernel<4><<<(unsigned)blocks, kThreads, 0, s>>>(logits, out, rows, T, V, blank,
-                                                             wpr);
+    not_blank_kernel<kVec, L><<<(unsigned)blocks, kThreads, 0, s>>>(logits, out, rows, T, V,
+                                                                   blank, wpr);
   else
-    not_blank_kernel<1><<<(unsigned)blocks, kThreads, 0, s>>>(logits, out, rows, T, V, blank,
-                                                             wpr);
+    not_blank_kernel<1, L><<<(unsigned)blocks, kThreads, 0, s>>>(logits, out, rows, T, V,
+                                                                blank, wpr);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// logits: [B, T, V] contiguous fp32; out: [B, T] fp32; 0 <= blank < V.
+// Launches on `stream` without synchronising; returns the cudaError_t code.
+extern "C" int not_blank_probs_f32(const float* logits, float* out, int B, int T,
+                                   int V, int blank, void* stream) {
+  return run(logits, out, B, T, V, blank, stream);
+}
+
+// The same for [B, T, V] contiguous bf16 logits.
+extern "C" int not_blank_probs_bf16(const void* logits, float* out, int B, int T,
+                                    int V, int blank, void* stream) {
+  return run(static_cast<const __nv_bfloat16*>(logits), out, B, T, V, blank, stream);
 }

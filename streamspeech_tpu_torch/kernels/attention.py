@@ -3,11 +3,12 @@
 - ``masked_attention``: causal self-attention with a key bias; replaces the TPU
   kernels ``masked_attention`` (`streamspeech_tpu/ops/pallas_attention.py:425`,
   body ``_causal_kernel`` :399) and ``_masked_bwd`` (:508);
-  ``csrc/masked_attention.cu``, ``csrc/masked_attention_bwd.cu``.
+  ``csrc/masked_attention.cu``, ``csrc/masked_attention_bwd.cu``; bf16 q/k/v
+  ``csrc/masked_attention_bf16.cu``.
 - ``bias_attention``: attention under an arbitrary [B, TQ, TK] additive bias;
   replaces ``bias_attention`` (`pallas_attention.py:625`, ``_bias_kernel``
   :602) and ``_bias_bwd_rule`` (:712); ``csrc/bias_attention.cu``,
-  ``csrc/bias_attention_bwd.cu``.
+  ``csrc/bias_attention_bwd.cu``; bf16 q/k/v ``csrc/bias_attention_bf16.cu``.
 - ``relpos_attention``: Transformer-XL rel-pos self-attention; replaces
   ``relpos_attention`` (`pallas_attention.py:95`, ``_kernel`` :53) and
   ``_relpos_bwd`` (:243); ``csrc/relpos_attention.cu``,
@@ -22,10 +23,20 @@ each row's softmax statistics and the seed, never a [B, H, TQ, TK] tensor, and
 the backward recomputes the probabilities and regenerates the dropout mask.
 The bias and the seed get no gradient.
 
+``masked_attention`` and ``bias_attention`` also take bfloat16 q, k and v (a
+bf16 model's unit decoder), as the TPU kernels take their inputs' dtype: fp32
+scores and softmax, the probabilities rounded to bf16 for the P·V product,
+summed in fp32, an fp32 output (``attention_bf16.cuh`` on the card). That form
+is forward only, without dropout: a bf16 input that needs a gradient, or a
+rate above 0, raises (the bf16 backward is the next slice of the port). The
+bias stays fp32. ``relpos_attention`` is fp32 only: the JAX route casts its
+inputs to fp32 (`models/layers.py:472-476`).
+
 For CPU tensors each wrapper computes its plain version (``*_reference``,
 ``*_backward_reference``, ``dropout_keep_reference``); for CUDA tensors it
 launches its kernel or raises. There is no fallback. Each counts its launches:
-``f.launches`` for a forward, ``f_backward.launches`` once per backward call
+``f.launches`` for a forward (``f.bf16_launches`` for the bf16 form),
+``f_backward.launches`` once per backward call
 (which launches two or three CUDA kernels), ``dropout_keep.launches`` for the
 kernel that writes the mask out alone. ``mask_draws`` counts the forward
 launches and backward calls that drew the mask inside their own kernels.
@@ -61,6 +72,13 @@ _RELPOS_BWD = ("relpos_attention_bwd", "relpos_attention_bwd_f32",
                (_P,) * 16 + (_I,) * 6 + (_F, _F, _P))
 _RELPOS_BWD_SCRATCH = ("relpos_attention_bwd", "relpos_attention_bwd_scratch", (_I,) * 4)
 _KEEP = ("dropout", "dropout_keep_u8", (_P, _P) + (_I,) * 4 + (_F, _P))
+_MASKED_BF16 = ("masked_attention_bf16", "masked_attention_bf16",
+                (_P,) * 5 + (_I,) * 4 + (_F, _P))
+_BIAS_BF16 = ("bias_attention_bf16", "bias_attention_bf16", (_P,) * 5 + (_I,) * 5 + (_F, _P))
+_QKV_DTYPES = (torch.float32, torch.bfloat16)
+_BF16_FORWARD_ONLY = ("the bf16 attention form is forward only, without dropout: its "
+                      "backward (B4 and B6 in bf16) is the next slice of the port, "
+                      "ROADMAP §A item 4")
 
 Seed = Union[int, torch.Tensor]
 
@@ -163,9 +181,16 @@ def _drop(probs: torch.Tensor, keep: Optional[torch.Tensor], rate: float) -> tor
 # ---------------------------------------------------------------------------
 
 
+def _pv(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """P·V as the kernels form it: the probabilities rounded to v's dtype
+    (`pallas_attention.py:418` ``probs.astype(v.dtype)``), the products summed
+    in fp32, an fp32 result. For fp32 v the plain product."""
+    return torch.einsum("bhst,bhtd->bhsd", probs.to(v.dtype).float(), v.float())
+
+
 def _masked_probs(q, k, kv_bias, scale):
     t = q.shape[2]
-    scores = torch.einsum("bhsd,bhtd->bhst", q, k) * scale
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
     scores = scores + kv_bias[:, :, None, :]
     i = torch.arange(t, device=q.device)
     causal = torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF)
@@ -176,15 +201,17 @@ def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, kv_bias: torch.Tensor,
                                scale: float, keep: Optional[torch.Tensor] = None,
                                rate: float = 0.0) -> torch.Tensor:
-    """Plain PyTorch version (`pallas_attention.py:570-583`): q/k/v [B, H, T, D],
-    kv_bias [B, 1, T] additive → [B, H, T, D] float32. ``keep`` [B, H, T, T]
-    bool drops probabilities after the softmax at ``rate``."""
-    probs = _drop(_masked_probs(q, k, kv_bias, scale), keep, rate)
-    return torch.einsum("bhst,bhtd->bhsd", probs, v)
+    """Plain PyTorch version (`pallas_attention.py:570-583`): q/k/v [B, H, T, D]
+    float32 or bfloat16, kv_bias [B, 1, T] additive float32 → [B, H, T, D]
+    float32. Scores and softmax in fp32 from the widened operands, the
+    probabilities normalised, then rounded to v's dtype for P·V (``_pv``), as
+    the TPU kernel's body (:399-423). ``keep`` [B, H, T, T] bool drops
+    probabilities after the softmax at ``rate``."""
+    return _pv(_drop(_masked_probs(q, k, kv_bias, scale), keep, rate), v)
 
 
 def _bias_probs(q, k, bias, scale):
-    scores = torch.einsum("bhsd,bhtd->bhst", q, k) * scale + bias[:, None]
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale + bias[:, None]
     return torch.softmax(scores, dim=-1)
 
 
@@ -193,10 +220,10 @@ def bias_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              keep: Optional[torch.Tensor] = None,
                              rate: float = 0.0) -> torch.Tensor:
     """Plain PyTorch version (`pallas_attention.py:818-825`): q [B, H, TQ, D],
-    k/v [B, H, TK, D], bias [B, TQ, TK] additive → [B, H, TQ, D] float32;
-    ``keep`` [B, H, TQ, TK] as in ``masked_attention_reference``."""
-    probs = _drop(_bias_probs(q, k, bias, scale), keep, rate)
-    return torch.einsum("bhst,bhtd->bhsd", probs, v)
+    k/v [B, H, TK, D] (float32 or bfloat16, as ``masked_attention_reference``),
+    bias [B, TQ, TK] additive float32 → [B, H, TQ, D] float32; ``keep``
+    [B, H, TQ, TK] as in ``masked_attention_reference``."""
+    return _pv(_drop(_bias_probs(q, k, bias, scale), keep, rate), v)
 
 
 def _relpos_rows(t: int, device) -> torch.Tensor:
@@ -289,10 +316,10 @@ def relpos_attention_backward_reference(q_u, q_v, k, v, p, bias, g, scale, keep=
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(named, device):
+def _check_inputs(named, device, dtype=torch.float32):
     for name, x in named:
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
         if x.device != device:
             raise ValueError(f"{name} is on {x.device}, q on {device}")
         if not x.is_contiguous():
@@ -327,7 +354,8 @@ def _check(q, k, v, kv_bias):
     if tuple(kv_bias.shape) != (b, 1, t):
         raise ValueError(f"kv_bias must be [B, 1, T] = {(b, 1, t)}, "
                          f"got {tuple(kv_bias.shape)}")
-    _check_inputs((("q", q), ("k", k), ("v", v), ("kv_bias", kv_bias)), q.device)
+    _check_qkv(q, k, v)
+    _check_inputs((("kv_bias", kv_bias),), q.device)
     if t % TILE != 0:
         raise ValueError(f"T={t} must be a multiple of {TILE}")
     _check_head_dim(d)
@@ -342,8 +370,22 @@ def _check_bias(q, k, v, bias):
     if tuple(bias.shape) != (b, tq, k.shape[2]):
         raise ValueError(f"bias must be [B, TQ, TK] = {(b, tq, k.shape[2])}, "
                          f"got {tuple(bias.shape)}")
-    _check_inputs((("q", q), ("k", k), ("v", v), ("bias", bias)), q.device)
+    _check_qkv(q, k, v)
+    _check_inputs((("bias", bias),), q.device)
     _check_head_dim(d)
+
+
+def _check_qkv(q, k, v):
+    """q, k and v share one dtype the kernels take (float32 or bfloat16)."""
+    if q.dtype not in _QKV_DTYPES:
+        raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
+    _check_inputs((("q", q), ("k", k), ("v", v)), q.device, q.dtype)
+
+
+def _check_fp32(x: torch.Tensor, kernel: str):
+    """The backward kernels take float32 alone."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError(f"{kernel} on {x.dtype}: {_BF16_FORWARD_ONLY}")
 
 
 def _check_relpos(q_u, q_v, k, v, p, bias):
@@ -403,11 +445,18 @@ def masked_attention_forward(q, k, v, kv_bias, scale, rate=0.0, seed=None,
     (each row's max and 1 / sum, what the backward kernel reads) on the card
     when asked for, else None."""
     _check_rate(rate)
+    _check_bf16_forward(q, rate, want_stats, "masked_attention")
     b, h, t, d = q.shape
     if not build.on_card(q, "masked_attention"):
         return masked_attention_reference(
             q, k, v, kv_bias, scale, _keep_or_none(seed, b, h, t, t, rate), rate), None
     _check(q, k, v, kv_bias)
+    if q.dtype == torch.bfloat16:
+        out = q.new_empty(q.shape, dtype=torch.float32)
+        build.launch(_MASKED_BF16, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     kv_bias.data_ptr(), out.data_ptr(), b, h, t, d, float(scale))
+        masked_attention.bf16_launches += 1
+        return out, None
     _check_seed(seed, q.device, rate)
     out = torch.empty_like(q)
     stats = q.new_empty((b, h, t, 2)) if want_stats else None
@@ -423,6 +472,7 @@ def masked_attention_backward(q, k, v, kv_bias, g, out, stats, seed, scale: floa
     """(dq, dK, dV) of ``masked_attention`` for g = d loss / d out. On the card
     ``csrc/masked_attention_bwd.cu`` (``out`` and the forward's ``stats``
     required); on the CPU ``masked_attention_backward_reference``."""
+    _check_fp32(q, "masked_attention_backward")
     b, h, t, d = q.shape
     if not build.on_card(q, "masked_attention_backward"):
         return masked_attention_backward_reference(
@@ -460,15 +510,27 @@ class _MaskedAttention(torch.autograd.Function):
 
 
 def _differentiate(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    """Whether autograd needs this call's backward; a bf16 call raises instead."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if grad and tensors[0].dtype == torch.bfloat16:
+        raise NotImplementedError(f"a bf16 attention input needs a gradient: "
+                                  f"{_BF16_FORWARD_ONLY}")
+    return grad
+
+
+def _check_bf16_forward(q: torch.Tensor, rate: float, want_stats: bool, kernel: str):
+    if q.dtype == torch.bfloat16 and (rate > 0.0 or want_stats):
+        raise NotImplementedError(f"{kernel} with bf16 inputs and dropout or row "
+                                  f"statistics: {_BF16_FORWARD_ONLY}")
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
                      seed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal attention with a key-validity bias. q/k/v [B, H, T, D] float32,
-    T a multiple of 64, D a multiple of 8 up to 256; kv_bias [B, 1, T] float32 (0 valid,
-    NEG_INF masked). Returns [B, H, T, D] float32. Every row must have one
+    """Causal attention with a key-validity bias. q/k/v [B, H, T, D] float32
+    (or bfloat16: forward only, no dropout), T a multiple of 64, D a multiple
+    of 8 up to 256; kv_bias [B, 1, T] float32 (0 valid, NEG_INF masked).
+    Returns [B, H, T, D] float32. Every row must have one
     allowed key, which key 0 gives on the serving and training paths.
     ``dropout_rate`` > 0 drops attention probabilities inside the kernel, the
     mask drawn from ``seed`` (``draw_seed``). Differentiable in q, k and v."""
@@ -485,12 +547,19 @@ def bias_attention_forward(q, k, v, bias, scale, rate=0.0, seed=None, want_stats
     """``bias_attention`` outside autograd: (out, stats) as
     ``masked_attention_forward``."""
     _check_rate(rate)
+    _check_bf16_forward(q, rate, want_stats, "bias_attention")
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if not build.on_card(q, "bias_attention"):
         return bias_attention_reference(
             q, k, v, bias, scale, _keep_or_none(seed, b, h, tq, tk, rate), rate), None
     _check_bias(q, k, v, bias)
+    if q.dtype == torch.bfloat16:
+        out = q.new_empty(q.shape, dtype=torch.float32)
+        build.launch(_BIAS_BF16, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     bias.data_ptr(), out.data_ptr(), b, h, tq, tk, d, float(scale))
+        bias_attention.bf16_launches += 1
+        return out, None
     _check_seed(seed, q.device, rate)
     out = torch.empty_like(q)
     stats = q.new_empty((b, h, tq, 2)) if want_stats else None
@@ -505,6 +574,7 @@ def bias_attention_backward(q, k, v, bias, g, out, stats, seed, scale: float,
                             rate: float = 0.0):
     """(dq, dK, dV) of ``bias_attention``: ``csrc/bias_attention_bwd.cu`` on the
     card, ``bias_attention_backward_reference`` on the CPU."""
+    _check_fp32(q, "bias_attention_backward")
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if not build.on_card(q, "bias_attention_backward"):
@@ -561,8 +631,9 @@ def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention under an additive bias that carries the whole mask. q
-    [B, H, TQ, D], k/v [B, H, TK, D], bias [B, TQ, TK], float32, any TQ and TK,
-    D a multiple of 8 up to 256. Returns [B, H, TQ, D] float32. Dropout and
+    [B, H, TQ, D], k/v [B, H, TK, D] float32 (or bfloat16, as
+    ``masked_attention``), bias [B, TQ, TK] float32, any TQ and TK, D a
+    multiple of 8 up to 256. Returns [B, H, TQ, D] float32. Dropout and
     gradients as ``masked_attention``; the bias is a constant."""
     return _BiasAttention.apply(q, k, v, bias, seed, scale, float(dropout_rate),
                                 _differentiate(q, k, v))
@@ -667,3 +738,4 @@ def relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor,
 for _fn in (masked_attention, bias_attention, relpos_attention, masked_attention_backward,
             bias_attention_backward, relpos_attention_backward, dropout_keep):
     _fn.launches = 0
+masked_attention.bf16_launches = bias_attention.bf16_launches = 0

@@ -3,7 +3,10 @@
 ``not_blank_probs`` replaces the TPU kernel ``not_blank_probs_pallas``
 (`streamspeech_tpu/ops/pallas_policy.py:99`, body ``_nb_kernel`` :69). For a
 CPU tensor it computes ``not_blank_probs_reference``; for a CUDA tensor it
-launches ``csrc/not_blank.cu`` or raises. There is no fallback.
+launches ``csrc/not_blank.cu`` or raises. There is no fallback. Logits are
+float32 or bfloat16 (a bf16 model's CTC heads), widened to fp32 inside the
+kernel as the TPU kernel widens them (:76); the launches of each form are
+counted apart (``launches``, ``bf16_launches``).
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from streamspeech_tpu_torch.kernels import build
 
 NB_KERNEL_MIN_T = 64    # the TPU gate (`pallas_policy.py:53-66`): t >= 64, v >= 512
 NB_KERNEL_MIN_V = 512
-_NOT_BLANK = ("not_blank", "not_blank_probs_f32",
-              (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,))
+_ARGS = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+_NOT_BLANK = {torch.float32: ("not_blank", "not_blank_probs_f32", _ARGS),
+              torch.bfloat16: ("not_blank", "not_blank_probs_bf16", _ARGS)}
 
 
 def nb_kernel_ok(t: int, v: int) -> bool:
@@ -38,21 +42,25 @@ def not_blank_probs_reference(logits: torch.Tensor, blank: int = 0) -> torch.Ten
 
 
 def not_blank_probs(logits: torch.Tensor, blank: int = 0) -> torch.Tensor:
-    """logits [B, T, V] float32, contiguous → [B, T] float32, no gradient."""
+    """logits [B, T, V] float32 or bfloat16, contiguous → [B, T] float32, no
+    gradient."""
     logits = logits.detach()
     if not build.on_card(logits, "not_blank_probs"):
         return not_blank_probs_reference(logits, blank)
-    if logits.dim() != 3 or logits.dtype != torch.float32 or not logits.is_contiguous():
-        raise ValueError("logits must be a contiguous float32 [B, T, V] tensor, got "
-                         f"{logits.dtype} {tuple(logits.shape)}")
+    if logits.dim() != 3 or logits.dtype not in _NOT_BLANK or not logits.is_contiguous():
+        raise ValueError("logits must be a contiguous float32 or bfloat16 [B, T, V] "
+                         f"tensor, got {logits.dtype} {tuple(logits.shape)}")
     b, t, v = logits.shape
     if not 0 <= blank < v:
         raise ValueError(f"blank {blank} outside the vocabulary of {v}")
     out = torch.empty((b, t), dtype=torch.float32, device=logits.device)
-    build.launch(_NOT_BLANK, logits.device, logits.data_ptr(), out.data_ptr(), b, t, v,
-                 int(blank))
-    not_blank_probs.launches += 1
+    build.launch(_NOT_BLANK[logits.dtype], logits.device, logits.data_ptr(), out.data_ptr(),
+                 b, t, v, int(blank))
+    if logits.dtype == torch.bfloat16:
+        not_blank_probs.bf16_launches += 1
+    else:
+        not_blank_probs.launches += 1
     return out
 
 
-not_blank_probs.launches = 0
+not_blank_probs.launches = not_blank_probs.bf16_launches = 0

@@ -9,6 +9,11 @@ rel-pos kernel route at T >= 256 in eval mode, and in training on the kernel
 train route; dropout and batch statistics in training); ``encode_block``
 encodes one new block against the caches, and the chunk mask makes that
 exactly the offline encoding's rows. Only the ``rel_pos`` encoder is ported.
+
+``dtype`` is the compute dtype (flax's): the fbank input stays float32 through
+the subsampler (its bf16 weights promote to the input's fp32, as in ``jnp``),
+the linear after it casts to ``dtype``, the rel-pos table and the streaming
+caches are made in ``dtype`` (`conformer.py:267-268`, :326-332).
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ from streamspeech_tpu_torch.config import EncoderConfig
 from streamspeech_tpu_torch.models.layers import (
     ChunkCausalConv,
     ConvolutionModule,
+    Dense,
     FeedForward,
     KVCache,
+    LayerNorm,
     RelPosMultiHeadAttention,
     dropout,
 )
@@ -54,13 +61,14 @@ class Conv1dSubsampler(nn.Module):
     """2 × (chunk-causal conv stride 2 + GLU): 80 → conv_channels/2 → embed_dim
     (`chunk_unity/modules/convolution.py:36-60`)."""
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         n = len(cfg.conv_kernel_sizes)
         in_ch = cfg.input_feat_per_channel * cfg.input_channels
         for i, k in enumerate(cfg.conv_kernel_sizes):
             out_ch = cfg.conv_channels if i < n - 1 else cfg.embed_dim * 2
-            self.add_module(f"conv_{i}", ChunkCausalConv(in_ch, out_ch, k, stride=2))
+            self.add_module(f"conv_{i}", ChunkCausalConv(in_ch, out_ch, k, stride=2,
+                                                         dtype=dtype))
             in_ch = out_ch // 2
         self.n_convs = n
 
@@ -101,20 +109,20 @@ class Conv1dSubsampler(nn.Module):
 class ConformerLayer(nn.Module):
     """`chunk_unity/modules/conformer_layer.py:167-312` (rel-pos espnet attention)."""
 
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.pos_enc_type != "rel_pos":
             raise NotImplementedError(f"pos_enc_type {cfg.pos_enc_type!r}: only "
                                       "'rel_pos' is ported")
         self.dropout = cfg.dropout
-        self.ffn1 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim, cfg.dropout)
-        self.self_attn_layer_norm = nn.LayerNorm(cfg.embed_dim)
+        self.ffn1 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim, cfg.dropout, dtype)
+        self.self_attn_layer_norm = LayerNorm(cfg.embed_dim, dtype)
         self.self_attn = RelPosMultiHeadAttention(cfg.embed_dim, cfg.attention_heads,
-                                                  cfg.dropout)
-        self.conv_module = ConvolutionModule(cfg.embed_dim,
-                                             cfg.depthwise_conv_kernel_size, cfg.dropout)
-        self.ffn2 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim, cfg.dropout)
-        self.final_layer_norm = nn.LayerNorm(cfg.embed_dim)
+                                                  cfg.dropout, dtype)
+        self.conv_module = ConvolutionModule(cfg.embed_dim, cfg.depthwise_conv_kernel_size,
+                                             cfg.dropout, dtype)
+        self.ffn2 = FeedForward(cfg.embed_dim, cfg.ffn_embed_dim, cfg.dropout, dtype)
+        self.final_layer_norm = LayerNorm(cfg.embed_dim, dtype)
 
     def forward(self, x, pos_emb, allowed, key_valid, conv_chunk_size,
                 deterministic: bool = True, use_running_stats: bool = True,
@@ -144,16 +152,16 @@ class ConformerLayer(nn.Module):
 
 
 class ChunkConformerEncoder(nn.Module):
-    def __init__(self, cfg: EncoderConfig):
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.speaker_embed_dim:
             raise NotImplementedError("speaker_embed_dim: the encoder's spk_emb_proj is "
-                                      "not ported (ROADMAP §A item 7)")
-        self.cfg = cfg
-        self.subsample = Conv1dSubsampler(cfg)
-        self.linear = nn.Linear(cfg.embed_dim, cfg.embed_dim)
+                                      "not ported (ROADMAP §A item 8)")
+        self.cfg, self.dtype = cfg, dtype
+        self.subsample = Conv1dSubsampler(cfg, dtype)
+        self.linear = Dense(cfg.embed_dim, cfg.embed_dim, dtype=dtype)
         for i in range(cfg.layers):
-            self.add_module(f"layers_{i}", ConformerLayer(cfg))
+            self.add_module(f"layers_{i}", ConformerLayer(cfg, dtype))
         self.embed_scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
         self._rel_tables: Dict[Tuple[int, str], torch.Tensor] = {}
 
@@ -196,12 +204,12 @@ class ChunkConformerEncoder(nn.Module):
         in_ch = c.input_feat_per_channel * c.input_channels
         for conv in self.subsample.convs():
             sub_ctx.append(torch.zeros((batch, conv.kernel_size // 2, in_ch),
-                                       device=device))
+                                       dtype=self.dtype, device=device))
             in_ch = conv.weight.shape[0] // 2
         pad = c.depthwise_conv_kernel_size // 2
-        conv_ctx = [torch.zeros((batch, pad, c.embed_dim), device=device)
+        conv_ctx = [torch.zeros((batch, pad, c.embed_dim), dtype=self.dtype, device=device)
                     for _ in range(c.layers)]
-        kv = [KVCache.create(batch, max_frames, c.attention_heads, dh, device)
+        kv = [KVCache.create(batch, max_frames, c.attention_heads, dh, device, self.dtype)
               for _ in range(c.layers)]
         return EncoderStreamState(sub_ctx, conv_ctx, kv, 0)
 
@@ -209,7 +217,7 @@ class ChunkConformerEncoder(nn.Module):
         key = (n, str(device))
         if key not in self._rel_tables:
             self._rel_tables[key] = torch.from_numpy(
-                rel_pos_encoding(n, self.cfg.embed_dim)).to(device)
+                rel_pos_encoding(n, self.cfg.embed_dim)).to(device, self.dtype)
         return self._rel_tables[key]
 
     def encode_block(self, block: torch.Tensor, state: EncoderStreamState,

@@ -19,6 +19,15 @@ kernel routes too, forward and backward, with the attention-probability
 dropout drawn inside the kernels from one seed per call. BatchNorm's
 ``use_running_stats=False`` normalises with the batch statistics and updates
 the running ones.
+
+Compute dtype follows flax's ``dtype`` argument (parameters stay float32, as
+flax's ``param_dtype``): ``Dense`` casts its input, weight and bias to the
+module's dtype; ``LayerNorm`` and ``BatchNorm`` compute their statistics and
+the normalisation in fp32 from the widened input and round once at the output
+(`flax/linen/normalization.py` ``_compute_stats``, ``_normalize``); attention
+scores and the softmax are fp32, the probabilities cast to v's dtype; the
+chunk-causal convolution casts its weight and follows type promotion for its
+input, as ``jnp`` does. A float32 module computes exactly as before.
 """
 
 from __future__ import annotations
@@ -35,6 +44,39 @@ from streamspeech_tpu_torch.ops.masks import NEG_INF, causal_allowed, mask_to_bi
 MASKED_KERNEL_MIN_T = 256  # the TPU gate's worth-it floor (`layers.py:56-72`)
 BIAS_KERNEL_MIN_S = 512    # `layers.py:75-91`
 RELPOS_KERNEL_MIN_T = 256  # `layers.py:42-53`, with T % 128 == 0
+
+
+def _cast(p: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if p is None else p.to(dtype)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``
+    (`flax/linen/linear.py` ``promote_dtype``), the product in ``dtype``;
+    float32 parameters."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        _cast(self.bias, self.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(epsilon=1e-5, dtype=...)``: statistics and the
+    normalisation in fp32 from the widened input, float32 scale and bias, one
+    rounding to ``dtype`` at the output. (CUDA's ``layer_norm`` takes no bf16
+    input beside float32 scale and bias, so the input is widened first.)"""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return super().forward(x.float()).to(self.dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -60,17 +102,20 @@ class BatchNorm(nn.Module):
     normalises with the statistics over every leading position (padded frames
     included), the biased variance mean(x²) - mean(x)², and updates the running
     buffers in place to 0.9·running + 0.1·batch (the biased variance, where
-    ``F.batch_norm`` would write the unbiased one)."""
+    ``F.batch_norm`` would write the unbiased one). Statistics and the
+    normalisation are fp32; the output is rounded to ``dtype``."""
 
-    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.eps, self.momentum = eps, momentum
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("running_mean", torch.zeros(dim))
         self.register_buffer("running_var", torch.ones(dim))
 
     def forward(self, x, use_running_stats: bool = True):
+        x = x.float()
         if use_running_stats:
             mean, var = self.running_mean, self.running_var
         else:
@@ -82,7 +127,7 @@ class BatchNorm(nn.Module):
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        return ((x - mean) * mul + self.bias).to(self.dtype)
 
 
 class KVCache:
@@ -136,11 +181,13 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """q [B,S,H,D], k/v [B,T,H,D], bias broadcastable to [B,H,S,T] → [B,S,H,D]
     (`layers.py:153` ``_attend``), with dropout of rate ``rate`` on the
-    attention probabilities (fairseq MHA)."""
-    scores = torch.einsum("bshd,bthd->bhst", q * scale, k)
+    attention probabilities (fairseq MHA). Scores and softmax in fp32, the
+    probabilities cast to v's dtype for the product."""
+    scores = torch.einsum("bshd,bthd->bhst", (q * scale).float(), k.float())
     if bias is not None:
         scores = scores + bias
-    probs = dropout(torch.softmax(scores, dim=-1), rate, deterministic, generator)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = dropout(probs, rate, deterministic, generator)
     return torch.einsum("bhst,bthd->bshd", probs, v)
 
 
@@ -191,15 +238,16 @@ class MultiHeadAttention(nn.Module):
     attention probabilities."""
 
     def __init__(self, embed_dim: int, num_heads: int, bias: bool = True,
-                 kdim: Optional[int] = None, dropout: float = 0.0):
+                 kdim: Optional[int] = None, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
         self.kernel_train = False     # see set_kernel_train
         kdim = embed_dim if kdim is None else kdim
-        self.q_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
-        self.k_proj = nn.Linear(kdim, embed_dim, bias=bias)
-        self.v_proj = nn.Linear(kdim, embed_dim, bias=bias)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, bias=bias)
+        self.q_proj = Dense(embed_dim, embed_dim, bias, dtype)
+        self.k_proj = Dense(kdim, embed_dim, bias, dtype)
+        self.v_proj = Dense(kdim, embed_dim, bias, dtype)
+        self.out_proj = Dense(embed_dim, embed_dim, bias, dtype)
 
     def forward(self, query: torch.Tensor,
                 key_value: Optional[torch.Tensor] = None,
@@ -262,7 +310,8 @@ class MultiHeadAttention(nn.Module):
         """`layers.py:289-323` ``_causal_pallas``: pad T to the 128 tile (padded
         keys masked through the [B, T] bias, padded query rows sliced off) and
         run the causal masked-attention kernel, with dropout at ``rate`` from
-        ``seed`` inside it. q/k/v [B, S, H, Dh]."""
+        ``seed`` inside it. q/k/v [B, S, H, Dh], float32 or bfloat16 (the
+        kernel's bf16 form); the output in v's dtype (:323)."""
         b, s, h, dh = q.shape
         t_pad = -(-s // 128) * 128
         if key_valid is None:
@@ -275,19 +324,19 @@ class MultiHeadAttention(nn.Module):
                    for a in (q, k, v))
         out = attention_kernels.masked_attention(q, k, v, kvb[:, None, :], scale, rate,
                                                  seed)
-        return out.transpose(1, 2)[:, :s]
+        return out.transpose(1, 2)[:, :s].to(v.dtype)
 
     @staticmethod
     def _bias_kernel(q, k, v, bias, scale, rate=0.0, seed=None):
         """`layers.py:325-362` ``_bias_pallas``: the bias [B|1, 1, S, T] carries
         the whole mask; the kernel masks its own ragged edges, so nothing is
         padded; dropout at ``rate`` from ``seed`` inside the kernel.
-        q [B, S, H, Dh], k/v [B, T, H, Dh] → [B, S, H, Dh]."""
+        q [B, S, H, Dh], k/v [B, T, H, Dh] → [B, S, H, Dh] in v's dtype (:362)."""
         b, s, _, _ = q.shape
         b3 = bias[:, 0].expand(b, s, k.shape[1]).contiguous()
         q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
         return attention_kernels.bias_attention(q, k, v, b3, scale, rate,
-                                                seed).transpose(1, 2)
+                                                seed).transpose(1, 2).to(v.dtype)
 
     def fill_cross_cache(self, key_value: torch.Tensor, cache: KVCache) -> KVCache:
         """Project encoder states once and append them to a cross-attention cache."""
@@ -307,16 +356,17 @@ class RelPosMultiHeadAttention(nn.Module):
     takes T >= 256, T % 128 == 0. ``dropout`` is the rate on the attention
     probabilities (`layers.py:499`), drawn inside the kernel on its route."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.embed_dim, self.num_heads, self.dropout = embed_dim, num_heads, dropout
         self.kernel_train = False     # see set_kernel_train
         dh = embed_dim // num_heads
-        self.q_proj = nn.Linear(embed_dim, embed_dim)
-        self.k_proj = nn.Linear(embed_dim, embed_dim)
-        self.v_proj = nn.Linear(embed_dim, embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
-        self.linear_pos = nn.Linear(embed_dim, embed_dim, bias=False)
+        self.q_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.k_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.out_proj = Dense(embed_dim, embed_dim, dtype=dtype)
+        self.linear_pos = Dense(embed_dim, embed_dim, bias=False, dtype=dtype)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, dh))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dh))
 
@@ -340,16 +390,17 @@ class RelPosMultiHeadAttention(nn.Module):
         t = k.shape[1]
         p = self.linear_pos(pos_emb).view(-1, h, dh)     # [R, H, Dh]
         r = p.shape[0]
+        # float32 parameters: q_u and q_v are float32 whatever q's dtype, as in jnp
         q_u, q_v = q + self.pos_bias_u, q + self.pos_bias_v
         bias = mask_to_bias(allowed, key_valid)
         if (cache is None and (deterministic or self.kernel_train) and s == t
                 and r == 2 * t - 1 and _relpos_kernel_ok(t, dh)):
             out = self._relpos_kernel(q_u, q_v, k, v, p, bias, scale, *_rate_and_seed(
-                self.dropout, deterministic, generator, x.device))
+                self.dropout, deterministic, generator, x.device)).to(x.dtype)
         else:
             rmax = q_offset + s - 1
-            ac = torch.einsum("bshd,bthd->bhst", q_u, k)
-            bd_full = torch.einsum("bshd,rhd->bhsr", q_v, p)
+            ac = torch.einsum("bshd,bthd->bhst", q_u.float(), k.float())
+            bd_full = torch.einsum("bshd,rhd->bhsr", q_v.float(), p.float())
             i = torch.arange(s, device=x.device)[:, None]
             j = torch.arange(t, device=x.device)[None, :]
             u = torch.clamp(rmax - (q_offset + i - j), 0, r - 1)
@@ -357,8 +408,8 @@ class RelPosMultiHeadAttention(nn.Module):
             scores = (ac + bd) * scale
             if bias is not None:
                 scores = scores + bias
-            probs = dropout(torch.softmax(scores, dim=-1), self.dropout, deterministic,
-                            generator)
+            probs = dropout(torch.softmax(scores, dim=-1).to(v.dtype), self.dropout,
+                            deterministic, generator)
             out = torch.einsum("bhst,bthd->bshd", probs, v)
         return self.out_proj(out.reshape(b, s, self.embed_dim)), cache
 
@@ -367,14 +418,16 @@ class RelPosMultiHeadAttention(nn.Module):
         """`layers.py:446-480`: [B, T, H, Dh] inputs to the kernel's
         [B, H, T, Dh]; the table [R, H, Dh] to [H, R, Dh]; the bias (chunk mask +
         key validity, [B|1, 1, T, T] or None) broadcast to [B, 1, T, T]; dropout
-        at ``rate`` from ``seed`` inside the kernel."""
+        at ``rate`` from ``seed`` inside the kernel. Every input is cast to
+        float32 first, whatever the model's dtype (:472-476): the kernel is
+        fp32 only; the caller casts the output back."""
         b, t, _, _ = q_u.shape
         if bias is None:
             bias = torch.zeros((1, 1, t, t), dtype=torch.float32, device=q_u.device)
         bias = bias.expand(b, 1, t, t).contiguous()
-        q_u, q_v, k, v = (a.transpose(1, 2).contiguous() for a in (q_u, q_v, k, v))
+        q_u, q_v, k, v = (a.transpose(1, 2).float().contiguous() for a in (q_u, q_v, k, v))
         out = attention_kernels.relpos_attention(
-            q_u, q_v, k, v, p.transpose(0, 1).contiguous(), bias, scale, rate, seed)
+            q_u, q_v, k, v, p.transpose(0, 1).float().contiguous(), bias, scale, rate, seed)
         return out.transpose(1, 2)
 
 
@@ -382,12 +435,13 @@ class FeedForward(nn.Module):
     """Conformer macaron FFN: LN → W1 → swish → drop → W2 → drop
     (`conformer_layer.py:121-161`, `layers.py:602-620`)."""
 
-    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, ffn_dim: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.layer_norm = nn.LayerNorm(embed_dim)
-        self.w_1 = nn.Linear(embed_dim, ffn_dim)
-        self.w_2 = nn.Linear(ffn_dim, embed_dim)
+        self.layer_norm = LayerNorm(embed_dim, dtype)
+        self.w_1 = Dense(embed_dim, ffn_dim, dtype=dtype)
+        self.w_2 = Dense(ffn_dim, embed_dim, dtype=dtype)
 
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -416,7 +470,11 @@ def chunk_tap_allowed(t_out: int, kernel_size: int, stride: int,
 
 def _masked_taps(xp, weight, bias, stride, t_out, allowed, depthwise):
     """xp [B, T_pad, Cin] (padding included); weight [Cout, Cin, K] or depthwise
-    [C, 1, K] → [B, t_out, Cout]."""
+    [C, 1, K] → [B, t_out, Cout], in the promoted dtype of xp and the weight
+    (a bf16 weight on an fp32 input computes in fp32, as ``jnp``'s ``@``)."""
+    dt = torch.promote_types(xp.dtype, weight.dtype)
+    xp, weight = xp.to(dt), weight.to(dt)
+    bias = None if bias is None else bias.to(dt)
     k = weight.shape[-1]
     win = xp.unfold(1, k, stride)[:, :t_out]               # [B, t_out, Cin, K]
     win = win * allowed[None, :, None, :].to(xp.dtype)
@@ -456,25 +514,47 @@ def chunk_causal_conv1d_step(x_ctx, weight, bias, stride: int,
 class ChunkCausalConv(nn.Module):
     """Holds the conv parameters: weight [Cout, Cin, K], or [C, 1, K] depthwise.
     ``forward`` is the offline convolution (`layers.py:746-749`), ``step`` the
-    incremental one."""
+    incremental one; both cast the weight and bias to ``dtype`` first
+    (`layers.py:747-753`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, use_bias: bool = True, depthwise: bool = False):
+                 stride: int = 1, use_bias: bool = True, depthwise: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if depthwise and in_channels != out_channels:
             raise ValueError("depthwise conv needs in_channels == out_channels")
         self.stride, self.depthwise, self.kernel_size = stride, depthwise, kernel_size
+        self.dtype = dtype
         cin = 1 if depthwise else in_channels
         self.weight = nn.Parameter(torch.zeros(out_channels, cin, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
 
+    def _params(self):
+        return self.weight.to(self.dtype), _cast(self.bias, self.dtype)
+
     def forward(self, x, chunk_size: Optional[int]):
-        return chunk_causal_conv1d(x, self.weight, self.bias, self.stride, chunk_size,
+        return chunk_causal_conv1d(x, *self._params(), self.stride, chunk_size,
                                    self.depthwise)
 
     def step(self, x_ctx, chunk_size: Optional[int]):
-        return chunk_causal_conv1d_step(x_ctx, self.weight, self.bias, self.stride,
-                                        chunk_size, self.depthwise)
+        return chunk_causal_conv1d_step(x_ctx, *self._params(), self.stride, chunk_size,
+                                        self.depthwise)
+
+
+def cast_compute_weights_(model: nn.Module) -> nn.Module:
+    """Casts, once and in place, the weight and bias of every ``Dense`` and
+    ``ChunkCausalConv`` in ``model`` whose compute dtype is not float32 to that
+    dtype, so that serving launches no cast of them at each call: their
+    per-call ``.to`` then returns the tensor itself. The numbers are those of
+    the per-call cast. For a model that only serves (the parameters become
+    bf16, which no train step takes); LayerNorm, BatchNorm and the embedding
+    tables stay float32 (the MT decoder reads its rows uncast)."""
+    for m in model.modules():
+        if isinstance(m, (Dense, ChunkCausalConv)) and m.dtype != torch.float32:
+            for p in (m.weight, m.bias):
+                if p is not None:
+                    p.data = p.data.to(m.dtype)
+    return model
 
 
 class ConvolutionModule(nn.Module):
@@ -485,16 +565,16 @@ class ConvolutionModule(nn.Module):
     ``step`` the incremental one (running statistics, no dropout)."""
 
     def __init__(self, embed_dim: int, depthwise_kernel_size: int = 31,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = embed_dim
         self.dropout = dropout
-        self.layer_norm = nn.LayerNorm(c)
-        self.pointwise_conv1 = nn.Linear(c, 2 * c, bias=False)
+        self.layer_norm = LayerNorm(c, dtype)
+        self.pointwise_conv1 = Dense(c, 2 * c, bias=False, dtype=dtype)
         self.depthwise_conv = ChunkCausalConv(c, c, depthwise_kernel_size,
-                                              use_bias=False, depthwise=True)
-        self.batch_norm = BatchNorm(c)
-        self.pointwise_conv2 = nn.Linear(c, c, bias=False)
+                                              use_bias=False, depthwise=True, dtype=dtype)
+        self.batch_norm = BatchNorm(c, dtype=dtype)
+        self.pointwise_conv2 = Dense(c, c, bias=False, dtype=dtype)
 
     def _pre(self, x):
         a, g = self.pointwise_conv1(self.layer_norm(x)).chunk(2, dim=-1)

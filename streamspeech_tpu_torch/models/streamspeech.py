@@ -8,6 +8,14 @@ blank the last index. The forward takes flax's training options:
 plain attention routes, or the kernel routes once ``layers.set_kernel_train``
 has set the switch) and ``use_running_stats=False`` (BatchNorm's batch
 statistics).
+
+``StreamSpeechModel(cfg, dtype=torch.bfloat16)`` is the counterpart of
+``StreamSpeechModel(cfg, dtype=jnp.bfloat16)``: float32 parameters (so
+``weights.load_flax_variables`` loads it unchanged), bf16 compute where the
+JAX modules compute in their ``dtype``. Its forward and serving run the bf16
+forms of the causal, bias and not-blank kernels; rel-pos attention casts to
+float32 for its kernel, as in JAX. Training it is the next slice of the port:
+``train.trainer.make_train_step`` raises on it.
 """
 
 from __future__ import annotations
@@ -41,34 +49,43 @@ EOS = 2
 
 
 def ctc_not_blank_probs(logits: torch.Tensor, blank: int = 0) -> torch.Tensor:
-    """P(a new token at frame t) of one aux CTC head [B, T, V] → [B, T] float32,
-    no gradient (`streamspeech.py:41-67`). Routes on the TPU gate (t >= 64,
-    v >= 512) to the not-blank kernel, else computes the plain version."""
+    """P(a new token at frame t) of one aux CTC head [B, T, V] (float32 or
+    bfloat16) → [B, T] float32, no gradient (`streamspeech.py:41-67`). Routes
+    on the TPU gate (t >= 64, v >= 512) to the not-blank kernel, which widens
+    bf16 logits inside it, else computes the plain version, which widens them
+    first (:61)."""
     if policy.nb_kernel_ok(logits.shape[1], logits.shape[-1]):
         return policy.not_blank_probs(logits.contiguous(), blank)
     return policy.not_blank_probs_reference(logits.detach(), blank)
 
 
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 class StreamSpeechModel(nn.Module):
-    def __init__(self, cfg: StreamSpeechConfig):
+    """The StreamSpeech model at compute dtype ``dtype`` (float32 or bfloat16;
+    `streamspeech.py:70-104`), parameters float32. As in the JAX package,
+    ``cfg.dtype`` is read by nothing: the constructor's ``dtype`` decides."""
+
+    def __init__(self, cfg: StreamSpeechConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.cascade or cfg.synthesizer_encoder_layers <= 0:
             raise NotImplementedError("only the T2U-encoder (non-cascade) "
                                       "StreamSpeech variant is ported")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"dtype {cfg.dtype!r}: the port computes in float32 "
-                                      "only; bf16 is ROADMAP §A item 3")
-        self.cfg = cfg
+        if dtype not in COMPUTE_DTYPES:
+            raise NotImplementedError(f"compute dtype {dtype}: the port's kernels take "
+                                      "float32 and bfloat16")
+        self.cfg, self.dtype = cfg, dtype
         e, d = cfg.encoder, cfg.mt_decoder
-        self.encoder = ChunkConformerEncoder(e)
-        self.source_unigram_head = CTCHead(e.embed_dim, cfg.source_unigram_vocab)
+        self.encoder = ChunkConformerEncoder(e, dtype)
+        self.source_unigram_head = CTCHead(e.embed_dim, cfg.source_unigram_vocab, dtype)
         self.ctc_target_unigram_head = CTCHead(e.embed_dim,
-                                               cfg.ctc_target_unigram_vocab)
-        self.mt_decoder = TransformerDecoder(d, e.embed_dim)
+                                               cfg.ctc_target_unigram_vocab, dtype)
+        self.mt_decoder = TransformerDecoder(d, e.embed_dim, dtype)
         self.synthesizer_encoder = UniTransformerEncoder(
             d.embed_dim, d.ffn_embed_dim, d.attention_heads,
-            cfg.synthesizer_encoder_layers, d.dropout)
-        self.unit_decoder = CTCTransformerUnitDecoder(cfg.unit_decoder, d.embed_dim)
+            cfg.synthesizer_encoder_layers, d.dropout, dtype)
+        self.unit_decoder = CTCTransformerUnitDecoder(cfg.unit_decoder, d.embed_dim, dtype)
 
     def _check_generator(self, deterministic: bool,
                          generator: Optional[torch.Generator]) -> None:

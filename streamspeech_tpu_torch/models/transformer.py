@@ -6,6 +6,11 @@ heads.
 References: `researches/ctc_unity/modules/transformer_decoder.py:39-419`,
 `transformer_encoder.py:15-112`, `ctc_transformer_unit_decoder.py:25-267`,
 `fairseq/fairseq/models/speech_to_speech/modules/ctc_decoder.py:11`.
+
+``dtype`` is the compute dtype, as in the JAX modules: the MT decoder's token
+embedding is read from the float32 table (`transformer.py:532-534`) and its
+output projections use the table cast to the features' dtype (:536-537);
+the unit decoder's positions are cast to its input's dtype (:686).
 """
 
 from __future__ import annotations
@@ -18,7 +23,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from streamspeech_tpu_torch.config import DecoderConfig, UnitDecoderConfig
-from streamspeech_tpu_torch.models.layers import KVCache, MultiHeadAttention, dropout
+from streamspeech_tpu_torch.models.layers import (
+    Dense,
+    KVCache,
+    LayerNorm,
+    MultiHeadAttention,
+    dropout,
+)
 from streamspeech_tpu_torch.ops.masks import causal_allowed, waitk_allowed
 from streamspeech_tpu_torch.ops.pos_encoding import sinusoidal_embedding
 
@@ -40,11 +51,11 @@ class TransformerFFN(nn.Module):
     """fc1 → relu → activation dropout → fc2 → dropout (`transformer.py:126-139`)."""
 
     def __init__(self, ffn_dim: int, embed_dim: int, dropout: float = 0.0,
-                 activation_dropout: float = 0.0):
+                 activation_dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout, self.activation_dropout = dropout, activation_dropout
-        self.fc1 = nn.Linear(embed_dim, ffn_dim)
-        self.fc2 = nn.Linear(ffn_dim, embed_dim)
+        self.fc1 = Dense(embed_dim, ffn_dim, dtype=dtype)
+        self.fc2 = Dense(ffn_dim, embed_dim, dtype=dtype)
 
     def forward(self, x, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -57,13 +68,14 @@ class TransformerEncoderLayer(nn.Module):
     dropout, residual dropout and the FFN's two dropouts all at ``dropout``."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout=dropout)
-        self.self_attn_layer_norm = nn.LayerNorm(embed_dim)
-        self.ffn = TransformerFFN(ffn_dim, embed_dim, dropout, dropout)
-        self.final_layer_norm = nn.LayerNorm(embed_dim)
+        self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout=dropout,
+                                            dtype=dtype)
+        self.self_attn_layer_norm = LayerNorm(embed_dim, dtype)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim, dropout, dropout, dtype)
+        self.final_layer_norm = LayerNorm(embed_dim, dtype)
 
     def forward(self, x, allowed=None, key_valid=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -79,13 +91,13 @@ class UniTransformerEncoder(nn.Module):
     (`transformer_encoder.py:15-77`; `transformer.py:183-209`)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
-                 num_layers: int, dropout: float = 0.0):
+                 num_layers: int, dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
             self.add_module(f"layers_{i}", TransformerEncoderLayer(
-                embed_dim, ffn_dim, num_heads, dropout))
-        self.layer_norm = nn.LayerNorm(embed_dim)
+                embed_dim, ffn_dim, num_heads, dropout, dtype))
+        self.layer_norm = LayerNorm(embed_dim, dtype)
 
     def forward(self, x, key_valid=None, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
@@ -104,17 +116,18 @@ class TransformerDecoderLayer(nn.Module):
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int,
                  normalize_before: bool, enc_dim: int, dropout: float = 0.0,
-                 attention_dropout: float = 0.0, activation_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, activation_dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.normalize_before, self.dropout = normalize_before, dropout
         self.self_attn = MultiHeadAttention(embed_dim, num_heads,
-                                            dropout=attention_dropout)
-        self.self_attn_layer_norm = nn.LayerNorm(embed_dim)
+                                            dropout=attention_dropout, dtype=dtype)
+        self.self_attn_layer_norm = LayerNorm(embed_dim, dtype)
         self.encoder_attn = MultiHeadAttention(embed_dim, num_heads, kdim=enc_dim,
-                                               dropout=attention_dropout)
-        self.encoder_attn_layer_norm = nn.LayerNorm(embed_dim)
-        self.ffn = TransformerFFN(ffn_dim, embed_dim, dropout, activation_dropout)
-        self.final_layer_norm = nn.LayerNorm(embed_dim)
+                                               dropout=attention_dropout, dtype=dtype)
+        self.encoder_attn_layer_norm = LayerNorm(embed_dim, dtype)
+        self.ffn = TransformerFFN(ffn_dim, embed_dim, dropout, activation_dropout, dtype)
+        self.final_layer_norm = LayerNorm(embed_dim, dtype)
 
     def _sublayer(self, x, ln, fn):
         if self.normalize_before:
@@ -153,7 +166,7 @@ class TransformerDecoder(nn.Module):
     """First-pass MT text decoder (`transformer.py:483-597`); ``enc_dim`` is the
     speech encoder's width."""
 
-    def __init__(self, cfg: DecoderConfig, enc_dim: int):
+    def __init__(self, cfg: DecoderConfig, enc_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.base_layers:
             raise NotImplementedError("BASE expert layers are not ported")
@@ -165,8 +178,8 @@ class TransformerDecoder(nn.Module):
         for i in range(cfg.layers):      # no attention or activation dropout (:498-502)
             self.add_module(f"layers_{i}", TransformerDecoderLayer(
                 cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads,
-                cfg.normalize_before, enc_dim, cfg.dropout))
-        self.layer_norm = nn.LayerNorm(cfg.embed_dim) if cfg.normalize_before else None
+                cfg.normalize_before, enc_dim, cfg.dropout, dtype=dtype))
+        self.layer_norm = LayerNorm(cfg.embed_dim, dtype) if cfg.normalize_before else None
 
     def layers(self) -> List[TransformerDecoderLayer]:
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.layers)]
@@ -175,7 +188,7 @@ class TransformerDecoder(nn.Module):
         return self.embed_scale * self.embed_tokens[tokens] + self.pos_table[positions]
 
     def output_layer(self, x):
-        return x @ self.embed_tokens.T
+        return x @ self.embed_tokens.to(x.dtype).T
 
     def _final(self, x):
         return x if self.layer_norm is None else self.layer_norm(x)
@@ -234,7 +247,8 @@ class CTCTransformerUnitDecoder(nn.Module):
     states (width ``enc_dim``) under the wait-k mask (the bias-attention kernel
     at T >= 512), project to unit-CTC logits through the embedding table."""
 
-    def __init__(self, cfg: UnitDecoderConfig, enc_dim: int):
+    def __init__(self, cfg: UnitDecoderConfig, enc_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.n_frames_per_step != 1:
             raise NotImplementedError("stacked units (n_frames_per_step > 1) "
@@ -246,8 +260,8 @@ class CTCTransformerUnitDecoder(nn.Module):
         for i in range(cfg.layers):      # every dropout at cfg.dropout (:636-641)
             self.add_module(f"layers_{i}", TransformerDecoderLayer(
                 cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads, True,
-                enc_dim, cfg.dropout, cfg.dropout, cfg.dropout))
-        self.layer_norm = nn.LayerNorm(cfg.embed_dim)
+                enc_dim, cfg.dropout, cfg.dropout, cfg.dropout, dtype))
+        self.layer_norm = LayerNorm(cfg.embed_dim, dtype)
 
     def forward(self, enc: torch.Tensor, enc_valid: Optional[torch.Tensor] = None,
                 src_wait: Optional[int] = None, src_step: Optional[int] = None,
@@ -265,7 +279,7 @@ class CTCTransformerUnitDecoder(nn.Module):
         x = torch.repeat_interleave(enc, up, dim=1)
         t_up = x.shape[1]
         x = x + unit_decoder_positions(self.pos_table, 1 if serving_positions else b,
-                                       t_up)
+                                       t_up).to(x.dtype)
         x = dropout(x, self.cfg.dropout, deterministic, generator)
         self_valid = (None if enc_valid is None
                       else torch.repeat_interleave(enc_valid, up, dim=1))
@@ -278,15 +292,15 @@ class CTCTransformerUnitDecoder(nn.Module):
                                              deterministic=deterministic,
                                              generator=generator)
         x = self.layer_norm(x)
-        return x @ self.embed_tokens.T, x
+        return x @ self.embed_tokens.to(x.dtype).T, x
 
 
 class CTCHead(nn.Module):
     """Linear CTC projection over encoder states."""
 
-    def __init__(self, embed_dim: int, vocab_size: int):
+    def __init__(self, embed_dim: int, vocab_size: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Linear(embed_dim, vocab_size)
+        self.proj = Dense(embed_dim, vocab_size, dtype=dtype)
 
     def forward(self, x):
         return self.proj(x)

@@ -22,7 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from streamspeech_tpu_torch.models.layers import KVCache
+from streamspeech_tpu_torch.models.layers import KVCache, cast_compute_weights_
 from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.models.vocoder import SAMPLES_PER_FRAME, CodeGenerator
 from streamspeech_tpu_torch.ops.ctc import ctc_collapse, ctc_collapse_device
@@ -42,7 +42,13 @@ def _bucket(n: int, buckets: Tuple[int, ...]) -> int:
 class StreamSpeechEngine:
     """Owns the model and vocoder (eval mode, on ``device``) and the serving
     limits shared by every session. Serves on the card unless ``device`` says
-    otherwise (``device="cpu"``); raises when asked for CUDA without a card."""
+    otherwise (``device="cpu"``); raises when asked for CUDA without a card.
+    A bf16 model (``StreamSpeechModel(cfg, dtype=torch.bfloat16)``) serves in
+    bf16 (buffers as ``session_init`` says); the vocoder stays float32, as in
+    ``measure_bf16_drift`` (`benchmarks.py:950-979`). The engine casts the
+    model's Dense and convolution weights to bf16 once, here, in place
+    (``layers.cast_compute_weights_``): the model computes as before and
+    launches no per-call cast of them; it is then for serving only."""
 
     def __init__(
         self,
@@ -59,7 +65,7 @@ class StreamSpeechEngine:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("StreamSpeechEngine: no CUDA device is available; "
                                "pass device='cpu' to serve on the CPU")
-        self.model = model.to(self.device).eval()
+        self.model = cast_compute_weights_(model.to(self.device).eval())
         self.vocoder = None if vocoder is None else vocoder.to(self.device).eval()
         self.max_enc_frames = max_enc_frames
         self.max_mt_tokens = max_mt_tokens
@@ -79,8 +85,12 @@ class StreamSpeechEngine:
         return StreamingSession(self)
 
     def session_init(self):
-        """Fresh per-session device state: encoder stream state, encoder output
-        buffer [1, max_enc_frames, C], MT self and cross KV caches."""
+        """Fresh per-session device state: encoder stream state (in the model's
+        compute dtype), encoder output buffer [1, max_enc_frames, C], MT self
+        and cross KV caches. The buffer and the MT caches are float32 whatever
+        the model's dtype, as the JAX engine makes them (`session.py:118-127`):
+        a bf16 encoder's frames are widened into the buffer (:96), a bf16
+        model's keys and values into the caches, exactly."""
         c = self.model.cfg
         enc_state = self.model.encoder_stream_init(1, self.max_enc_frames, self.device)
         enc_buf = torch.zeros((1, self.max_enc_frames, c.encoder.embed_dim),

@@ -190,7 +190,15 @@ def make_train_step(model: StreamSpeechModel, tx: Optimizer, unit_blank: int,
     routes (rel-pos, causal and bias attention, forward and backward, the
     attention-probability dropout drawn inside the kernels) wherever their
     gates admit the shape. It is set on the model's attention modules here
-    (``set_kernel_train``), on or off; off, the step is the plain route's."""
+    (``set_kernel_train``), on or off; off, the step is the plain route's.
+
+    The model must compute in float32: a bf16 model raises. bf16 training (the
+    trainer's casts, B4 and B6 in bf16) is the next slice of the port, ROADMAP
+    §A item 4."""
+    if model.dtype != torch.float32:
+        raise NotImplementedError(f"make_train_step on a {model.dtype} model: bf16 "
+                                  "training is the next slice of the port (ROADMAP §A "
+                                  "item 4); the bf16 model runs the forward and serves")
     set_kernel_train(model, kernel_attention)
 
     def forward(batch, generator, chunk_size, conv_chunk_size):

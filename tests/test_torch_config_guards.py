@@ -2,6 +2,7 @@
 computing something other than the JAX package would (no JAX needed)."""
 
 import pytest
+import torch
 
 from streamspeech_tpu_torch.config import OptimizationConfig, tiny_config
 from streamspeech_tpu_torch.models.conformer import ChunkConformerEncoder
@@ -9,10 +10,15 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 
 
 def test_model_raises_on_a_dtype_other_than_float32():
+    """float32 and bfloat16 are the compute dtypes the kernels take; any other
+    raises. ``cfg.dtype`` is read by nothing, as in the JAX package."""
+    with pytest.raises(NotImplementedError, match="float32 and bfloat16"):
+        StreamSpeechModel(tiny_config(), dtype=torch.float16)
     cfg = tiny_config()
     cfg.dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="float32"):
-        StreamSpeechModel(cfg)
+    assert StreamSpeechModel(cfg).dtype == torch.float32
+    bf16 = StreamSpeechModel(tiny_config(), dtype=torch.bfloat16)
+    assert {p.dtype for p in bf16.parameters()} == {torch.float32}
 
 
 def test_encoder_raises_on_speaker_embed_dim():
@@ -34,3 +40,13 @@ def test_tiny_config_still_builds():
 def test_optimizer_dtype_keeps_the_jax_default():
     # read by nothing in the port: the train step computes in float32
     assert OptimizationConfig().dtype == "bfloat16"
+
+
+def test_train_step_raises_on_a_bf16_model():
+    from streamspeech_tpu_torch.train.trainer import make_optimizer, make_train_step
+
+    cfg = tiny_config()
+    model = StreamSpeechModel(cfg, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        make_train_step(model, make_optimizer(OptimizationConfig(update_freq=1)),
+                        unit_blank=cfg.unit_decoder.vocab_size - 1)

@@ -17,6 +17,7 @@ from streamspeech_tpu.ops import pallas_ctc as jpc
 
 from streamspeech_tpu_torch.kernels import ctc as kctc
 from streamspeech_tpu_torch.ops import ctc as pctc
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VAL = dict(rtol=2e-5, atol=2e-5)
 GRAD = dict(rtol=2e-4, atol=2e-5)

@@ -26,6 +26,7 @@ from streamspeech_tpu.ops import pallas_ctc as jpc
 
 from streamspeech_tpu_torch.kernels import ctc as kctc
 from streamspeech_tpu_torch.ops.ctc import NNEG, lse3
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 1e-5        # alpha and NLL: |err| <= RTOL * max(1, |ref|)
 GRAD_ATOL = 1e-6   # the occupancy gradient, values in [-1, 0]

@@ -36,6 +36,7 @@ from streamspeech_tpu_torch.models.streamspeech import ctc_not_blank_probs
 from streamspeech_tpu_torch.ops import masks as pmasks
 from streamspeech_tpu_torch.runtime.session import StreamSpeechEngine
 from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-4
 D, H = 32, 2

@@ -898,3 +898,133 @@ def test_kernels_keep_bits_equal_the_plain_mask(hopper, family, t):
     assert 0.3 < float(allowed.float().mean()) and 0.8 < float(want.sum() / allowed.sum()) < 0.99
     assert torch.equal(out != 0, want)
     assert torch.equal(dv.transpose(-1, -2) != 0, want)
+
+
+# The bf16 forms of B3, B5 (``csrc/attention_bf16.cuh``) and B7. The kernel
+# rounds each un-normalised probability to bf16 and divides at the end; the
+# plain version normalises, then rounds (JAX's order). Each probability p_j is
+# rounded once on each side (at most 2^-8 p_j: bf16 keeps 8 significant bits),
+# so each output element differs by at most 2^-7 sum_j p_j |v_j|, plus the
+# fp32 summation order; p are the plain version's fp32 probabilities, which
+# ``reference`` on |v| in float32 sums without rounding.
+def _assert_within_bf16_bound(got, want, reference, q, k, v, bias, scale):
+    bound = 2.0 ** -7 * reference(q, k, v.float().abs(), bias, scale) + 1e-5
+    share = float(((got - want).abs() / bound).max())
+    assert share <= 1.0, f"an element reached {share} of its bound"
+
+
+def _bf16(*arrays, device):
+    return [torch.from_numpy(a).to(device=device, dtype=torch.bfloat16) for a in arrays]
+
+
+# every head dim at one tile and at five, ragged; the serving buckets at D = 64
+BF16_CAUSAL_CASES = [(d, t_pad, n_valid) for d in range(8, 257, 8)
+                     for t_pad, n_valid in ((64, 40), (320, 300))] + \
+    [(64, 512, 400), (64, 3200, 3200)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,t_pad,n_valid", BF16_CAUSAL_CASES)
+def test_bf16_causal_kernel_matches_plain_version(hopper, d, t_pad, n_valid):
+    q, k, v, kvb = _inputs(2, 2, t_pad, d, seed=t_pad + d, n_valid=[n_valid, t_pad])
+    q, k, v = _bf16(q, k, v, device=hopper)
+    kvb = torch.from_numpy(kvb).to(hopper)
+    before = (attention.masked_attention.launches, attention.masked_attention.bf16_launches)
+    with torch.no_grad():
+        got = attention.masked_attention(q, k, v, kvb, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (attention.masked_attention.launches,
+            attention.masked_attention.bf16_launches) == (before[0], before[1] + 1)
+    assert got.dtype == torch.float32
+    want = attention.masked_attention_reference(q, k, v, kvb, d ** -0.5)
+    _assert_within_bf16_bound(got, want, attention.masked_attention_reference,
+                              q, k, v, kvb, d ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tk", [1, 8, 24, 30, 48, 64, 65, 130])
+@pytest.mark.parametrize("d", [8, 24, 64, 136, 256])
+def test_bf16_bias_kernel_matches_plain_version(hopper, d, tk):
+    """One key, one 8-key tile, the unit decoder's 24 and 48, a ragged row of
+    30 (bias rows by 4-byte copies), one whole tile, one past it, two past it;
+    TQ = 70 (not a multiple of the query tile)."""
+    q, k, v, bias = _bias_inputs(2, 3, 70, tk, d, seed=tk + 7 * d)
+    q, k, v = _bf16(q, k, v, device=hopper)
+    bias = torch.from_numpy(bias).to(hopper)
+    before = (attention.bias_attention.launches, attention.bias_attention.bf16_launches)
+    with torch.no_grad():
+        got = attention.bias_attention(q, k, v, bias, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (attention.bias_attention.launches,
+            attention.bias_attention.bf16_launches) == (before[0], before[1] + 1)
+    want = attention.bias_attention_reference(q, k, v, bias, d ** -0.5)
+    _assert_within_bf16_bound(got, want, attention.bias_attention_reference,
+                              q, k, v, bias, d ** -0.5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,v,blank", [(1, 256, 6000, 0), (8, 256, 6000, 0),
+                                         (3, 65, 513, 512), (2, 64, 6004, 0),
+                                         (1, 70, 6001, 3)])
+def test_bf16_not_blank_kernel_matches_plain_version(hopper, b, t, v, blank):
+    """16-byte loads of 8 logits where V % 8 == 0, single logits otherwise."""
+    from streamspeech_tpu_torch.kernels import policy
+
+    logits = torch.from_numpy(np.random.RandomState(v + t).randn(b, t, v).astype(
+        np.float32) * 4).to(hopper, torch.bfloat16)
+    before = (policy.not_blank_probs.launches, policy.not_blank_probs.bf16_launches)
+    got = policy.not_blank_probs(logits, blank)
+    torch.cuda.synchronize()
+    assert (policy.not_blank_probs.launches,
+            policy.not_blank_probs.bf16_launches) == (before[0], before[1] + 1)
+    torch.testing.assert_close(got, policy.not_blank_probs_reference(logits, blank),
+                               atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_raise_instead_of_falling_back(hopper):
+    z = torch.zeros(1, 2, 64, 64, device=hopper, dtype=torch.bfloat16)
+    kvb = torch.zeros(1, 1, 64, device=hopper)
+    bias = torch.zeros(1, 64, 64, device=hopper)
+    with pytest.raises(ValueError):                     # k not bf16 like q
+        attention.masked_attention(z, z.float(), z, kvb, 0.125)
+    with pytest.raises(ValueError):                     # the bias stays fp32
+        attention.bias_attention(z, z, z, bias.bfloat16(), 0.125)
+    with pytest.raises(ValueError):                     # float16 has no instance
+        attention.masked_attention(z.half(), z.half(), z.half(), kvb, 0.125)
+    with pytest.raises(NotImplementedError, match="next slice"):     # dropout
+        attention.masked_attention(z, z, z, kvb, 0.125, 0.1, _seed(hopper))
+    leaf = z.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="next slice"):     # a gradient
+        attention.bias_attention(leaf, z, z, bias, 0.125)
+    with pytest.raises(ValueError):                     # rel-pos stays fp32
+        attention.relpos_attention(z, z, z, z, torch.zeros(2, 127, 64, device=hopper,
+                                                           dtype=torch.bfloat16),
+                                   torch.zeros(1, 1, 64, 64, device=hopper), 0.125)
+
+
+@pytest.mark.gpu
+def test_bf16_model_routes_launch_the_bf16_forms(hopper):
+    """A bf16 model's unit-decoder attention and CTC mask at the kernel gates
+    (T >= 256, S >= 512, V >= 512) launch the bf16 forms and no fp32 one."""
+    from streamspeech_tpu_torch.config import tiny_config
+    from streamspeech_tpu_torch.kernels import policy
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+    from streamspeech_tpu_torch.weights import random_init_
+
+    cfg = tiny_config(vocab_text=512, upsample=25)
+    model = random_init_(StreamSpeechModel(cfg, dtype=torch.bfloat16), 0).eval().to(hopper)
+    rng = np.random.RandomState(0)
+    src = torch.from_numpy(rng.randn(1, 1024, 80).astype(np.float32)).to(hopper)
+    mt = torch.from_numpy(rng.randint(4, 512, size=(1, 24))).to(hopper)
+    mt[:, 0] = 2
+    counts = (attention.masked_attention, attention.bias_attention, policy.not_blank_probs)
+    before = [(f.launches, f.bf16_launches) for f in counts]
+    with torch.no_grad():
+        out = model(src, torch.tensor([1024], device=hopper), mt, n2=1)
+    torch.cuda.synchronize()
+    after = [(f.launches, f.bf16_launches) for f in counts]
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == \
+        [(0, 1), (0, 1), (0, 2)]
+    assert out["unit_logits"].dtype == torch.bfloat16
+    assert torch.isfinite(out["unit_logits"].float()).all()

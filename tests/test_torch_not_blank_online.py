@@ -21,6 +21,7 @@ import torch
 from streamspeech_tpu.ops.pallas_policy import not_blank_probs_pallas
 
 from streamspeech_tpu_torch.kernels import policy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6  # posteriors in [0, 1], fp32 on both sides, another summation order
 SHAPES = [(2, 64, 512), (1, 65, 513), (3, 70, 6001)]
@@ -30,16 +31,6 @@ SMS = 132  # an H100's, which the launcher reads from the device
 
 def _logits(b, t, v):
     return np.random.RandomState(b * t + v).randn(b, t, v).astype(np.float32) * 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The emulation is thousands of small ops: one thread each, not a pool
-    contending with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.train import trainer as ptrain
 from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CHUNK, CONV_CHUNK = 4, 8
 OPT = dict(warmup_updates=10, lr=1e-3, clip_norm=1.0)
@@ -55,6 +56,22 @@ def jax_setup():
     return jcfg, jmodel, variables, jax_batch(jcfg, batch=4)
 
 
+@pytest.fixture(scope="module")
+def jax_steps(jax_setup):
+    """The JAX optimizer and jitted train step per ``update_freq``, made once
+    for the file: each new step would compile again."""
+    jcfg, jmodel, _, _ = jax_setup
+    steps = {}
+
+    def get(update_freq):
+        if update_freq not in steps:
+            jtx = jax_make_optimizer(JaxOptimizationConfig(update_freq=update_freq, **OPT))
+            steps[update_freq] = jtx, jax_make_train_step(
+                jmodel, jtx, unit_blank=jcfg.unit_decoder.vocab_size - 1)
+        return steps[update_freq]
+    return get
+
+
 def _port_model(variables):
     """A port model holding a flax ``{"params", "batch_stats"}`` tree (weights,
     gradients or running stats), through the weights bridge."""
@@ -67,11 +84,10 @@ def _close_metrics(got, want):
                                    atol=1e-6, err_msg=key)
 
 
-def _run_both(jax_setup, update_freq, calls):
+def _run_both(jax_setup, jax_steps, update_freq, calls):
     jcfg, jmodel, variables, jbatch = jax_setup
     unit_blank = jcfg.unit_decoder.vocab_size - 1
-    jtx = jax_make_optimizer(JaxOptimizationConfig(update_freq=update_freq, **OPT))
-    jstep = jax_make_train_step(jmodel, jtx, unit_blank=unit_blank)
+    jtx, jstep = jax_steps(update_freq)
     jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, variables), jtx)
     pmodel = _port_model(variables)
     ptx = ptrain.make_optimizer(OptimizationConfig(update_freq=update_freq, **OPT))
@@ -94,12 +110,12 @@ def _lr_sum(updates):
 
 
 @pytest.mark.parametrize("update_freq,calls", [(1, 3), (2, 4)])
-def test_train_steps_match_jax(jax_setup, update_freq, calls):
+def test_train_steps_match_jax(jax_setup, jax_steps, update_freq, calls):
     """Loss components, ``grad_norm`` and ``overflow`` of every call within
     rtol 1e-4, BatchNorm stats after every call within 1e-5, and the params
     after the last call within 2·Σ lr of the updates made. With update_freq 2
     the params move on calls 2 and 4 only, while the step counts every call."""
-    jstate, pstate, pmodel, history = _run_both(jax_setup, update_freq, calls)
+    jstate, pstate, pmodel, history = _run_both(jax_setup, jax_steps, update_freq, calls)
     for jm, pm, jstats, pstats in history:
         assert sorted(pm) == sorted(jm)
         _close_metrics(pm, jm)
@@ -119,11 +135,11 @@ def test_train_steps_match_jax(jax_setup, update_freq, calls):
                                    rtol=0, atol=atol, err_msg=name)
 
 
-def test_batch_stats_of_a_port_step_load_back_beside_jaxs(jax_setup):
+def test_batch_stats_of_a_port_step_load_back_beside_jaxs(jax_setup, jax_steps):
     """The running stats one port train step writes equal JAX's
     ``mutated["batch_stats"]`` carried across the weights bridge, every
     BatchNorm of the encoder, within 1e-5, and differ from the initial ones."""
-    jstate, pstate, _, _ = _run_both(jax_setup, 1, 1)
+    jstate, pstate, _, _ = _run_both(jax_setup, jax_steps, 1, 1)
     _, _, variables, _ = jax_setup
     bridged = _port_model({"params": _np(jstate.params),
                         "batch_stats": _np(jstate.batch_stats)})
@@ -156,7 +172,7 @@ def test_step_one_gradients_match_jax(jax_setup):
         m = jax_loss(out, jbatch, unit_blank)
         return m["loss"] / m["sample_size"].astype(jnp.float32)
 
-    jgrads = _np(jax.grad(loss)(jax.tree.map(jnp.asarray, variables["params"])))
+    jgrads = _np(jax.jit(jax.grad(loss))(jax.tree.map(jnp.asarray, variables["params"])))
     want = dict(_port_model({"params": jgrads,
                           "batch_stats": variables["batch_stats"]}).named_parameters())
     pmodel = _port_model(variables)

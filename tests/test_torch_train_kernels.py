@@ -47,6 +47,7 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.train import trainer as ptrain
 from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 OPT = dict(warmup_updates=10, lr=1e-3, clip_norm=1.0)
 CHUNK, CONV_CHUNK = 4, 8

@@ -29,6 +29,7 @@ from streamspeech_tpu_torch.train import criterion as pcrit
 from streamspeech_tpu_torch.train import lr as plr
 from streamspeech_tpu_torch.train import synthetic as psyn
 from streamspeech_tpu_torch.train import trainer as ptrain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x):

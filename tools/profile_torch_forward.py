@@ -1,6 +1,7 @@
 """Where the time of the port's offline forward goes, on one CUDA card.
 
     python3 tools/profile_torch_forward.py [--out chiprun_out/profile_forward.txt]
+                                           [--dtype float32|bfloat16]
 
 Builds the ``chip_smoke.py`` forward setup (``full_config``, seeded random
 weights, doctored) and, for each of ``measure_forward``'s shape (B=1, 1024
@@ -13,7 +14,8 @@ forwards:
    launch count, and each of the port's four CUDA kernels' device time.
 
 Prints one JSON line per shape and the card's ``nvidia-smi`` name and power
-limit; the profiler's tables go to ``--out``. fp32 throughout (TF32 off).
+limit; the profiler's tables go to ``--out``. TF32 off; ``--dtype bfloat16``
+builds the model with that compute dtype (its bf16 kernel forms run).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel  # noqa
 from streamspeech_tpu_torch.weights import doctor_params, random_init_  # noqa: E402
 
 KERNELS = ("relpos_attention_kernel", "bias_attention_kernel",
-           "causal_attention_kernel", "not_blank_kernel")
+           "causal_attention_kernel", "attention_bf16_kernel", "not_blank_kernel")
 FORWARD_KW = dict(chunk_size=8, conv_chunk_size=8, k1=0, n1=1, k2=0, n2=1)
 
 
@@ -43,6 +45,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_forward.txt")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_forward: needs a CUDA device")
@@ -55,7 +58,8 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model = doctor_params(random_init_(StreamSpeechModel(full_config()),
+    dtype = getattr(torch, args.dtype)
+    model = doctor_params(random_init_(StreamSpeechModel(full_config(), dtype=dtype),
                                        args.seed)).eval().cuda()
     tables = []
     for batch, mt_len in ((1, 24), (8, 48)):
@@ -85,7 +89,7 @@ def main():
         kernel_rows = [e for e in events if e.device_type == DeviceType.CUDA]
         wall_ms = statistics.median(walls) * 1e3
         print(json.dumps({
-            "batch": batch, "frames": 1024, "mt_len": mt_len,
+            "dtype": args.dtype, "batch": batch, "frames": 1024, "mt_len": mt_len,
             "wall_ms_median": wall_ms, "wall_ms_all": [w * 1e3 for w in walls],
             "device_ms_per_forward": device_ms,
             "device_busy_share": device_ms / wall_ms,

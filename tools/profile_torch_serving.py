@@ -1,6 +1,7 @@
 """Where the time of the port's serving loop goes, on one CUDA card.
 
     python3 tools/profile_torch_serving.py [--out chiprun_out/profile_serving.txt]
+                                           [--dtype float32|bfloat16]
 
 Builds the ``chip_smoke.py`` serving setup (``full_config``, seeded random
 weights doctored so the policy writes, full-width vocoder), runs a 3 s warm-up
@@ -12,7 +13,9 @@ utterance, then one 10 s utterance twice:
    ``cudaLaunchKernel`` count and the masked-attention kernel's share.
 
 Prints one JSON line per run and the card's ``nvidia-smi`` name and power
-limit; the profiler's tables go to ``--out``. fp32 throughout (TF32 off).
+limit; the profiler's tables go to ``--out``. TF32 off; ``--dtype bfloat16``
+serves the model at that compute dtype (the vocoder stays fp32), its causal
+attention the bf16 form.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out/profile_serving.txt")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serving: needs a CUDA device")
@@ -77,27 +81,31 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
 
-    agent = cs._build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", args.seed)
+    bf16 = args.dtype == "bfloat16"
+    counter = "bf16_launches" if bf16 else "launches"
+    kernel = "attention_bf16_kernel" if bf16 else "causal_attention_kernel"
+    agent = cs._build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", args.seed,
+                            getattr(torch, args.dtype))
     rng = np.random.RandomState(args.seed)
     cs._run_utterance(agent, cs._babble(rng, 3.0))          # warm-up
     samples = cs._babble(rng, 10.0)
 
     split = {}
     new_session = _timed_sessions(agent.engine, split)
-    masked_attention.launches = 0
+    setattr(masked_attention, counter, 0)
     stats, *_ = cs._run_utterance(agent, samples)
     unprofiled_wall = stats["wall_s"]
     parts = sum(split[n] for n in PARTS)
-    print(json.dumps({"run": "split", "utterance": stats, "split_s": split,
-                      "rest_s": stats["wall_s"] - parts,
-                      "masked_attention_launches": masked_attention.launches}),
+    print(json.dumps({"run": "split", "dtype": args.dtype, "utterance": stats,
+                      "split_s": split, "rest_s": stats["wall_s"] - parts,
+                      "masked_attention_launches": getattr(masked_attention, counter)}),
           flush=True)
     agent.engine.new_session = new_session
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    masked_attention.launches = 0
+    setattr(masked_attention, counter, 0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         stats, *_ = cs._run_utterance(agent, samples)
     events = prof.key_averages()
@@ -105,16 +113,15 @@ def main():
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == DeviceType.CUDA) / 1e3
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    kernel_ms = sum(e.self_device_time_total for e in events
-                    if "causal_attention_kernel" in e.key) / 1e3
-    print(json.dumps({"run": "profiled", "utterance": stats,
+    kernel_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3
+    print(json.dumps({"run": "profiled", "dtype": args.dtype, "utterance": stats,
                       "device_self_ms": device_ms,
                       "device_busy_share": device_ms / 1e3 / stats["wall_s"],
                       "device_busy_share_of_unprofiled_wall":
                           device_ms / 1e3 / unprofiled_wall,
                       "cudaLaunchKernel_calls": launches,
                       "masked_attention_device_ms": kernel_ms,
-                      "masked_attention_launches": masked_attention.launches}),
+                      "masked_attention_launches": getattr(masked_attention, counter)}),
           flush=True)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
