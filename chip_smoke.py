@@ -135,13 +135,47 @@ Phases 13-15 run after phases 3, 4 and 6 in turn:
             counterpart of ``measure_bf16_drift`` against phase 4: each
             utterance's unit normalised edit distance and write positions that
             differ, reported, not gated.
-Then the ``kernels`` summary line (thirteen entries, the ten kernels and the
-bf16 forms of B3, B5 and B7, launches by path; the mask's own kernel runs on no
-path, so its entry carries the draws by path), the card's name and power
-limit, and last the ``ok`` line.
+Phases 16-19 run after phase 12:
+16. kernel  (continued) the bf16 training forms: B3-bf16 and B5-bf16 with
+            dropout and row statistics, B4-bf16 and B6-bf16
+            (``csrc/attention_bwd_bf16.cuh``) at phase 10's shapes, bf16 q/k/v
+            and an fp32 g, at dropout 0 and 0.1: the forward within the bf16
+            forward's bound of its plain version under the same mask; dq, dK
+            and dV (bf16) within one bf16 ulp plus ``BF16_GRAD_TERMS`` of
+            their terms' magnitudes (dp's own terms in ds) of the plain bf16
+            backward; delta, the dQ
+            pass's scratch, within 2^-16 of its terms' magnitudes of Σ p dp
+            while rowsum(g out) misses by more than ten times that (V offset by 4:
+            a kernel that took delta from the output fails); two backward
+            calls equal bit for bit; each kernel's own keep bits (v, g the
+            identity, T = D = 64) equal to ``dropout_keep_reference``; device
+            ms of each, its plain version, bf16 SDPA under the same mask and
+            ``dropout_p`` (forward; forward + backward minus forward) and the
+            bound at the bf16 tensor-core peak.
+17. train_bf16, train_bf16_kernels  phase 8's and 11's steps with the model
+            computing in bf16 (``StreamSpeechModel(cfg, dtype=torch.bfloat16)``,
+            fp32 parameters and Adam): per step 2 bf16 not-blank, 2 alpha, 2
+            beta launches; on the kernel route also 2/2 bf16 causal/bias
+            training forwards and as many bf16 backward calls, 12/12 fp32
+            rel-pos (the route casts to fp32) and 32 mask draws.
+18. train_bf16_reference, train_bf16_kernels_reference (at dropout 0 and at
+            attention dropout 0.1)  phases 9 and 12 with the bf16 model: the
+            card's step against the same bf16 step on the CPU, held to the CPU
+            bf16 step's own distance from phase 9's or 12's CPU fp32 step:
+            the whole gradient and the batch statistics within
+            ``BF16_DRIFT``, each gradient tensor within ``BF16_TENSOR_DRIFT``,
+            each loss within ``BF16_LOSS_RTOL`` of itself; the CPU bf16
+            step's ReLU ties reported.
+The bias route pads its keys to the 128 tile as JAX does
+(``models/layers.py`` ``_bias_kernel``), so every bias-attention row runs at
+TK = 128 with the valid keys beside (``tk_valid``).
+Then the ``kernels`` summary line (fifteen entries, the ten kernels and the
+bf16 forms of B3-B7, launches by path; the bf16 B3 and B5 entries carry their
+training form; the mask's own kernel runs on no path, so its entry carries the
+draws by path), the card's name and power limit, and last the ``ok`` line.
 
 fp32 throughout but the bf16 phases: TF32 is switched off for matmuls and
-cuDNN convolutions.
+cuDNN convolutions. Phase 12's train shapes are also phase 16's.
 """
 
 from __future__ import annotations
@@ -195,6 +229,9 @@ ATTN_DROPOUT = 0.1
 MASKED_TRAIN_SHAPES = [(8, 1280, 1200), (2, 384, 300)]
 RELPOS_TRAIN_SHAPES = [(8, 256, 256), (2, 384, 300)]      # (B, T, valid keys of the last row)
 BIAS_TRAIN_SHAPES = [(8, 1200, 48), (2, 650, 30)]         # (B, TQ, TK)
+# the bias route pads its keys to this tile, as JAX does (models/layers.py
+# _bias_kernel): the bias kernels run at TK = 128 with the valid TK above
+BIAS_KEY_TILE = 128
 UTTERANCE_SECONDS = (3.0, 6.0, 10.0)
 SEED = 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
@@ -215,6 +252,20 @@ HBM_BYTES = 3.35e12         # H100 SXM device-memory rate, B/s
 BF16_ROUNDING = 2.0 ** -8   # bf16's unit roundoff (8 significant bits), relative
 BF16_DRIFT = 2.0            # card bf16 vs CPU bf16: of the bf16 model's own drift
 BF16_AGREEMENT = 0.99       # the bf16 forward's CTC streaming mask, card vs CPU
+# a bf16 gradient element against the plain bf16 backward: one bf16 ulp (the
+# two fp32 results may round apart) plus this share of its terms' magnitudes
+# (the kernel's split products err by ~2^-16 of them)
+BF16_GRAD_TERMS = 2.0 ** -12
+# delta = Σ_j p dp against the kernel's: of Σ_j p Σ_d |g_d v_jd| (g split in
+# two bf16 parts is g to 2^-17; rowsum(g out), from bf16-rounded
+# probabilities, misses by ~2^-9 of Σ p |g v|)
+BF16_DELTA_TERMS = 2.0 ** -16
+# the bf16 train step, card vs CPU: of the CPU bf16 step's own distance from
+# the CPU fp32 step, the whole gradient (and the batch statistics) within
+# BF16_DRIFT, each tensor within BF16_TENSOR_DRIFT (ReLU units near 0 land on
+# either side, tests/test_torch_bf16_train.py), each loss within 2^-8 of itself
+BF16_TENSOR_DRIFT = 4.0
+BF16_LOSS_RTOL = 2.0 ** -8
 
 
 def emit(obj):
@@ -379,6 +430,18 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _pad_keys(k, v, bias):
+    """K, V and the bias [B, TQ, TK] as the bias route hands them to the kernel:
+    keys padded to BIAS_KEY_TILE with zero K and V and a NEG_INF bias."""
+    import torch.nn.functional as F
+
+    from streamspeech_tpu_torch.ops.masks import NEG_INF
+
+    pad = -(-k.shape[2] // BIAS_KEY_TILE) * BIAS_KEY_TILE - k.shape[2]
+    return (F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad)),
+            F.pad(bias, (0, pad), value=NEG_INF).contiguous())
+
+
 def _check_kernel(name, fn, plain, library, args, atol, bound, **shape):
     """Run ``fn`` and ``plain`` on the same inputs, compare, time both (and the
     library yardstick, if any); emit and return the row."""
@@ -459,14 +522,16 @@ def phase_kernel():
         n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
         allowed = (jk[None] < (iq // 25 + 1).clamp(max=tk))[None] & \
             (jk[None, None, :] < n_valid[:, None, None])
-        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        k, v, bias = _pad_keys(k, v, torch.where(allowed, 0.0, NEG_INF).float())
+        tk_valid, tk = tk, k.shape[2]
         bound = _bound_3xtf32(4 * b * 8 * tq * tk * 64, _nbytes(q, k, v, bias, q))
         rows["bias_attention"].append(_check_kernel(
             "bias_attention", lambda *a: A.bias_attention(*a, 0.125),
             lambda *a: A.bias_attention_reference(*a, 0.125),
             lambda q, k, v, bias: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=bias[:, None], scale=0.125),
-            (q, k, v, bias), KERNEL_ATOL, bound, b=b, h=8, tq=tq, tk=tk, d=64))
+            (q, k, v, bias), KERNEL_ATOL, bound, b=b, h=8, tq=tq, tk=tk, tk_valid=tk_valid,
+            d=64))
 
     for b, t, vocab in NOT_BLANK_SHAPES:
         logits = randn(b, t, vocab) * 4
@@ -536,7 +601,8 @@ def phase_kernel_bf16():
         n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
         allowed = (jk[None] < (iq // 25 + 1).clamp(max=tk))[None] & \
             (jk[None, None, :] < n_valid[:, None, None])
-        bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+        k, v, bias = _pad_keys(k, v, torch.where(allowed, 0.0, NEG_INF).float())
+        tk_valid, tk = tk, k.shape[2]
         mask = bias[:, None].bfloat16()
         bound = _bound_bf16(4 * b * 8 * tq * tk * 64, _nbytes(q, k, v, bias) + 4 * q.numel())
         rows["bias_attention_bf16"].append(_check_kernel(
@@ -545,7 +611,7 @@ def phase_kernel_bf16():
             lambda q, k, v, _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                               scale=0.125),
             (q, k, v, bias), _bf16_bound(A.bias_attention_reference, q, k, v, bias), bound,
-            b=b, h=8, tq=tq, tk=tk, d=64))
+            b=b, h=8, tq=tq, tk=tk, tk_valid=tk_valid, d=64))
 
     for b, t, vocab in NOT_BLANK_SHAPES:
         logits = randn(b, t, vocab) * 4
@@ -804,10 +870,11 @@ def _relpos_fwd_plan(pairs, nbytes) -> dict:
     return {"kernel_flops": run["flops"], "kernel_flops_bound_ms": run["bound_ms"]}
 
 
-def _bias_train_inputs(b, tq, tk, randn):
+def _bias_train_inputs(b, tq, tk, randn, pad_keys=False):
     """q, K, V, g [b, 8, *, 64] from ``randn`` and the unit decoder's wait-k
     cross mask (n2 = 2, upsample 25) as a bias [b, tq, tk], the last row with
-    5 padded keys."""
+    5 padded keys; ``pad_keys``: the keys then padded as the bias route pads
+    them (``_pad_keys``)."""
     from streamspeech_tpu_torch.ops.masks import NEG_INF
 
     q, g = randn(b, 8, tq, 64), randn(b, 8, tq, 64)
@@ -817,7 +884,10 @@ def _bias_train_inputs(b, tq, tk, randn):
     n_valid = torch.tensor([tk] * (b - 1) + [tk - 5], device=dev)
     allowed = (jk[None] < ((iq // 25 + 1) * 2).clamp(max=tk))[None] & \
         (jk[None, None, :] < n_valid[:, None, None])
-    return q, k, v, g, torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+    bias = torch.where(allowed, 0.0, NEG_INF).float().contiguous()
+    if pad_keys:
+        k, v, bias = _pad_keys(k, v, bias)
+    return q, k, v, g, bias
 
 
 def phase_kernel_train():
@@ -881,8 +951,9 @@ def phase_kernel_train():
             timed=n == 0, b=b, h=8, t_pad=t_pad, t=t, d=64))
         del mask
 
-    for n, (b, tq, tk) in enumerate(BIAS_TRAIN_SHAPES):
-        q, k, v, g, bias = _bias_train_inputs(b, tq, tk, randn)
+    for n, (b, tq, tk_valid) in enumerate(BIAS_TRAIN_SHAPES):
+        q, k, v, g, bias = _bias_train_inputs(b, tq, tk_valid, randn, pad_keys=True)
+        tk = k.shape[2]
         pairs = b * 8 * tq * tk * 64
         stats_bytes = b * 8 * tq * 8
         collect("bias", _check_train_kernel(
@@ -892,7 +963,7 @@ def phase_kernel_train():
             _bound_3xtf32(10 * pairs,
                           _nbytes(q, k, v, bias, g, q, q, k, v) + stats_bytes + 8),
             timed=n == 0, bwd_extra=_bias_bwd_plan(A, b, 8, tq, tk, 64), b=b, h=8, tq=tq,
-            tk=tk, d=64))
+            tk=tk, tk_valid=tk_valid, d=64))
 
     # B10 alone: the mask of the unit decoder's causal attention, written out
     shape = (8, 8, 1280, 1280)
@@ -911,6 +982,222 @@ def phase_kernel_train():
     row.update(_bound_draws(n_el // shape[3] * -(-shape[3] // 4), n_el + 8))
     emit(row)
     rows["dropout_keep"].append(row)
+    return rows
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (8 significant bits); 0 at 0."""
+    m, e = torch.frexp(x.float())
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(m), e - 8), torch.zeros_like(m))
+
+
+def _bf16_backward_terms(family, A, q, k, v, bias, g, scale, keep, rate):
+    """(the magnitudes of each gradient element's terms: of dq and dK ds with
+    dp's own terms, p (|g||v|ᵀ kf + Σ p |g||v|ᵀ kf) scale (dp from g split in
+    two bf16 parts errs by ~2^-17 of Σ_d |g_d v_jd|, and p (dp - delta) may
+    cancel far below that), times |K| or |q|; of dV p kf |g|), and (delta =
+    Σ_j p dp, the magnitudes of its terms Σ_j p kf Σ_d |g_d v_jd|) from the
+    fp32 probabilities."""
+    probs = (A._masked_probs if family == "masked" else A._bias_probs)(q, k, bias, scale)
+    kf = torch.ones_like(probs) if keep is None else keep.float() / (1.0 - rate)
+    dp_terms = torch.einsum("bhsd,bhtd->bhst", g.abs(), v.float().abs()) * kf
+    absum = (probs * dp_terms).sum(-1)
+    delta = (probs * torch.einsum("bhsd,bhtd->bhst", g, v.float()) * kf).sum(-1)
+    ds = probs * (dp_terms + absum[..., None]) * scale
+    terms = (torch.einsum("bhst,bhtd->bhsd", ds, k.float().abs()),
+             torch.einsum("bhst,bhsd->bhtd", ds, q.float().abs()),
+             torch.einsum("bhst,bhsd->bhtd", probs * kf, g.abs()))
+    return terms, (delta, absum)
+
+
+def _check_train_kernel_bf16(family, A, q, k, v, bias, g, scale, library_mask, fwd_bound,
+                             bwd_bound, timed, **shape):
+    """One bf16 attention family at one shape, at dropout 0 and ATTN_DROPOUT:
+    the training forward within the bf16 forward's bound (2^-7 sum_j p kf |v|
+    + 1e-5) of its plain version under the same mask; the backward's dq, dK,
+    dV within one bf16 ulp plus BF16_GRAD_TERMS of their terms of the plain
+    bf16 backward; delta (the dQ pass's scratch) within BF16_DELTA_TERMS of its
+    terms' magnitudes of Σ p dp, where rowsum(g out) is checked to miss by more
+    than 10 times that (V offset by 4, so that a kernel which took it fails);
+    two backward calls equal bit for bit; timed on the main shape."""
+    import torch.nn.functional as F
+
+    fwd = getattr(A, f"{family}_attention_forward")
+    bwd = getattr(A, f"{family}_attention_backward")
+    ref = getattr(A, f"{family}_attention_reference")
+    ref_bwd = getattr(A, f"{family}_attention_backward_reference")
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    seed = torch.tensor([SEED + 40 + tq], dtype=torch.int64, device=q.device)
+    fwd_rows, bwd_rows = [], []
+    for rate in (0.0, ATTN_DROPOUT):
+        sd = seed if rate > 0 else None
+        keep = A.dropout_keep_reference(seed, b, h, tq, tk, rate) if rate > 0 else None
+        out, stats = fwd(q, k, v, bias, scale, rate, sd, True)
+        grads = bwd(q, k, v, bias, g, out, stats, sd, scale, rate)
+        again = bwd(q, k, v, bias, g, out, stats, sd, scale, rate)
+        want = ref(q, k, v, bias, scale, keep, rate)
+        out_bound = 2 * BF16_ROUNDING * ref(q, k, v.float().abs(), bias, scale, keep,
+                                            rate) + KERNEL_ATOL
+        out_share = _bound_share(out, want, out_bound)
+        del want, out_bound
+        want_grads = ref_bwd(q, k, v, bias, g, scale, keep, rate)
+        terms, _ = _bf16_backward_terms(family, A, q, k, v, bias, g, scale, keep, rate)
+        shares = {}
+        for name, got, w, t in zip(("dq", "dk", "dv"), grads, want_grads, terms):
+            bound = torch.maximum(_bf16_ulp(got), _bf16_ulp(w)) + BF16_GRAD_TERMS * t + 1e-30
+            shares[name] = _bound_share(got.float(), w.float(), bound)
+        grad_err = max(float((a.float() - w.float()).abs().max())
+                       for a, w in zip(grads, want_grads))
+        same = all(torch.equal(a, c) for a, c in zip(grads, again))
+        del want_grads, terms, again
+        # delta, with V offset as trained values are: the kernel's against
+        # Σ p dp, and rowsum(g out) against it
+        v4 = (v.float() + 4.0).bfloat16()
+        out4, stats4 = fwd(q, k, v4, bias, scale, rate, sd, True)
+        delta = A.backward_bf16(family, q, k, v4, bias, g, stats4, sd, scale, rate)[3]
+        _, (true, absum) = _bf16_backward_terms(family, A, q, k, v4, bias, g, scale, keep,
+                                                rate)
+        tol = BF16_DELTA_TERMS * absum + 1e-6
+        delta_share = _bound_share(delta, true, tol)
+        from_out_share = _bound_share((g * out4).sum(-1), true, tol)
+        torch.cuda.synchronize()
+        del out4, stats4, delta, true, absum, tol, v4
+        base = {"phase": "kernel", **shape, "rate": rate}
+        fwd_row = {**base, "name": f"{family}_attention_bf16", "form": "training forward",
+                   "max_abs_err": float((out - ref(q, k, v, bias, scale, keep, rate))
+                                        .abs().max()),
+                   "bound_share": out_share, **fwd_bound}
+        bwd_row = {**base, "name": f"{family}_attention_bwd_bf16", "max_abs_err": grad_err,
+                   "bound_share_by_grad": shares, "grad_terms_share": BF16_GRAD_TERMS,
+                   "delta_bound_share": delta_share,
+                   "delta_from_out_bound_share": from_out_share,
+                   "bit_identical_twice": same, **bwd_bound,
+                   "groups": A.bf16_backward_groups(
+                       A._MASKED_BWD_BF16_GROUPS if family == "masked"
+                       else A._BIAS_BWD_BF16_GROUPS, b, h, tq, tk, q.shape[3])}
+        if timed:
+            fwd_row["ms"] = _device_ms(lambda: fwd(q, k, v, bias, scale, rate, sd, True),
+                                       calls=5, reps=10)
+            fwd_row["plain_ms"] = _device_ms(lambda: ref(q, k, v, bias, scale, keep, rate),
+                                             calls=3, reps=5)
+            bwd_row["ms"] = _device_ms(
+                lambda: bwd(q, k, v, bias, g, out, stats, sd, scale, rate), calls=5, reps=10)
+            bwd_row["plain_ms"] = _device_ms(
+                lambda: ref_bwd(q, k, v, bias, g, scale, keep, rate), calls=3, reps=5)
+
+            def sdpa(q, k, v):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=library_mask,
+                                                      dropout_p=rate, scale=scale)
+            fwd_row["library_ms"] = _device_ms(lambda: sdpa(q, k, v), calls=5, reps=10)
+            both = _fwd_bwd_ms(sdpa, (q, k, v), g.bfloat16(), calls=5, reps=10)
+            bwd_row["library_fwd_bwd_ms"] = both
+            bwd_row["library_ms"] = both - fwd_row["library_ms"]
+            bwd_row["library_timing"] = ("bf16 SDPA forward + backward minus forward, the "
+                                         "same mask in bf16 and dropout_p")
+            if rate > 0:
+                for row, at_zero in ((fwd_row, fwd_rows[0]), (bwd_row, bwd_rows[0])):
+                    row["dropout_gap_ms"] = row["ms"] - at_zero["ms"]
+        emit(fwd_row)
+        emit(bwd_row)
+        fwd_rows.append(fwd_row)
+        bwd_rows.append(bwd_row)
+        if not (out_share <= 1.0 and max(shares.values()) <= 1.0 and delta_share <= 1.0
+                and from_out_share > 10.0 and same):
+            raise AssertionError(f"{family} bf16 training form disagrees with its plain "
+                                 f"version at {shape}: {fwd_row} {bwd_row}")
+        del out, stats, grads, keep
+    return fwd_rows, bwd_rows
+
+
+def _keep_bits_bf16(A, family, dev):
+    """The bf16 training forms' own keep bits at T = D = 64: with v the
+    identity the forward's out[i, j] is bf16(p kf)[i, j] / sum, with g the
+    identity the backward's dV[j, i] is p kf; their nonzero elements must be
+    the kept ones of ``dropout_keep_reference`` that the mask allows."""
+    from streamspeech_tpu_torch.ops.masks import NEG_INF
+
+    b, h, t = 2, 3, 64
+    gen = torch.Generator().manual_seed(SEED + 9)
+    q, k = (torch.randn(b, h, t, t, generator=gen).to(dev, torch.bfloat16) for _ in range(2))
+    if family == "masked":
+        bias = torch.zeros(b, 1, t, device=dev)
+        bias[1, 0, t - 8:] = NEG_INF
+    else:
+        j = torch.arange(t, device=dev)
+        bias = torch.where(j[None, None] < (j[None, :, None] // 3 + 1), 0.0, NEG_INF)
+        bias = bias.expand(b, t, t).contiguous()
+    eye = torch.eye(t, device=dev).expand(b, h, t, t).contiguous()
+    seed = torch.tensor([SEED + 13], dtype=torch.int64, device=dev)
+    ref = getattr(A, f"{family}_attention_reference")
+    allowed = ref(q, k, eye.bfloat16(), bias, 0.125, None, 0.0) != 0
+    want = A.dropout_keep_reference(seed, b, h, t, t, ATTN_DROPOUT) & allowed
+    out, stats = getattr(A, f"{family}_attention_forward")(
+        q, k, eye.bfloat16(), bias, 0.125, ATTN_DROPOUT, seed, True)
+    dv = getattr(A, f"{family}_attention_backward")(
+        q, k, eye.bfloat16(), bias, eye, out, stats, seed, 0.125, ATTN_DROPOUT)[2]
+    torch.cuda.synchronize()
+    row = {"phase": "kernel", "name": "dropout_keep", "for": f"{family}_bf16", "b": b, "h": h,
+           "tq": t, "tk": t, "rate": ATTN_DROPOUT,
+           "forward_differing": int(((out != 0) != want).sum()),
+           "backward_differing": int(((dv.transpose(-1, -2) != 0) != want).sum())}
+    row["differing"] = row["max_abs_err"] = row["forward_differing"] + row["backward_differing"]
+    emit(row)
+    if row["differing"] != 0:
+        raise AssertionError(f"the bf16 {family} kernels' keep bits differ: {row}")
+    return row
+
+
+def phase_kernel_train_bf16():
+    """B3-bf16 and B5-bf16 in their training form and B4-bf16, B6-bf16 against
+    their plain bf16 versions at the kernel train route's shapes (bf16 q/k/v,
+    an fp32 g), at dropout 0 and 0.1; the bf16 kernels' own keep bits."""
+    from streamspeech_tpu_torch.kernels import attention as A
+    from streamspeech_tpu_torch.ops.masks import NEG_INF
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(SEED + 15)
+    rows = {k: [] for k in ("masked_attention_bf16_train", "masked_attention_bwd_bf16",
+                            "bias_attention_bf16_train", "bias_attention_bwd_bf16")}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    for n, (b, t_pad, t) in enumerate(MASKED_TRAIN_SHAPES):
+        q, k, v = (randn(b, 8, t_pad, 64).bfloat16() for _ in range(3))
+        g = randn(b, 8, t_pad, 64)
+        kvb = torch.where(torch.arange(t_pad) < t, 0.0, NEG_INF)
+        kvb = kvb.to(torch.float32).view(1, 1, t_pad).expand(b, 1, t_pad).contiguous().to(dev)
+        i = torch.arange(t_pad, device=dev)
+        mask = (kvb[:, :, None, :] + torch.where(i[:, None] >= i[None, :], 0.0,
+                                                 NEG_INF).float()).bfloat16()
+        pairs = b * 8 * (t_pad * (t_pad + 1) / 2) * 64
+        stats_bytes = b * 8 * t_pad * 8
+        fwd, bwd = _check_train_kernel_bf16(
+            "masked", A, q, k, v, kvb, g, 0.125, mask if n == 0 else None,
+            _bound_bf16(4 * pairs, _nbytes(q, k, v, kvb) + 4 * q.numel() + stats_bytes + 8),
+            # dq, dK, dV: 5 products; q, K, V, the key bias, g, the statistics
+            # read, the bf16 gradients written
+            _bound_bf16(10 * pairs, _nbytes(q, k, v, kvb, g, q, k, v) + stats_bytes + 8),
+            timed=n == 0, b=b, h=8, t_pad=t_pad, t=t, d=64)
+        rows["masked_attention_bf16_train"] += fwd
+        rows["masked_attention_bwd_bf16"] += bwd
+        del mask
+
+    for n, (b, tq, tk_valid) in enumerate(BIAS_TRAIN_SHAPES):
+        q, k, v, g, bias = _bias_train_inputs(b, tq, tk_valid, randn, pad_keys=True)
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        tk = k.shape[2]
+        pairs = b * 8 * tq * tk * 64
+        stats_bytes = b * 8 * tq * 8
+        fwd, bwd = _check_train_kernel_bf16(
+            "bias", A, q, k, v, bias, g, 0.125, bias[:, None].bfloat16() if n == 0 else None,
+            _bound_bf16(4 * pairs, _nbytes(q, k, v, bias) + 4 * q.numel() + stats_bytes + 8),
+            _bound_bf16(10 * pairs, _nbytes(q, k, v, bias, g, q, k, v) + stats_bytes + 8),
+            timed=n == 0, b=b, h=8, tq=tq, tk=tk, tk_valid=tk_valid, d=64)
+        rows["bias_attention_bf16_train"] += fwd
+        rows["bias_attention_bwd_bf16"] += bwd
+    rows["dropout_keep_bf16"] = [_keep_bits_bf16(A, f, dev) for f in ("masked", "bias")]
     return rows
 
 
@@ -998,7 +1285,10 @@ def _kernel_counters() -> dict:
             "dropout_keep": (attention.dropout_keep, "launches"),
             "masked_attention_bf16": (attention.masked_attention, "bf16_launches"),
             "bias_attention_bf16": (attention.bias_attention, "bf16_launches"),
-            "not_blank_probs_bf16": (policy.not_blank_probs, "bf16_launches")}
+            "not_blank_probs_bf16": (policy.not_blank_probs, "bf16_launches"),
+            "masked_attention_bwd_bf16": (attention.masked_attention_backward,
+                                          "bf16_launches"),
+            "bias_attention_bwd_bf16": (attention.bias_attention_backward, "bf16_launches")}
 
 
 def _zero_counts():
@@ -1102,7 +1392,8 @@ def phase_reference():
 _NO_BACKWARD = {"relpos_attention_bwd": 0, "masked_attention_bwd": 0,
                 "bias_attention_bwd": 0, "dropout_keep": 0, "mask_draws": 0,
                 "masked_attention_bf16": 0, "bias_attention_bf16": 0,
-                "not_blank_probs_bf16": 0}
+                "not_blank_probs_bf16": 0, "masked_attention_bwd_bf16": 0,
+                "bias_attention_bwd_bf16": 0}
 FORWARD_LAUNCHES = {"relpos_attention": 12, "bias_attention": 2,
                     "not_blank_probs": 2, "masked_attention": 2, "ctc_alpha": 0,
                     "ctc_beta": 0, **_NO_BACKWARD}
@@ -1122,6 +1413,16 @@ TRAIN_KERNEL_LAUNCHES = {**TRAIN_LAUNCHES, "relpos_attention": 12, "masked_atten
                          "bias_attention": 2, "relpos_attention_bwd": 12,
                          "masked_attention_bwd": 2, "bias_attention_bwd": 2,
                          "mask_draws": 32}
+
+
+# one bf16 train step on the default route: B7 on bf16 logits, B8 and B9 on
+# the widened ones; on the kernel route also the bf16 training forms and
+# backwards of B3 and B5 and fp32 B1/B2 (the rel-pos route casts to fp32)
+TRAIN_BF16_LAUNCHES = {**TRAIN_LAUNCHES, "not_blank_probs": 0, "not_blank_probs_bf16": 2}
+TRAIN_BF16_KERNEL_LAUNCHES = {**TRAIN_BF16_LAUNCHES, "relpos_attention": 12,
+                              "relpos_attention_bwd": 12, "masked_attention_bf16": 2,
+                              "bias_attention_bf16": 2, "masked_attention_bwd_bf16": 2,
+                              "bias_attention_bwd_bf16": 2, "mask_draws": 32}
 
 
 def _forward_inputs(batch: int, lengths, mt_len: int, pad_after=None, seed=SEED):
@@ -1293,7 +1594,7 @@ def phase_forward_bf16(model32, ref32, card32, times32):
     return launches
 
 
-def _train_setup(cfg, device, seed, kernel_attention=False):
+def _train_setup(cfg, device, seed, kernel_attention=False, dtype=torch.float32):
     from streamspeech_tpu_torch.config import OptimizationConfig
     from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
     from streamspeech_tpu_torch.train.trainer import (
@@ -1303,7 +1604,7 @@ def _train_setup(cfg, device, seed, kernel_attention=False):
     )
     from streamspeech_tpu_torch.weights import random_init_
 
-    model = random_init_(StreamSpeechModel(cfg), seed).to(device)
+    model = random_init_(StreamSpeechModel(cfg, dtype=dtype), seed).to(device)
     # measure_train_step's optimizer (`benchmarks.py:258-259`)
     tx = make_optimizer(OptimizationConfig(update_freq=1, warmup_updates=10000, lr=1e-3,
                                            clip_norm=10.0))
@@ -1316,17 +1617,21 @@ LOSS_KEYS = ("loss", "unit_ctc_loss", "mt_loss", "mt_nll_loss", "asr_ctc_loss",
              "st_ctc_loss")
 
 
-def phase_train(kernel_attention=False):
+def phase_train(kernel_attention=False, dtype=torch.float32):
     """The train step at ``full_config`` and ``measure_train_step``'s shape, on
-    the default route or (phase ``train_kernels``) the kernel route: a warm-up
-    step, then 5 timed steps."""
+    the default route or (phase ``train_kernels``) the kernel route, fp32 or
+    (``train_bf16``, ``train_bf16_kernels``) bf16 compute: a warm-up step,
+    then 5 timed steps."""
     from streamspeech_tpu_torch.config import full_config
     from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 
-    name = "train_kernels" if kernel_attention else "train"
-    expected = TRAIN_KERNEL_LAUNCHES if kernel_attention else TRAIN_LAUNCHES
+    bf16 = dtype == torch.bfloat16
+    name = "train" + ("_bf16" if bf16 else "") + ("_kernels" if kernel_attention else "")
+    expected = {(False, False): TRAIN_LAUNCHES, (True, False): TRAIN_KERNEL_LAUNCHES,
+                (False, True): TRAIN_BF16_LAUNCHES,
+                (True, True): TRAIN_BF16_KERNEL_LAUNCHES}[kernel_attention, bf16]
     cfg = full_config()
-    model, step, state = _train_setup(cfg, "cuda", SEED, kernel_attention)
+    model, step, state = _train_setup(cfg, "cuda", SEED, kernel_attention, dtype)
     batch = batch_to_tensors(synthetic_batch(cfg, batch=8, frames=1024, mt_len=48,
                                              units_len=256, text_len=32), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1347,7 +1652,8 @@ def phase_train(kernel_attention=False):
         per_step.append({k: after[k] - before[k] for k in after})
         losses.append({k: float(metrics[k]) for k in LOSS_KEYS + ("grad_norm",)})
     launches = _read_counts()
-    row = {"phase": name, "batch": 8, "frames": 1024, "mt_len": 48, "unit_t": 1200,
+    row = {"phase": name, "dtype": str(dtype), "batch": 8, "frames": 1024, "mt_len": 48,
+           "unit_t": 1200,
            "units_len": 256, "text_len": 32, "dropout": cfg.encoder.dropout,
            "params": sum(p.numel() for p in model.parameters()),
            "warmup_step_ms": step_ms[0], "step_ms": step_ms[1:],
@@ -1419,7 +1725,8 @@ def _grad_check(g, ref_g, ties):
     return errs, left_out
 
 
-def _reference_step(device, kernel_attention=False, attention_dropout=0.0):
+def _reference_step(device, kernel_attention=False, attention_dropout=0.0,
+                    dtype=torch.float32):
     """One train step of the reference phases' model and batch on ``device``:
     (losses and grad_norm, gradients, batch statistics, launch counts, the
     ReLU ties of ``_relu_ties``)."""
@@ -1435,7 +1742,7 @@ def _reference_step(device, kernel_attention=False, attention_dropout=0.0):
     nb["src_lengths"] = np.array([1024, 800], np.int32)
     nb["prev_output_tokens_mt"][1, 18:] = 1                  # PAD
     nb["mt_targets"][1, 17:] = 1
-    model, step, state = _train_setup(cfg, device, SEED + 4, kernel_attention)
+    model, step, state = _train_setup(cfg, device, SEED + 4, kernel_attention, dtype)
     ties, hooks = _relu_ties(model)
     gen = None
     real_draw_seed = attention.draw_seed
@@ -1508,6 +1815,61 @@ def phase_train_reference(kernel_attention=False, attention_dropout=0.0):
                              f"more than {RELU_TIES_MAX}: {left_out}")
     if launches != expected:
         raise AssertionError(f"{name} launches {launches}, want {expected}")
+    return runs["cpu"]
+
+
+def _distance(got, want) -> float:
+    """The L2 distance between two dicts of tensors, as one vector."""
+    return float(sum(((got[n].double() - want[n].double()) ** 2).sum() for n in want) ** 0.5)
+
+
+def phase_train_reference_bf16(cpu32, kernel_attention=False, attention_dropout=0.0):
+    """Phase 9's (or 12's) step with the model computing in bf16, on the card
+    and on the CPU, held to the CPU bf16 step's own distance from the CPU fp32
+    step ``cpu32`` (the earlier phase's CPU run): the whole gradient and the
+    batch statistics within BF16_DRIFT of it, each gradient tensor within
+    BF16_TENSOR_DRIFT of its own, each loss within BF16_LOSS_RTOL of itself.
+    cuBLAS's bf16 products and the CPU's may round differently, so the card is
+    held to bf16's drift, not to TRAIN_GRAD_RTOL. Reports the ReLU units of
+    the CPU bf16 step within RELU_TIE_RTOL of 0."""
+    name = "train_bf16" + ("_kernels" if kernel_attention else "") + "_reference"
+    expected = dict(TRAIN_BF16_LAUNCHES)
+    if kernel_attention:     # 2 encoder layers, 2 unit-decoder layers
+        expected.update({k: 2 for k in TRAIN_BF16_KERNEL_LAUNCHES
+                         if "attention" in k and not k.startswith(("masked_attention",
+                                                                   "bias_attention"))},
+                        masked_attention_bf16=2, bias_attention_bf16=2,
+                        masked_attention_bwd_bf16=2, bias_attention_bwd_bf16=2,
+                        mask_draws=12 if attention_dropout > 0 else 0)
+    runs = {device: _reference_step(device, kernel_attention, attention_dropout,
+                                    torch.bfloat16) for device in ("cpu", "cuda")}
+    (m32, g32, s32, _, _) = cpu32
+    (m16, g16, s16, _, ties), (m, g, st, launches, _) = runs["cpu"], runs["cuda"]
+    own, got = _distance(g16, g32), _distance(g, g16)
+    stats_own, stats_got = _distance(s16, s32), _distance(st, s16)
+    ratios = {n: float((g[n] - g16[n]).double().norm())
+              / max(float((g16[n] - g32[n]).double().norm()), 1e-30) for n in g16}
+    worst = max(ratios, key=ratios.get)
+    loss_err = {k: [abs(m[k] - v), BF16_LOSS_RTOL * abs(v),
+                    abs(m[k] - v) / max(abs(v - m32[k]), 1e-30)] for k, v in m16.items()}
+    row = {"phase": name, "batch": 2, "fbank_lengths": [1024, 800], "mt_len": 24,
+           "attention_dropout": attention_dropout, "losses_cpu_bf16": m16,
+           "loss_err_tol_and_drift_ratio": loss_err,
+           "grad_drift_ratio": got / max(own, 1e-30), "grad_drift_max": BF16_DRIFT,
+           "grad_worst_tensor": [worst, ratios[worst]],
+           "grad_median_ratio": statistics.median(ratios.values()),
+           "grad_tensors_past_2x": sum(r > 2 for r in ratios.values()),
+           "grad_tensor_max": BF16_TENSOR_DRIFT,
+           "batch_stat_drift_ratio": stats_got / max(stats_own, 1e-30),
+           "relu_ties_cpu_bf16": sum(len(u) for u in ties.values()),
+           "relu_tie_rtol": RELU_TIE_RTOL, "launches": launches}
+    emit(row)
+    bad = [k for k, (e, tol, _) in loss_err.items() if not e <= tol]
+    if bad or not got <= BF16_DRIFT * own or not ratios[worst] <= BF16_TENSOR_DRIFT or \
+            not stats_got <= BF16_DRIFT * stats_own:
+        raise AssertionError(f"{name}: card and CPU bf16 train steps disagree: {bad} {row}")
+    if launches != expected:
+        raise AssertionError(f"{name} launches {launches}, want {expected}")
 
 
 def main():
@@ -1522,11 +1884,19 @@ def main():
     forward_bf16_launches = phase_forward_bf16(model32, ref32, card32, times32)
     del model32, ref32, card32
     train_launches = phase_train()
-    phase_train_reference()
+    cpu32 = phase_train_reference()
     rows.update(phase_kernel_train())
     train_kernel_launches = phase_train(kernel_attention=True)
-    phase_train_reference(kernel_attention=True)
-    phase_train_reference(kernel_attention=True, attention_dropout=ATTN_DROPOUT)
+    cpu32_kernels = phase_train_reference(kernel_attention=True)
+    cpu32_dropout = phase_train_reference(kernel_attention=True,
+                                          attention_dropout=ATTN_DROPOUT)
+    rows.update(phase_kernel_train_bf16())
+    train_bf16_launches = phase_train(dtype=torch.bfloat16)
+    train_bf16_kernel_launches = phase_train(kernel_attention=True, dtype=torch.bfloat16)
+    phase_train_reference_bf16(cpu32)
+    phase_train_reference_bf16(cpu32_kernels, kernel_attention=True)
+    phase_train_reference_bf16(cpu32_dropout, kernel_attention=True,
+                               attention_dropout=ATTN_DROPOUT)
     train_shape = lambda r: r.get("ms") is not None and r["rate"] == ATTN_DROPOUT  # noqa: E731
     sources = {
         "masked_attention": ("pallas_attention.py:425", "masked_attention.cu",
@@ -1555,6 +1925,11 @@ def main():
                                 lambda r: (r["b"], r["tq"]) == (1, 600)),
         "not_blank_probs_bf16": ("pallas_policy.py:99", "not_blank.cu",
                                  lambda r: r["b"] == 1 and "ms" in r),
+        # the bf16 backwards: the kernel train route's shapes, dropout 0.1
+        "masked_attention_bwd_bf16": ("pallas_attention.py:508",
+                                      "masked_attention_bwd_bf16.cu", train_shape),
+        "bias_attention_bwd_bf16": ("pallas_attention.py:712", "bias_attention_bwd_bf16.cu",
+                                    train_shape),
     }
     # sources a kernel is built from beside the one named in its entry
     also = {"masked_attention": ["tc_mma.cuh", "dropout.cuh"],
@@ -1567,10 +1942,15 @@ def main():
             "dropout_keep": ["dropout.cu", "tc_mma.cuh"],
             "masked_attention_bf16": ["attention_bf16.cuh", "tc_mma.cuh"],
             "bias_attention_bf16": ["attention_bf16.cuh", "tc_mma.cuh"],
-            "not_blank_probs_bf16": ["tc_mma.cuh"]}
+            "not_blank_probs_bf16": ["tc_mma.cuh"],
+            "masked_attention_bwd_bf16": ["attention_bwd_bf16.cuh", "attention_bf16.cuh",
+                                          "tc_mma.cuh", "dropout.cuh"],
+            "bias_attention_bwd_bf16": ["attention_bwd_bf16.cuh", "attention_bf16.cuh",
+                                        "tc_mma.cuh", "dropout.cuh"]}
     paths = {"serving": serving_launches, "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches,
-             "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches}
+             "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches,
+             "train_bf16": train_bf16_launches, "train_bf16_kernels": train_bf16_kernel_launches}
     kernels = []
     for name, (replaces, source, main_shape) in sources.items():
         row = next(r for r in rows[name] if main_shape(r))
@@ -1591,7 +1971,8 @@ def main():
             # the forward kernels' training form at the train shape with dropout
             "training_form": next(
                 ({k: r.get(k) for k in ("rate", "ms", "plain_ms", "library_ms", "bound_ms",
-                                        "bound_by", "max_rel_err", "dropout_gap_ms")}
+                                        "bound_by", "max_rel_err", "bound_share",
+                                        "dropout_gap_ms", "max_abs_err")}
                  for r in rows.get(f"{name}_train", []) if train_shape(r)), None),
             # the backward kernels at the same shape without dropout
             "without_dropout": next(

@@ -125,9 +125,10 @@ class OptimizationConfig:
     """train.simul-s2st.sh: Adam(0.9,0.98) lr 1e-3 inverse_sqrt warmup 10k, clip 10.
 
     ``dtype`` keeps the JAX default, ``"bfloat16"``, so that a configuration
-    reads the same in both packages, but the port's train step computes in
-    float32 whatever it says (bf16 training is the next slice of the port,
-    ROADMAP §A item 4)."""
+    reads the same in both packages. Neither package reads it: the train step
+    computes in the model's dtype, ``StreamSpeechModel(cfg, dtype=...)``
+    (``jnp.bfloat16`` in ``measure_train_step``), with float32 parameters and
+    optimizer state either way."""
 
     lr: float = 1e-3
     adam_betas: tuple = (0.9, 0.98)

@@ -54,9 +54,23 @@
 //
 // Head dims: every multiple of 8 from 8 to 256, as the fp32 kernels; key tiles
 // of 64 keys up to D16 = 128, 32 above (registers: the [16, D] accumulator is
-// D / 2 a lane). Forward only: no dropout, no row statistics (the bf16
-// backward is not ported; the wrappers raise on a bf16 input that needs a
-// gradient).
+// D / 2 a lane).
+//
+// Two forms of each, by the template flag kTrain:
+//  - inference (kTrain = false): no dropout, no row statistics; the serving
+//    and forward paths launch it.
+//  - training (kTrain = true), what a bf16 train step's kernel route launches
+//    (`_causal_pallas` / `_bias_pallas` with dropout, `models/layers.py:
+//    289-362`): each probability times its keep factor kf (dropout.cuh, the
+//    fp32 kernels' Philox counters, so one seed gives the same mask bit for
+//    bit; a slab's bits drawn beside its exponentials, tc_mma.cuh keep_slab)
+//    before the bf16 rounding, as JAX applies the factor before
+//    `probs.astype(v.dtype)`; the sum that normalises is the undropped one.
+//    It writes each row's statistics [B, H, TQ, 2] for attention_bwd_bf16.cuh:
+//    the max in log2 units (the units the kernel computes in) and 1 / sum, so
+//    that the backward recomputes p = 2^(x log2(e) - max) / sum with the
+//    forward's own expression. The inference form's code is unchanged by the
+//    flag (`if constexpr`).
 
 #pragma once
 
@@ -199,12 +213,15 @@ __device__ __forceinline__ void stage_keys(unsigned char* dst, const __nv_bfloat
 
 // bk: keys a tile (causal: BK; bias: TK rounded up to 16, at most BK).
 // bias: kvb [B, TQ] (causal, TQ == TK) or [B, TQ, TK].
-template <int D, bool kCausal>
+// kTrain: seed (when rate > 0) and stats (when not null) as above; thr the
+// integer keep threshold of rate (dropout::threshold).
+template <int D, bool kCausal, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
 attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                      float* __restrict__ out, int B, int H, int TQ, int TK, int bk,
-                      float scale) {
+                      float* __restrict__ out, const long long* __restrict__ seed,
+                      float* __restrict__ stats, float rate, uint32_t thr, int B, int H,
+                      int TQ, int TK, int bk, float scale) {
   using F = Tiles<D>;
   constexpr int LD = F::LD, NT = F::NT, NO = F::NO, KS = F::KS;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -240,6 +257,13 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 
   // the running max is kept in log2 units: p = 2^(x log2(e) - m)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  // training: the lane's Philox row (its rows are fixed along the key tiles)
+  const bool drop = kTrain && rate > 0.f;
+  const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
+  dropout::Row dr{};
+  if constexpr (kTrain) {
+    if (drop) dr = tc::keep_lane((unsigned long long)*seed, b, bh % H, row0, lq);
+  }
   uint32_t qf[F::kQInRegisters ? KS : 1][4];  // q's A fragments, up to D = 64
   float acc[NO][4];
 #pragma unroll
@@ -307,7 +331,8 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
         } else {
           x = r < TQ && k0 + c < TK ? s[n][e] * scale + bs[(r - q0) * ldb + c] : -INFINITY;
         }
-        s[n][e] = x * kLog2e;
+        // training: rounded as the backward rounds it (attention_bwd_bf16.cuh prob)
+        s[n][e] = kTrain ? __fmul_rn(x, kLog2e) : x * kLog2e;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], s[n][e]);
       }
     }
@@ -324,11 +349,20 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       if (n >= nt) break;
+      // training: the slab's keep bits (all 32 lanes draw: nt is the warp's)
+      uint32_t kb = 0u;
+      if constexpr (kTrain) {
+        if (drop) kb = tc::keep_slab(dr, k0 + 8 * n, lq, thr);
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = exp2f(s[n][e] - m_use[e >> 1]);
         sum[e >> 1] += p;
-        s[n][e] = p;
+        if constexpr (kTrain) {
+          s[n][e] = drop ? tc::keep_apply(kb, e, p, inv_keep) : p;
+        } else {
+          s[n][e] = p;
+        }
       }
     }
 #pragma unroll
@@ -374,6 +408,14 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) inv[i] = 1.f / l[i];
+  if constexpr (kTrain) {
+    if (stats != nullptr && lq == 0)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row0 + 8 * i < TQ)
+          *reinterpret_cast<float2*>(stats + ((size_t)bh * TQ + row0 + 8 * i) * 2) =
+              make_float2(m[i], inv[i]);
+  }
   float* oh = out + (size_t)bh * TQ * D;
 #pragma unroll
   for (int j = 0; j < NO; ++j)
@@ -384,17 +426,22 @@ attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
             make_float2(acc[j][2 * i] * inv[i], acc[j][2 * i + 1] * inv[i]);
 }
 
-// Launch on `stream`: blocks of kBQ query rows for every (b, h). Returns the
+// Launch on `stream`: blocks of kBQ query rows for every (b, h). kTrain: seed
+// (read when rate > 0), stats (written when not null), rate. Returns the
 // cudaError_t code.
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kTrain = false>
 int launch(const void* q, const void* k, const void* v, const float* bias, float* out, int B,
-           int H, int TQ, int TK, float scale, cudaStream_t stream) {
+           int H, int TQ, int TK, float scale, cudaStream_t stream,
+           const long long* seed = nullptr, float* stats = nullptr, float rate = 0.f) {
   using F = Tiles<D>;
   // 16-byte cp.async: rows are D bf16, D a multiple of 8, so the bases decide
   // (the bias's when it goes by 16 bytes)
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16 != 0 ||
-      ((kCausal || TK % 4 == 0) && (uintptr_t)bias % 16 != 0) || (uintptr_t)bias % 4 != 0)
+      ((kCausal || TK % 4 == 0) && (uintptr_t)bias % 16 != 0) || (uintptr_t)bias % 4 != 0 ||
+      (uintptr_t)stats % 8 != 0)
     return (int)cudaErrorMisalignedAddress;
+  if (kTrain && (rate < 0.f || rate >= 1.f || (rate > 0.f && seed == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)((TQ + kBQ - 1) / kBQ) * B * H;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   const int bk16 = (TK + 15) / 16 * 16;
@@ -402,12 +449,13 @@ int launch(const void* q, const void* k, const void* v, const float* bias, float
   const int kend = kCausal ? TQ : TK;
   const size_t smem = F::smem(bk, kend > bk ? 2 : 1, kCausal);
   static bool raised[kMaxDevices] = {};
-  const int err = tc::raise_smem(attention_bf16_kernel<D, kCausal>, F::smem(F::BK, 2, kCausal),
-                                 raised);
+  const int err = tc::raise_smem(attention_bf16_kernel<D, kCausal, kTrain>,
+                                 F::smem(F::BK, 2, kCausal), raised);
   if (err != 0) return err;
-  attention_bf16_kernel<D, kCausal><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  attention_bf16_kernel<D, kCausal, kTrain><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), bias, out, B, H, TQ, TK, bk, scale);
+      static_cast<const __nv_bfloat16*>(v), bias, out, seed, stats, rate,
+      kTrain ? dropout::threshold(rate) : 0u, B, H, TQ, TK, bk, scale);
   return (int)cudaGetLastError();
 }
 

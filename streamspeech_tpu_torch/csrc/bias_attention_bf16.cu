@@ -5,7 +5,8 @@
 // streamspeech_tpu/ops/pallas_attention.py where a bf16 model calls it (the
 // unit decoder's cross-attention under the streaming mask, `models/layers.py:
 // 325-362`). The design, its bound and its rounding are attention_bf16.cuh's;
-// this file instantiates its bias form for every head dim. Keys go in one
+// this file instantiates its bias form for every head dim, inference and
+// training. Keys go in one
 // tile of TK rounded up to 16 while that is at most 64 (32 above D = 128): the
 // unit decoder's 24 or 48 keys are one tile.
 
@@ -22,6 +23,25 @@ extern "C" int bias_attention_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(d) \
   case d: return bf16attn::launch<d, false>(q, k, v, bias, out, B, H, TQ, TK, scale, s);
+  switch (D) {
+    ATTN_FOR_EACH_HEAD_DIM(CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CASE
+}
+
+// The training form: as bias_attention_bf16, with dropout and row statistics
+// as masked_attention_bf16_train; the fp32 form's arguments.
+extern "C" int bias_attention_bf16_train(const void* q, const void* k, const void* v,
+                                         const float* bias, float* out, const long long* seed,
+                                         float* stats, int B, int H, int TQ, int TK, int D,
+                                         float scale, float rate, void* stream) {
+  if (B <= 0 || H <= 0 || TQ <= 0 || TK <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(d)                                                                          \
+  case d:                                                                                \
+    return bf16attn::launch<d, false, true>(q, k, v, bias, out, B, H, TQ, TK, scale, s, seed, \
+                                            stats, rate);
   switch (D) {
     ATTN_FOR_EACH_HEAD_DIM(CASE)
     default: return (int)cudaErrorInvalidValue;

@@ -5,7 +5,7 @@
 // streamspeech_tpu/ops/pallas_attention.py where a bf16 model calls it (the
 // unit decoder's causal self-attention, `models/layers.py:289-323`). The
 // design, its bound and its rounding are attention_bf16.cuh's; this file
-// instantiates its causal form for every head dim.
+// instantiates its causal form for every head dim, inference and training.
 
 #include "attention_bf16.cuh"
 
@@ -21,6 +21,29 @@ extern "C" int masked_attention_bf16(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define CASE(d) \
   case d: return bf16attn::launch<d, true>(q, k, v, kvb, out, B, H, T, T, scale, s);
+  switch (D) {
+    ATTN_FOR_EACH_HEAD_DIM(CASE)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef CASE
+}
+
+// The training form: as masked_attention_bf16, with attention-probability
+// dropout at `rate` (seed: one int64 on the device, read when rate > 0) and,
+// when `stats` is not null, each row's (max in log2 units, 1 / sum) written to
+// stats [B, H, T, 2] fp32 (8-byte aligned) for masked_attention_bwd_bf16.cu.
+// The fp32 form's arguments.
+extern "C" int masked_attention_bf16_train(const void* q, const void* k, const void* v,
+                                           const float* kvb, float* out,
+                                           const long long* seed, float* stats, int B,
+                                           int H, int T, int D, float scale, float rate,
+                                           void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || T % 64 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define CASE(d)                                                                         \
+  case d:                                                                               \
+    return bf16attn::launch<d, true, true>(q, k, v, kvb, out, B, H, T, T, scale, s, seed, \
+                                           stats, rate);
   switch (D) {
     ATTN_FOR_EACH_HEAD_DIM(CASE)
     default: return (int)cudaErrorInvalidValue;

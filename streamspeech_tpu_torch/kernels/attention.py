@@ -4,11 +4,12 @@
   kernels ``masked_attention`` (`streamspeech_tpu/ops/pallas_attention.py:425`,
   body ``_causal_kernel`` :399) and ``_masked_bwd`` (:508);
   ``csrc/masked_attention.cu``, ``csrc/masked_attention_bwd.cu``; bf16 q/k/v
-  ``csrc/masked_attention_bf16.cu``.
+  ``csrc/masked_attention_bf16.cu``, ``csrc/masked_attention_bwd_bf16.cu``.
 - ``bias_attention``: attention under an arbitrary [B, TQ, TK] additive bias;
   replaces ``bias_attention`` (`pallas_attention.py:625`, ``_bias_kernel``
   :602) and ``_bias_bwd_rule`` (:712); ``csrc/bias_attention.cu``,
-  ``csrc/bias_attention_bwd.cu``; bf16 q/k/v ``csrc/bias_attention_bf16.cu``.
+  ``csrc/bias_attention_bwd.cu``; bf16 q/k/v ``csrc/bias_attention_bf16.cu``,
+  ``csrc/bias_attention_bwd_bf16.cu``.
 - ``relpos_attention``: Transformer-XL rel-pos self-attention; replaces
   ``relpos_attention`` (`pallas_attention.py:95`, ``_kernel`` :53) and
   ``_relpos_bwd`` (:243); ``csrc/relpos_attention.cu``,
@@ -25,19 +26,24 @@ The bias and the seed get no gradient.
 
 ``masked_attention`` and ``bias_attention`` also take bfloat16 q, k and v (a
 bf16 model's unit decoder), as the TPU kernels take their inputs' dtype: fp32
-scores and softmax, the probabilities rounded to bf16 for the P·V product,
-summed in fp32, an fp32 output (``attention_bf16.cuh`` on the card). That form
-is forward only, without dropout: a bf16 input that needs a gradient, or a
-rate above 0, raises (the bf16 backward is the next slice of the port). The
-bias stays fp32. ``relpos_attention`` is fp32 only: the JAX route casts its
-inputs to fp32 (`models/layers.py:472-476`).
+scores and softmax, the probabilities (times the keep factor) rounded to bf16
+for the P·V product, summed in fp32, an fp32 output (``attention_bf16.cuh`` on
+the card: an inference form, and a training form that draws the dropout mask
+and writes the row statistics). Their backward takes the bf16 q, k and v and
+an fp32 g, as the TPU backward kernels do (`pallas_attention.py:515`, :720):
+every product in fp32 on widened operands, the probabilities recomputed in
+fp32 and not rounded, and dq, dK and dV cast to bf16 at the end (:538,
+:745; ``attention_bwd_bf16.cuh`` on the card). The bias stays fp32.
+``relpos_attention`` is fp32 only: the JAX route casts its inputs to fp32
+(`models/layers.py:472-476`).
 
 For CPU tensors each wrapper computes its plain version (``*_reference``,
 ``*_backward_reference``, ``dropout_keep_reference``); for CUDA tensors it
 launches its kernel or raises. There is no fallback. Each counts its launches:
-``f.launches`` for a forward (``f.bf16_launches`` for the bf16 form),
-``f_backward.launches`` once per backward call
-(which launches two or three CUDA kernels), ``dropout_keep.launches`` for the
+``f.launches`` for a forward (``f.bf16_launches`` for the bf16 forms),
+``f_backward.launches`` once per backward call (``f_backward.bf16_launches``
+for the bf16 form; a call launches two or three CUDA kernels),
+``dropout_keep.launches`` for the
 kernel that writes the mask out alone. ``mask_draws`` counts the forward
 launches and backward calls that drew the mask inside their own kernels.
 """
@@ -75,10 +81,19 @@ _KEEP = ("dropout", "dropout_keep_u8", (_P, _P) + (_I,) * 4 + (_F, _P))
 _MASKED_BF16 = ("masked_attention_bf16", "masked_attention_bf16",
                 (_P,) * 5 + (_I,) * 4 + (_F, _P))
 _BIAS_BF16 = ("bias_attention_bf16", "bias_attention_bf16", (_P,) * 5 + (_I,) * 5 + (_F, _P))
+# the bf16 forwards' training form: the fp32 forwards' arguments
+_MASKED_BF16_TRAIN = ("masked_attention_bf16", "masked_attention_bf16_train", _MASKED[2])
+_BIAS_BF16_TRAIN = ("bias_attention_bf16", "bias_attention_bf16_train", _BIAS[2])
+# the bf16 backwards: q, k, v, bias, g, stats, seed, delta, part, dq, dk, dv,
+# B, H, TQ, TK, D, groups, scale, rate; and their query-tile groups at a shape
+_BWD_BF16_ARGS = (_P,) * 12 + (_I,) * 6 + (_F, _F, _P)
+_MASKED_BWD_BF16 = ("masked_attention_bwd_bf16", "masked_attention_bwd_bf16", _BWD_BF16_ARGS)
+_BIAS_BWD_BF16 = ("bias_attention_bwd_bf16", "bias_attention_bwd_bf16", _BWD_BF16_ARGS)
+_MASKED_BWD_BF16_GROUPS = ("masked_attention_bwd_bf16", "masked_attention_bwd_bf16_groups",
+                           (_I,) * 5)
+_BIAS_BWD_BF16_GROUPS = ("bias_attention_bwd_bf16", "bias_attention_bwd_bf16_groups",
+                         (_I,) * 5)
 _QKV_DTYPES = (torch.float32, torch.bfloat16)
-_BF16_FORWARD_ONLY = ("the bf16 attention form is forward only, without dropout: its "
-                      "backward (B4 and B6 in bf16) is the next slice of the port, "
-                      "ROADMAP §A item 4")
 
 Seed = Union[int, torch.Tensor]
 
@@ -262,8 +277,9 @@ def relpos_attention_reference(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Te
 def _softmax_backward(probs, v, g, scale, keep, rate):
     """(the probabilities dV sees, d loss / d scores): with the keep factor
     kf = keep / (1 - rate), dp = (g vᵀ)·kf and
-    ds = probs·(dp - rowsum(dp·probs))·scale."""
-    dprobs = torch.einsum("bhsd,bhtd->bhst", g, v)
+    ds = probs·(dp - rowsum(dp·probs))·scale. A bf16 v is widened: the
+    product of fp32 g and bf16 v is fp32 (`pallas_attention.py:474`)."""
+    dprobs = torch.einsum("bhsd,bhtd->bhst", g, v.float())
     probs_for_dv = probs
     if keep is not None:
         kf = keep.to(torch.float32) * (1.0 / (1.0 - rate))
@@ -273,23 +289,28 @@ def _softmax_backward(probs, v, g, scale, keep, rate):
 
 
 def _qkv_grads(ds, probs_for_dv, q, k, g):
-    return (torch.einsum("bhst,bhtd->bhsd", ds, k),
-            torch.einsum("bhst,bhsd->bhtd", ds, q),
-            torch.einsum("bhst,bhsd->bhtd", probs_for_dv, g))
+    """(dq, dK, dV) in q's dtype: fp32 products on widened operands, cast
+    last (`pallas_attention.py:538`, :745)."""
+    return (torch.einsum("bhst,bhtd->bhsd", ds, k.float()).to(q.dtype),
+            torch.einsum("bhst,bhsd->bhtd", ds, q.float()).to(q.dtype),
+            torch.einsum("bhst,bhsd->bhtd", probs_for_dv, g).to(q.dtype))
 
 
 def masked_attention_backward_reference(q, k, v, kv_bias, g, scale, keep=None,
                                         rate=0.0):
-    """(dq, dK, dV) of ``masked_attention_reference`` for g = d loss / d out,
-    step by step: recompute the probabilities, then dp, ds and the three
-    products. ``kv_bias`` is a constant."""
+    """(dq, dK, dV) of ``masked_attention_reference`` for g = d loss / d out
+    (fp32), step by step: recompute the probabilities in fp32, then dp, ds and
+    the three products; for bf16 q/k/v (`pallas_attention.py:508-538`) the
+    probabilities are not rounded and the gradients are cast to bf16 at the
+    end. ``kv_bias`` is a constant."""
     pdv, ds = _softmax_backward(_masked_probs(q, k, kv_bias, scale), v, g, scale, keep,
                                 rate)
     return _qkv_grads(ds, pdv, q, k, g)
 
 
 def bias_attention_backward_reference(q, k, v, bias, g, scale, keep=None, rate=0.0):
-    """(dq, dK, dV) of ``bias_attention_reference``; ``bias`` is a constant."""
+    """(dq, dK, dV) of ``bias_attention_reference``, fp32 or bf16 q/k/v as
+    ``masked_attention_backward_reference``; ``bias`` is a constant."""
     pdv, ds = _softmax_backward(_bias_probs(q, k, bias, scale), v, g, scale, keep, rate)
     return _qkv_grads(ds, pdv, q, k, g)
 
@@ -382,12 +403,6 @@ def _check_qkv(q, k, v):
     _check_inputs((("q", q), ("k", k), ("v", v)), q.device, q.dtype)
 
 
-def _check_fp32(x: torch.Tensor, kernel: str):
-    """The backward kernels take float32 alone."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError(f"{kernel} on {x.dtype}: {_BF16_FORWARD_ONLY}")
-
-
 def _check_relpos(q_u, q_v, k, v, p, bias):
     if not (q_u.shape == q_v.shape == k.shape == v.shape) or q_u.dim() != 4:
         raise ValueError("q_u/q_v/k/v must share one [B, H, T, D] shape, got "
@@ -408,8 +423,8 @@ def _check_relpos(q_u, q_v, k, v, p, bias):
 
 
 def _check_backward(g, out, stats, like):
-    """The backward kernels' own inputs: g and out shaped like q, the
-    forward's row statistics [B, H, TQ, 2]."""
+    """The backward kernels' own inputs: g and out float32 and shaped like q,
+    the forward's row statistics [B, H, TQ, 2]."""
     if stats is None:
         raise ValueError("the backward kernel needs the forward's row statistics")
     if g.shape != like.shape or out.shape != like.shape or \
@@ -420,6 +435,19 @@ def _check_backward(g, out, stats, like):
     _check_inputs((("g", g), ("out", out), ("stats", stats)), like.device)
 
 
+def _check_qkv_dtype(q, k, v):
+    """On every device: q, k and v share one dtype that has an instance."""
+    if q.dtype not in _QKV_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k and v must share float32 or bfloat16, got {q.dtype} "
+                         f"{k.dtype} {v.dtype}")
+
+
+def _check_g(g):
+    """d loss / d out is float32 on every device: the output is float32."""
+    if g.dtype != torch.float32:
+        raise ValueError(f"g must be float32 (the output's dtype), got {g.dtype}")
+
+
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
@@ -427,9 +455,12 @@ def _ptr(x: Optional[torch.Tensor]):
 mask_draws = 0  # attention launches (backward: calls) that drew the dropout mask
 
 
-def _count(fn, rate: float):
+def _count(fn, rate: float, bf16: bool = False):
     global mask_draws
-    fn.launches += 1
+    if bf16:
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
     if rate > 0.0:
         mask_draws += 1
 
@@ -442,37 +473,44 @@ def _count(fn, rate: float):
 def masked_attention_forward(q, k, v, kv_bias, scale, rate=0.0, seed=None,
                              want_stats=False):
     """``masked_attention`` outside autograd: (out, stats), stats [B, H, T, 2]
-    (each row's max and 1 / sum, what the backward kernel reads) on the card
-    when asked for, else None."""
+    (each row's max and 1 / sum, what the backward kernel reads; the bf16 form
+    keeps the max in log2 units, as its kernels compute) on the card when
+    asked for, else None. bf16 q/k/v with dropout or statistics take the bf16
+    form's training instance."""
     _check_rate(rate)
-    _check_bf16_forward(q, rate, want_stats, "masked_attention")
+    _check_qkv_dtype(q, k, v)
     b, h, t, d = q.shape
     if not build.on_card(q, "masked_attention"):
         return masked_attention_reference(
             q, k, v, kv_bias, scale, _keep_or_none(seed, b, h, t, t, rate), rate), None
     _check(q, k, v, kv_bias)
-    if q.dtype == torch.bfloat16:
-        out = q.new_empty(q.shape, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    out = q.new_empty(q.shape, dtype=torch.float32)
+    if bf16 and rate == 0.0 and not want_stats:
         build.launch(_MASKED_BF16, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      kv_bias.data_ptr(), out.data_ptr(), b, h, t, d, float(scale))
         masked_attention.bf16_launches += 1
         return out, None
     _check_seed(seed, q.device, rate)
-    out = torch.empty_like(q)
-    stats = q.new_empty((b, h, t, 2)) if want_stats else None
-    build.launch(_MASKED, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 kv_bias.data_ptr(), out.data_ptr(), _ptr(seed) if rate > 0 else None,
-                 _ptr(stats), b, h, t, d, float(scale), float(rate))
-    _count(masked_attention, rate)
+    stats = out.new_empty((b, h, t, 2)) if want_stats else None
+    build.launch(_MASKED_BF16_TRAIN if bf16 else _MASKED, q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), kv_bias.data_ptr(), out.data_ptr(),
+                 _ptr(seed) if rate > 0 else None, _ptr(stats), b, h, t, d, float(scale),
+                 float(rate))
+    _count(masked_attention, rate, bf16)
     return out, stats
 
 
 def masked_attention_backward(q, k, v, kv_bias, g, out, stats, seed, scale: float,
                               rate: float = 0.0):
-    """(dq, dK, dV) of ``masked_attention`` for g = d loss / d out. On the card
-    ``csrc/masked_attention_bwd.cu`` (``out`` and the forward's ``stats``
-    required); on the CPU ``masked_attention_backward_reference``."""
-    _check_fp32(q, "masked_attention_backward")
+    """(dq, dK, dV) of ``masked_attention`` for g = d loss / d out (float32),
+    in q's dtype. On the card ``csrc/masked_attention_bwd.cu`` (fp32; ``out``
+    and the forward's ``stats`` required) or ``csrc/masked_attention_bwd_bf16.cu``
+    (bf16 q/k/v; ``stats`` from the bf16 training form; delta is formed from
+    the fp32 probabilities, so ``out`` is only checked); on the CPU
+    ``masked_attention_backward_reference``."""
+    _check_qkv_dtype(q, k, v)
+    _check_g(g)
     b, h, t, d = q.shape
     if not build.on_card(q, "masked_attention_backward"):
         return masked_attention_backward_reference(
@@ -480,6 +518,8 @@ def masked_attention_backward(q, k, v, kv_bias, g, out, stats, seed, scale: floa
     _check(q, k, v, kv_bias)
     _check_backward(g, out, stats, q)
     _check_seed(seed, q.device, rate)
+    if q.dtype == torch.bfloat16:
+        return backward_bf16("masked", q, k, v, kv_bias, g, stats, seed, scale, rate)[:3]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = q.new_empty((b, h, t))
     build.launch(_MASKED_BWD, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -488,6 +528,45 @@ def masked_attention_backward(q, k, v, kv_bias, g, out, stats, seed, scale: floa
                  dk.data_ptr(), dv.data_ptr(), b, h, t, d, float(scale), float(rate))
     _count(masked_attention_backward, rate)
     return dq, dk, dv
+
+
+def backward_bf16(family: str, q, k, v, bias, g, stats, seed, scale: float,
+                  rate: float = 0.0):
+    """The bf16 backward of B4 (``family`` "masked", bias the [B, 1, T] key
+    bias) or B6 ("bias") on the card: (dq, dK, dV, delta). A dQ pass forms
+    delta = Σ_j p dp from the fp32 probabilities, writes dq and delta ([B, H,
+    TQ] fp32, returned for checks), then a dK/dV pass over G query-tile groups
+    (G > 1: fp32 partials [2, G, B, H, TK, D] added in group order by a third
+    kernel). G comes from the built library. Inputs as the backward wrappers,
+    which call this after their checks."""
+    spec, groups_spec, fn = {
+        "masked": (_MASKED_BWD_BF16, _MASKED_BWD_BF16_GROUPS, masked_attention_backward),
+        "bias": (_BIAS_BWD_BF16, _BIAS_BWD_BF16_GROUPS, bias_attention_backward)}[family]
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    groups = bf16_backward_groups(groups_spec, b, h, tq, tk, d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = g.new_empty((b, h, tq))
+    part = g.new_empty((2, groups, b, h, tk, d)) if groups > 1 else None
+    build.launch(spec, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 bias.data_ptr(), g.data_ptr(), stats.data_ptr(),
+                 _ptr(seed) if rate > 0 else None, delta.data_ptr(), _ptr(part),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, groups,
+                 float(scale), float(rate))
+    _count(fn, rate, bf16=True)
+    return dq, dk, dv, delta
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_backward_groups(groups_spec, b: int, h: int, tq: int, tk: int, d: int) -> int:
+    """The query-tile groups G of a bf16 backward (``_MASKED_BWD_BF16_GROUPS``
+    or ``_BIAS_BWD_BF16_GROUPS``) at this shape; the library owns the tile
+    sizes. Raises where the head dim has no instance."""
+    groups = build.bind(*groups_spec)(b, h, tq, tk, d)
+    if groups < 1:
+        raise ValueError(f"no bf16 backward instance at B={b}, H={h}, TQ={tq}, TK={tk}, "
+                         f"D={d}")
+    return groups
 
 
 class _MaskedAttention(torch.autograd.Function):
@@ -510,25 +589,15 @@ class _MaskedAttention(torch.autograd.Function):
 
 
 def _differentiate(*tensors: torch.Tensor) -> bool:
-    """Whether autograd needs this call's backward; a bf16 call raises instead."""
-    grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
-    if grad and tensors[0].dtype == torch.bfloat16:
-        raise NotImplementedError(f"a bf16 attention input needs a gradient: "
-                                  f"{_BF16_FORWARD_ONLY}")
-    return grad
-
-
-def _check_bf16_forward(q: torch.Tensor, rate: float, want_stats: bool, kernel: str):
-    if q.dtype == torch.bfloat16 and (rate > 0.0 or want_stats):
-        raise NotImplementedError(f"{kernel} with bf16 inputs and dropout or row "
-                                  f"statistics: {_BF16_FORWARD_ONLY}")
+    """Whether autograd needs this call's backward."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
                      seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal attention with a key-validity bias. q/k/v [B, H, T, D] float32
-    (or bfloat16: forward only, no dropout), T a multiple of 64, D a multiple
+    or bfloat16 (gradients in that dtype), T a multiple of 64, D a multiple
     of 8 up to 256; kv_bias [B, 1, T] float32 (0 valid, NEG_INF masked).
     Returns [B, H, T, D] float32. Every row must have one
     allowed key, which key 0 gives on the serving and training paths.
@@ -547,34 +616,37 @@ def bias_attention_forward(q, k, v, bias, scale, rate=0.0, seed=None, want_stats
     """``bias_attention`` outside autograd: (out, stats) as
     ``masked_attention_forward``."""
     _check_rate(rate)
-    _check_bf16_forward(q, rate, want_stats, "bias_attention")
+    _check_qkv_dtype(q, k, v)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if not build.on_card(q, "bias_attention"):
         return bias_attention_reference(
             q, k, v, bias, scale, _keep_or_none(seed, b, h, tq, tk, rate), rate), None
     _check_bias(q, k, v, bias)
-    if q.dtype == torch.bfloat16:
-        out = q.new_empty(q.shape, dtype=torch.float32)
+    bf16 = q.dtype == torch.bfloat16
+    out = q.new_empty(q.shape, dtype=torch.float32)
+    if bf16 and rate == 0.0 and not want_stats:
         build.launch(_BIAS_BF16, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      bias.data_ptr(), out.data_ptr(), b, h, tq, tk, d, float(scale))
         bias_attention.bf16_launches += 1
         return out, None
     _check_seed(seed, q.device, rate)
-    out = torch.empty_like(q)
-    stats = q.new_empty((b, h, tq, 2)) if want_stats else None
-    build.launch(_BIAS, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), _ptr(seed) if rate > 0 else None,
-                 _ptr(stats), b, h, tq, tk, d, float(scale), float(rate))
-    _count(bias_attention, rate)
+    stats = out.new_empty((b, h, tq, 2)) if want_stats else None
+    build.launch(_BIAS_BF16_TRAIN if bf16 else _BIAS, q.device, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                 _ptr(seed) if rate > 0 else None, _ptr(stats), b, h, tq, tk, d,
+                 float(scale), float(rate))
+    _count(bias_attention, rate, bf16)
     return out, stats
 
 
 def bias_attention_backward(q, k, v, bias, g, out, stats, seed, scale: float,
                             rate: float = 0.0):
-    """(dq, dK, dV) of ``bias_attention``: ``csrc/bias_attention_bwd.cu`` on the
-    card, ``bias_attention_backward_reference`` on the CPU."""
-    _check_fp32(q, "bias_attention_backward")
+    """(dq, dK, dV) of ``bias_attention`` in q's dtype:
+    ``csrc/bias_attention_bwd.cu`` (fp32) or ``csrc/bias_attention_bwd_bf16.cu``
+    (bf16) on the card, ``bias_attention_backward_reference`` on the CPU."""
+    _check_qkv_dtype(q, k, v)
+    _check_g(g)
     b, h, tq, d = q.shape
     tk = k.shape[2]
     if not build.on_card(q, "bias_attention_backward"):
@@ -583,6 +655,8 @@ def bias_attention_backward(q, k, v, bias, g, out, stats, seed, scale: float,
     _check_bias(q, k, v, bias)
     _check_backward(g, out, stats, q)
     _check_seed(seed, q.device, rate)
+    if q.dtype == torch.bfloat16:
+        return backward_bf16("bias", q, k, v, bias, g, stats, seed, scale, rate)[:3]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     groups, shape = bias_backward_scratch(b, h, tq, tk, d)
     scratch = q.new_empty(shape)
@@ -631,7 +705,7 @@ def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    bias: torch.Tensor, scale: float, dropout_rate: float = 0.0,
                    seed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention under an additive bias that carries the whole mask. q
-    [B, H, TQ, D], k/v [B, H, TK, D] float32 (or bfloat16, as
+    [B, H, TQ, D], k/v [B, H, TK, D] float32 or bfloat16 (as
     ``masked_attention``), bias [B, TQ, TK] float32, any TQ and TK, D a
     multiple of 8 up to 256. Returns [B, H, TQ, D] float32. Dropout and
     gradients as ``masked_attention``; the bias is a constant."""
@@ -738,4 +812,6 @@ def relpos_attention(q_u: torch.Tensor, q_v: torch.Tensor, k: torch.Tensor,
 for _fn in (masked_attention, bias_attention, relpos_attention, masked_attention_backward,
             bias_attention_backward, relpos_attention_backward, dropout_keep):
     _fn.launches = 0
-masked_attention.bf16_launches = bias_attention.bf16_launches = 0
+for _fn in (masked_attention, bias_attention, masked_attention_backward,
+            bias_attention_backward):
+    _fn.bf16_launches = 0

@@ -82,8 +82,10 @@ class LayerNorm(nn.LayerNorm):
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability 1 - rate, drawn
-    as ``bernoulli(1 - rate)`` from ``generator`` (on x's device), and scale
-    the kept ones by 1 / (1 - rate). Identity when ``deterministic`` or rate 0."""
+    as ``bernoulli(1 - rate)`` from ``generator`` (on x's device), and divide
+    the kept ones by 1 - rate taken in x's dtype (flax's ``inputs /
+    keep_prob``: a Python float meets a bf16 array as bf16, 0.8984375 for
+    0.9), rounded to x's dtype. Identity when ``deterministic`` or rate 0."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
@@ -91,7 +93,8 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
-    return torch.where(keep.bool(), x / (1.0 - rate), torch.zeros_like(x))
+    keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    return torch.where(keep.bool(), x / keep_prob, torch.zeros_like(x))
 
 
 class BatchNorm(nn.Module):
@@ -329,12 +332,20 @@ class MultiHeadAttention(nn.Module):
     @staticmethod
     def _bias_kernel(q, k, v, bias, scale, rate=0.0, seed=None):
         """`layers.py:325-362` ``_bias_pallas``: the bias [B|1, 1, S, T] carries
-        the whole mask; the kernel masks its own ragged edges, so nothing is
-        padded; dropout at ``rate`` from ``seed`` inside the kernel.
-        q [B, S, H, Dh], k/v [B, T, H, Dh] → [B, S, H, Dh] in v's dtype (:362)."""
+        the whole mask; the keys are padded to the 128 tile as JAX pads them
+        (zero K and V, NEG_INF bias), which decides a wholly masked query row:
+        its softmax is uniform over the padded keys, so its output is the sum
+        of V over T divided by T_pad, not by T. The kernel masks its own ragged
+        query edge, so the queries are not padded. Dropout at ``rate`` from
+        ``seed`` inside the kernel. q [B, S, H, Dh], k/v [B, T, H, Dh] →
+        [B, S, H, Dh] in v's dtype (:362)."""
         b, s, _, _ = q.shape
-        b3 = bias[:, 0].expand(b, s, k.shape[1]).contiguous()
-        q, k, v = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        t = k.shape[1]
+        t_pad = -(-t // 128) * 128
+        b3 = F.pad(bias[:, 0].expand(b, s, t), (0, t_pad - t), value=NEG_INF).contiguous()
+        q = q.transpose(1, 2).contiguous()
+        k, v = (F.pad(a, (0, 0, 0, 0, 0, t_pad - t)).transpose(1, 2).contiguous()
+                for a in (k, v))
         return attention_kernels.bias_attention(q, k, v, b3, scale, rate,
                                                 seed).transpose(1, 2).to(v.dtype)
 
@@ -546,9 +557,11 @@ def cast_compute_weights_(model: nn.Module) -> nn.Module:
     ``ChunkCausalConv`` in ``model`` whose compute dtype is not float32 to that
     dtype, so that serving launches no cast of them at each call: their
     per-call ``.to`` then returns the tensor itself. The numbers are those of
-    the per-call cast. For a model that only serves (the parameters become
-    bf16, which no train step takes); LayerNorm, BatchNorm and the embedding
-    tables stay float32 (the MT decoder reads its rows uncast)."""
+    the per-call cast. For a model that only serves: the parameters become
+    bf16, and a train step keeps float32 parameters and Adam state (train a
+    bf16 model uncast: its ``Dense`` casts at every call, as flax's does);
+    LayerNorm, BatchNorm and the embedding tables stay float32 (the MT decoder
+    reads its rows uncast)."""
     for m in model.modules():
         if isinstance(m, (Dense, ChunkCausalConv)) and m.dtype != torch.float32:
             for p in (m.weight, m.bias):

@@ -14,8 +14,9 @@ statistics).
 ``weights.load_flax_variables`` loads it unchanged), bf16 compute where the
 JAX modules compute in their ``dtype``. Its forward and serving run the bf16
 forms of the causal, bias and not-blank kernels; rel-pos attention casts to
-float32 for its kernel, as in JAX. Training it is the next slice of the port:
-``train.trainer.make_train_step`` raises on it.
+float32 for its kernel, as in JAX. ``train.trainer.make_train_step`` trains
+it with float32 parameters and optimizer state; its kernel route launches the
+bf16 training forms and bf16 backwards of the causal and bias kernels.
 """
 
 from __future__ import annotations

@@ -192,13 +192,22 @@ def make_train_step(model: StreamSpeechModel, tx: Optimizer, unit_blank: int,
     gates admit the shape. It is set on the model's attention modules here
     (``set_kernel_train``), on or off; off, the step is the plain route's.
 
-    The model must compute in float32: a bf16 model raises. bf16 training (the
-    trainer's casts, B4 and B6 in bf16) is the next slice of the port, ROADMAP
-    §A item 4."""
-    if model.dtype != torch.float32:
-        raise NotImplementedError(f"make_train_step on a {model.dtype} model: bf16 "
-                                  "training is the next slice of the port (ROADMAP §A "
-                                  "item 4); the bf16 model runs the forward and serves")
+    The step computes in the model's dtype: a bf16 model
+    (``StreamSpeechModel(cfg, dtype=torch.bfloat16)``) is the counterpart of
+    the JAX step over ``build_full_model(dtype=jnp.bfloat16)``, the trainer's
+    design point (`trainer.py:8`: bf16 compute, fp32 params and optimizer, no
+    loss scaler). Its ``Dense`` layers cast their fp32 parameters at every
+    call, so each gradient reaches its fp32 parameter through that cast, as
+    with flax; the losses widen the logits to fp32 (`criterion.py:35`,
+    `ops/ctc.py:60-66`); the guard, the clip and Adam run in fp32 on the fp32
+    parameters. A model whose weights ``layers.cast_compute_weights_`` cast
+    for serving is refused."""
+    if model.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"make_train_step on a {model.dtype} model: the step "
+                                  "computes in float32 or bfloat16")
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise ValueError("make_train_step needs float32 parameters: this model's were "
+                         "cast for serving (layers.cast_compute_weights_)")
     set_kernel_train(model, kernel_attention)
 
     def forward(batch, generator, chunk_size, conv_chunk_size):

@@ -131,25 +131,23 @@ def test_plain_not_blank_on_bf16_logits_matches_jax_kernel(jax_out, b, t, v, bla
 
 
 def test_bf16_wrappers_raise_where_no_bf16_form_exists():
-    """The bf16 forms are forward only: a gradient, dropout, row statistics or
-    a backward call on bf16 raise, naming the next slice; so do the same
-    calls on the CPU, where the plain versions could compute them."""
+    """The bf16 forms now train (a gradient, dropout and row statistics run);
+    what has no form raises, on the CPU as on the card: float16, q/k/v of
+    mixed dtypes, and a bf16 g (the output, and so g, is float32)."""
     q, k, v, kvb = _to_torch(*_masked_inputs(64, 16), n_bf16=3)
     bias = torch.zeros(2, 64, 64)
     leaf = q.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        attention.masked_attention(leaf, k, v, kvb, 0.25)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        attention.bias_attention(leaf, k, v, bias, 0.25)
-    seed = torch.tensor([3])
-    with pytest.raises(NotImplementedError, match="next slice"):
-        attention.masked_attention(q, k, v, kvb, 0.25, 0.1, seed)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        attention.bias_attention_forward(q, k, v, bias, 0.25, want_stats=True)
+    out = attention.masked_attention(leaf, k, v, kvb, 0.25, 0.1, torch.tensor([3]))
+    out.sum().backward()
+    assert leaf.grad.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        attention.masked_attention(q.half(), k.half(), v.half(), kvb, 0.25)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        attention.bias_attention(q, k.float(), v, bias, 0.25)
     g = torch.zeros_like(q)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="g must be float32"):
         attention.masked_attention_backward(q, k, v, kvb, g, g, None, None, 0.25)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="g must be float32"):
         attention.bias_attention_backward(q, k, v, bias, g, g, None, None, 0.25)
-    with torch.no_grad():     # without a gradient the bf16 form runs
+    with torch.no_grad():     # without a gradient the inference form runs
         assert attention.masked_attention(leaf, k, v, kvb, 0.25).dtype == torch.float32

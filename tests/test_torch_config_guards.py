@@ -38,15 +38,26 @@ def test_tiny_config_still_builds():
 
 
 def test_optimizer_dtype_keeps_the_jax_default():
-    # read by nothing in the port: the train step computes in float32
+    # read by nothing in either package: the step computes in the model's dtype
     assert OptimizationConfig().dtype == "bfloat16"
 
 
 def test_train_step_raises_on_a_bf16_model():
+    """A bf16 model now trains (its step is held to JAX's in
+    ``tests/test_torch_bf16_train.py``); what raises is a model whose
+    parameters were cast for serving, and a dtype other than float32 or
+    bfloat16."""
+    from streamspeech_tpu_torch.models.layers import cast_compute_weights_
     from streamspeech_tpu_torch.train.trainer import make_optimizer, make_train_step
 
     cfg = tiny_config()
+    tx = make_optimizer(OptimizationConfig(update_freq=1))
     model = StreamSpeechModel(cfg, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        make_train_step(model, make_optimizer(OptimizationConfig(update_freq=1)),
+    make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1)
+    with pytest.raises(ValueError, match="cast for serving"):
+        make_train_step(cast_compute_weights_(model), tx,
                         unit_blank=cfg.unit_decoder.vocab_size - 1)
+    other = StreamSpeechModel(cfg)
+    other.dtype = torch.float16
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        make_train_step(other, tx, unit_blank=cfg.unit_decoder.vocab_size - 1)

@@ -73,13 +73,35 @@ def _port_nll(fn, case, requires_grad=False):
     return x, fn(x, _t(ll).long(), _t(labels).long(), _t(ln).long(), blank)
 
 
+def _zi_sum(nll):
+    return jnp.sum(jnp.where(jnp.isfinite(nll) & (nll < 1e29), nll, 0.0))
+
+
+@pytest.fixture(scope="module")
+def jax_cases():
+    """Per case, one jit of the JAX side both NLL tests read: the Pallas
+    kernel's per-row NLL (interpret mode), the scan form's, and the value and
+    gradient of the zero_infinity sum through the Pallas custom_vjp."""
+    out = {}
+    for name, make in CASES.items():
+        case = make()
+        args = [jnp.asarray(a) for a in case[:-1]]
+
+        def run(lg, args=args, blank=case[-1]):
+            def loss(x):
+                nll = jpc.ctc_neg_log_likelihood_pallas(x, *args[1:], blank, interpret=True)
+                return _zi_sum(nll), nll
+            (value, nll), grad = jax.value_and_grad(loss, has_aux=True)(lg)
+            return nll, jctc.ctc_neg_log_likelihood(lg, *args[1:], blank_id=blank), value, grad
+
+        out[name] = [np.asarray(x) for x in jax.jit(run)(args[0])]
+    return out
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_nll_matches_jax(name):
+def test_nll_matches_jax(jax_cases, name):
     case = CASES[name]()
-    args = [jnp.asarray(a) for a in case[:-1]]
-    want_kernel = np.asarray(jpc.ctc_neg_log_likelihood_pallas(*args, blank_id=case[-1],
-                                                               interpret=True))
-    want_scan = np.asarray(jctc.ctc_neg_log_likelihood(*args, blank_id=case[-1]))
+    want_kernel, want_scan = jax_cases[name][:2]
     for fn in (kctc.ctc_neg_log_likelihood_kernel, pctc.ctc_neg_log_likelihood):
         with torch.no_grad():
             _, got = _port_nll(fn, case)
@@ -87,23 +109,13 @@ def test_nll_matches_jax(name):
         np.testing.assert_allclose(got.numpy(), want_scan, **VAL, err_msg=fn.__name__)
 
 
-def _zi_sum(nll):
-    return jnp.sum(jnp.where(jnp.isfinite(nll) & (nll < 1e29), nll, 0.0))
-
-
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_nll_gradient_matches_jax(name):
+def test_nll_gradient_matches_jax(jax_cases, name):
     """d sum(zero_infinity(nll)) / d logits through the port's autograd.Function
     (plain alpha forward, plain beta backward) and through the scan form,
     against JAX's Pallas custom_vjp in interpret mode."""
     case = CASES[name]()
-    args = [jnp.asarray(a) for a in case[:-1]]
-
-    def loss(lg):
-        return _zi_sum(jpc.ctc_neg_log_likelihood_pallas(lg, *args[1:], case[-1],
-                                                         interpret=True))
-
-    want_v, want_g = jax.value_and_grad(loss)(args[0])
+    want_v, want_g = jax_cases[name][2:]
     for fn in (kctc.ctc_neg_log_likelihood_kernel, pctc.ctc_neg_log_likelihood):
         x, nll = _port_nll(fn, case, requires_grad=True)
         total = pctc._zero_infinity_sum(nll)
@@ -203,9 +215,9 @@ def test_loss_sum_pair_matches_jax():
         return _zi_sum(na) + 2.0 * _zi_sum(nb)
 
     lg = (jnp.asarray(a[0]), jnp.asarray(b[0]))
-    (_, (want_a, want_b)), want_g = jax.value_and_grad(jloss_pair, argnums=(0, 1),
-                                                       has_aux=True)(*lg)
-    multi_g = jax.grad(jloss_multi, argnums=(0, 1))(*lg)
+    (_, (want_a, want_b)), want_g = jax.jit(jax.value_and_grad(jloss_pair, argnums=(0, 1),
+                                                               has_aux=True))(*lg)
+    multi_g = jax.jit(jax.grad(jloss_multi, argnums=(0, 1)))(*lg)
     xa, xb = _t(a[0]).requires_grad_(), _t(b[0]).requires_grad_()
     got_a, got_b = pctc.ctc_loss_sum_pair(
         xa, _t(a[1]).long(), _t(a[2]).long(), _t(a[3]).long(),

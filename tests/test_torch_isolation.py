@@ -83,6 +83,18 @@ sys.exit(1 if bad else 0)
 """
 
 
+# a bf16 step on the kernel route, every attention gate open, dropout on: the
+# bf16 training forms and backwards of the causal and bias kernels (their
+# plain versions here)
+_TRAIN_STEP_BF16 = _TRAIN_STEP.replace(
+    "model = random_init_(StreamSpeechModel(cfg), 0)",
+    "from streamspeech_tpu_torch.models import layers\n"
+    "for gate in ('_relpos_kernel_ok', '_masked_kernel_ok', '_bias_kernel_ok'):\n"
+    "    setattr(layers, gate, lambda t, dh: True)\n"
+    "model = random_init_(StreamSpeechModel(cfg, dtype=torch.bfloat16), 0)").replace(
+    "specaugment_cfg={}, rdrop_alpha=0.5)", "kernel_attention=True)")
+
+
 def _run_alone(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -98,6 +110,13 @@ def test_port_runs_without_jax_or_the_jax_package():
 def test_port_trains_without_jax_or_the_jax_package():
     """A train step with SpecAugment and R-Drop imports nothing of JAX."""
     _run_alone(_TRAIN_STEP)
+
+
+def test_port_trains_bf16_without_jax_or_the_jax_package():
+    """A bf16 step on the kernel route imports nothing of JAX."""
+    assert "dtype=torch.bfloat16" in _TRAIN_STEP_BF16 and "kernel_attention" in \
+        _TRAIN_STEP_BF16
+    _run_alone(_TRAIN_STEP_BF16)
 
 
 def test_port_sources_import_no_jax():

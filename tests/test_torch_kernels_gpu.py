@@ -992,11 +992,13 @@ def test_bf16_wrappers_raise_instead_of_falling_back(hopper):
         attention.bias_attention(z, z, z, bias.bfloat16(), 0.125)
     with pytest.raises(ValueError):                     # float16 has no instance
         attention.masked_attention(z.half(), z.half(), z.half(), kvb, 0.125)
-    with pytest.raises(NotImplementedError, match="next slice"):     # dropout
-        attention.masked_attention(z, z, z, kvb, 0.125, 0.1, _seed(hopper))
-    leaf = z.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="next slice"):     # a gradient
-        attention.bias_attention(leaf, z, z, bias, 0.125)
+    out, stats = attention.masked_attention_forward(z, z, z, kvb, 0.125, 0.1, _seed(hopper),
+                                                    True)
+    with pytest.raises(ValueError):                     # g is fp32, the output's dtype
+        attention.masked_attention_backward(z, z, z, kvb, out.bfloat16(), out, stats,
+                                            _seed(hopper), 0.125, 0.1)
+    with pytest.raises(ValueError):                     # the forward's statistics
+        attention.bias_attention_backward(z, z, z, bias, out, out, None, None, 0.125)
     with pytest.raises(ValueError):                     # rel-pos stays fp32
         attention.relpos_attention(z, z, z, z, torch.zeros(2, 127, 64, device=hopper,
                                                            dtype=torch.bfloat16),
@@ -1028,3 +1030,193 @@ def test_bf16_model_routes_launch_the_bf16_forms(hopper):
         [(0, 1), (0, 1), (0, 2)]
     assert out["unit_logits"].dtype == torch.bfloat16
     assert torch.isfinite(out["unit_logits"].float()).all()
+
+
+# The bf16 training forms of B3 and B5 (dropout, row statistics) and the bf16
+# backwards B4 and B6 (``csrc/attention_bwd_bf16.cuh``) against their plain
+# bf16 versions under the same mask.
+def _bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (8 significant bits); 0 at 0."""
+    m, e = torch.frexp(x.float())
+    return torch.where(x != 0, torch.ldexp(torch.ones_like(m), e - 8), torch.zeros_like(m))
+
+
+def _bf16_grad_bounds(family, q, k, v, bias, g, scale, keep, rate):
+    """Each gradient element's bound against the plain bf16 backward: one bf16
+    ulp (the two fp32 results may round apart across a bf16 boundary) plus
+    2^-12 of the magnitudes of its terms (the kernel's split products err by
+    ~2^-16 of them, its fp32 sums in another order by less). The terms of dq
+    and dK: ds with dp's own terms, p (|g||v|ᵀ kf + Σ p |g||v|ᵀ kf) scale
+    (dp from g split in two bf16 parts errs by ~2^-17 of Σ_d |g_d v_jd|, and
+    p (dp - delta) may cancel far below that), times |K| or |q|; of dV:
+    p kf |g|."""
+    probs = (attention._masked_probs if family == "masked" else attention._bias_probs)(
+        q, k, bias, scale)
+    kf = torch.ones_like(probs) if keep is None else keep.float() / (1.0 - rate)
+    dp = torch.einsum("bhsd,bhtd->bhst", g.abs(), v.float().abs()) * kf
+    ds = probs * (dp + (probs * dp).sum(-1, keepdim=True)) * scale
+    return (torch.einsum("bhst,bhtd->bhsd", ds, k.float().abs()),
+            torch.einsum("bhst,bhsd->bhtd", ds, q.float().abs()),
+            torch.einsum("bhst,bhsd->bhtd", probs * kf, g.abs()))
+
+
+def _assert_bf16_grads(got, want, terms):
+    for name, a, w, t in zip(("dq", "dk", "dv"), got, want, terms):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        bound = torch.maximum(_bf16_ulp(a), _bf16_ulp(w)) + 2.0 ** -12 * t + 1e-30
+        share = float(((a.float() - w.float()).abs() / bound).max())
+        assert share <= 1.0, f"{name}: an element reached {share} of its bound"
+
+
+def _bf16_family_inputs(family, b, h, tq, tk, d, seed, masked_row=False):
+    """bf16 q, k, v, an fp32 g and the family's bias on the card: causal with
+    the last 8 keys of row 0 invalid; bias the wait-k mask with key validity,
+    and with ``masked_row`` row 1's query 0 wholly masked."""
+    if family == "masked":
+        q, k, v, kvb = _inputs(b, h, tq, d, seed=seed, n_valid=[tq - 8] + [tq] * (b - 1))
+        bias = kvb
+    else:
+        q, k, v, bias = _bias_inputs(b, h, tq, tk, d, seed=seed)
+        if masked_row:
+            bias[min(1, b - 1), 0] = NEG_INF
+    g = np.random.RandomState(seed + 1).randn(b, h, tq, d).astype(np.float32)
+    q, k, v = _bf16(q, k, v, device=hopper_device())
+    return q, k, v, torch.from_numpy(bias).to(q.device), torch.from_numpy(g).to(q.device)
+
+
+def hopper_device():
+    return torch.device("cuda", 0)
+
+
+BF16_TRAIN_CASES = [("masked", 1, 2, 64, 64, d) for d in (8, 16, 24, 64, 72, 136, 256)] + \
+    [("masked", 2, 2, 320, 320, d) for d in (16, 64, 256)] + \
+    [("masked", 1, 2, 1280, 1280, 64)] + \
+    [("bias", 2, 2, tq, tk, d) for tq, tk in ((70, 24), (1200, 48), (130, 65), (100, 130))
+     for d in (8, 24, 64, 136, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("family,b,h,tq,tk,d", BF16_TRAIN_CASES)
+def test_bf16_training_forward_and_backward_match_plain_versions(hopper, family, b, h, tq,
+                                                                 tk, d, rate):
+    """The training forward (dropout, statistics) within the bf16 forward's
+    bound under the same keep mask; the backward's dq, dK, dV (bf16) within
+    ``_bf16_grad_bounds`` of the plain bf16 backward; a second backward equal
+    bit for bit; each counted once on its bf16 counter."""
+    q, k, v, bias, g = _bf16_family_inputs(family, b, h, tq, tk, d, seed=tq + tk + d,
+                                           masked_row=True)
+    scale = d ** -0.5
+    seed = _seed(hopper, 700 + d)
+    fwd = getattr(attention, f"{family}_attention_forward")
+    bwd = getattr(attention, f"{family}_attention_backward")
+    ref = getattr(attention, f"{family}_attention_reference")
+    ref_bwd = getattr(attention, f"{family}_attention_backward_reference")
+    public = getattr(attention, f"{family}_attention")
+    keep = attention.dropout_keep_reference(seed, b, h, tq, tk, rate) if rate > 0 else None
+    counts = (public.launches, public.bf16_launches, bwd.launches, bwd.bf16_launches)
+    out, stats = fwd(q, k, v, bias, scale, rate, seed, True)
+    grads = bwd(q, k, v, bias, g, out, stats, seed, scale, rate)
+    again = bwd(q, k, v, bias, g, out, stats, seed, scale, rate)
+    torch.cuda.synchronize()
+    assert (public.launches, public.bf16_launches, bwd.launches, bwd.bf16_launches) == \
+        (counts[0], counts[1] + 1, counts[2], counts[3] + 2)
+    assert out.dtype == torch.float32 and stats.shape == (b, h, tq, 2)
+    assert torch.isfinite(stats).all()
+    want = ref(q, k, v, bias, scale, keep, rate)
+    bound = 2.0 ** -7 * ref(q, k, v.float().abs(), bias, scale, keep, rate) + 1e-5
+    assert float(((out - want).abs() / bound).max()) <= 1.0
+    _assert_bf16_grads(grads, ref_bwd(q, k, v, bias, g, scale, keep, rate),
+                       _bf16_grad_bounds(family, q, k, v, bias, g, scale, keep, rate))
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("family", ["masked", "bias"])
+def test_bf16_backward_forms_delta_from_the_fp32_probabilities(hopper, family, rate):
+    """delta, which the dQ pass writes for the dK/dV pass, is Σ_j p dp of the
+    fp32 probabilities, within 2^-16 of its terms Σ_j p Σ_d |g_d v_jd| (g split
+    in two bf16 parts is g to 2^-17). rowsum(g out), what the fp32 kernels
+    take, is not: out came from probabilities rounded to bf16, and with V off
+    zero (a common offset, as trained values have) it misses by far more than
+    that bound, so this check fails a kernel that took it."""
+    b, h, d = 2, 2, 64
+    tq, tk = (640, 640) if family == "masked" else (1200, 48)
+    q, k, v, bias, g = _bf16_family_inputs(family, b, h, tq, tk, d, seed=5)
+    v = (v.float() + 4.0).bfloat16()
+    seed = _seed(hopper, 99)
+    out, stats = getattr(attention, f"{family}_attention_forward")(
+        q, k, v, bias, 0.125, rate, seed, True)
+    delta = attention.backward_bf16(family, q, k, v, bias, g, stats, seed, 0.125, rate)[3]
+    probs = (attention._masked_probs if family == "masked" else attention._bias_probs)(
+        q, k, bias, 0.125)
+    kf = 1.0 if rate == 0 else attention.dropout_keep_reference(seed, b, h, tq, tk,
+                                                                rate).float() / (1 - rate)
+    dp = torch.einsum("bhsd,bhtd->bhst", g, v.float()) * kf
+    true = (probs * dp).sum(-1)
+    terms = torch.einsum("bhsd,bhtd->bhst", g.abs(), v.float().abs()) * kf
+    tol = 2.0 ** -16 * (probs * terms).sum(-1) + 1e-6
+    from_out = (g * out).sum(-1)
+    assert float(((delta - true).abs() / tol).max()) <= 1.0
+    assert float(((from_out - true).abs() / tol).max()) > 10.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [64, 128])
+@pytest.mark.parametrize("family", ["masked", "bias"])
+def test_bf16_kernels_keep_bits_equal_the_plain_mask(hopper, family, t):
+    """As ``test_kernels_keep_bits_equal_the_plain_mask`` for the bf16 forms:
+    with v the identity the training forward's out[i, j] is bf16(p kf)[i, j]
+    / sum, with g the identity the backward's dV[j, i] is p kf, so the
+    elements that are not 0 are the kept ones the mask allows."""
+    b, h, d, rate, scale = 2, 3, t, 0.1, t ** -0.5
+    q, k, _, bias, _ = _bf16_family_inputs(family, b, h, t, t, d, seed=t)
+    if family == "bias":       # every key allowed, as the fp32 test's bias
+        bias = torch.zeros(b, t, t, device=hopper)
+    eye = torch.eye(t, device=hopper).expand(b, h, t, t).contiguous()
+    seed = _seed(hopper, 77 + t)
+    ref = getattr(attention, f"{family}_attention_reference")
+    allowed = ref(q, k, eye.bfloat16(), bias, scale, None, 0.0) != 0
+    want = attention.dropout_keep_reference(seed, b, h, t, t, rate) & allowed
+    out, stats = getattr(attention, f"{family}_attention_forward")(
+        q, k, eye.bfloat16(), bias, scale, rate, seed, True)
+    dv = getattr(attention, f"{family}_attention_backward")(
+        q, k, eye.bfloat16(), bias, eye, out, stats, seed, scale, rate)[2]
+    torch.cuda.synchronize()
+    assert 0.3 < float(allowed.float().mean()) and 0.8 < float(want.sum() / allowed.sum()) < 0.99
+    assert torch.equal(out != 0, want)
+    assert torch.equal(dv.transpose(-1, -2) != 0, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel_attention", [False, True])
+def test_bf16_train_step_on_the_card(hopper, kernel_attention):
+    """``make_train_step`` on a bf16 model at the kernel gates (T >= 256,
+    S >= 512): finite losses; the kernel route launches the bf16 training
+    forms and bf16 backwards of B3 and B5 and none of their fp32 forms, the
+    default route none of either; the parameters stay float32."""
+    from streamspeech_tpu_torch.config import OptimizationConfig, tiny_config
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+    from streamspeech_tpu_torch.train import trainer
+    from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
+    from streamspeech_tpu_torch.weights import random_init_
+
+    cfg = tiny_config(vocab_text=512, upsample=25)
+    model = random_init_(StreamSpeechModel(cfg, dtype=torch.bfloat16), 0).to(hopper)
+    tx = trainer.make_optimizer(OptimizationConfig(update_freq=1))
+    step = trainer.make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1,
+                                   kernel_attention=kernel_attention)
+    batch = batch_to_tensors(synthetic_batch(cfg, batch=2, frames=1024, mt_len=24),
+                             device=hopper)
+    fns = (attention.masked_attention, attention.bias_attention,
+           attention.masked_attention_backward, attention.bias_attention_backward)
+    before = [(f.launches, f.bf16_launches) for f in fns]
+    state, metrics = step(trainer.TrainState.create(model, tx), batch,
+                          torch.Generator(device=hopper).manual_seed(0), 8, 8)
+    torch.cuda.synchronize()
+    after = [(f.launches, f.bf16_launches) for f in fns]
+    per = 1 if kernel_attention else 0
+    assert [(a[0] - b[0], a[1] - b[1]) for a, b in zip(after, before)] == [(0, per)] * 4
+    assert all(torch.isfinite(v).all() for v in metrics.values())
+    assert {p.dtype for p in model.parameters()} == {torch.float32}

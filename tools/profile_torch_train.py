@@ -1,6 +1,7 @@
 """Where the time of the port's train step goes, on one CUDA card.
 
     python3 tools/profile_torch_train.py [--route default|kernels|both]
+                                         [--dtype float32 bfloat16]
                                          [--out chiprun_out/profile_train.txt]
 
 Builds the ``chip_smoke.py`` train setup (``full_config``, fp32, dropout 0.1,
@@ -17,9 +18,12 @@ kernels forward and backward, dropout inside them) and, after 2 warm-up steps:
    the port's kernels, and the share of the CTC alpha and beta kernels (B8, B9).
 
 ``--route both`` profiles default, kernels, kernels, default in turns in one
-process, so that the two routes are compared on one card. Prints one JSON line
-per run and the card's ``nvidia-smi`` name and power limit; the profiler's
-tables go to ``--out`` (one file, a section per run). fp32 throughout (TF32 off).
+process, so that the two routes are compared on one card. ``--dtype`` lists
+the model's compute dtypes, each profiled on every route asked for
+(``bfloat16``: ``StreamSpeechModel(cfg, dtype=torch.bfloat16)``, fp32
+parameters and Adam; its kernel route runs the bf16 forms of B3-B6). Prints one
+JSON line per run and the card's ``nvidia-smi`` name and power limit; the
+profiler's tables go to ``--out`` (one file, a section per run). TF32 off.
 """
 
 from __future__ import annotations
@@ -67,17 +71,25 @@ KERNELS = {
     "bias_dkv_kernel": ("attn_bwd::dkv_kernel", "FullBias"),
     "bias_reduce_kernel": ("attn_bwd::reduce_kernel",),
     "rowdot_kernel": ("rowdot_kernel",),
+    # the bf16 forms: B3/B5 (one template, causal and bias), B4/B6
+    "attention_bf16_kernel": ("attention_bf16_kernel",),
+    "causal_dq_bf16_kernel": ("attn_bwd_bf16::dq_kernel", "CausalBias"),
+    "causal_dkv_bf16_kernel": ("attn_bwd_bf16::dkv_kernel", "CausalBias"),
+    "bias_dq_bf16_kernel": ("attn_bwd_bf16::dq_kernel", "FullBias"),
+    "bias_dkv_bf16_kernel": ("attn_bwd_bf16::dkv_kernel", "FullBias"),
+    "bias_reduce_bf16_kernel": ("attn_bwd_bf16::reduce_kernel",),
 }
 PROFILED_STEPS = 3
 
 
-def profile_route(kernel_attention: bool, seed: int) -> str:
-    """Profile one route; print its JSON line and return the profiler's table."""
+def profile_route(kernel_attention: bool, seed: int, dtype=torch.float32) -> str:
+    """Profile one route at one compute dtype; print its JSON line and return
+    the profiler's table."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cfg = full_config()
-    model = random_init_(StreamSpeechModel(cfg), seed).cuda()
+    model = random_init_(StreamSpeechModel(cfg, dtype=dtype), seed).cuda()
     tx = make_optimizer(OptimizationConfig(update_freq=1, warmup_updates=10000, lr=1e-3,
                                            clip_norm=10.0))
     step = make_train_step(model, tx, unit_blank=cfg.unit_decoder.vocab_size - 1,
@@ -111,7 +123,8 @@ def profile_route(kernel_attention: bool, seed: int) -> str:
                for name, parts in KERNELS.items()}
     route = "kernels" if kernel_attention else "default"
     print(json.dumps({
-        "route": route, "batch": 8, "frames": 1024, "mt_len": 48, "units_len": 256,
+        "route": route, "dtype": str(dtype), "batch": 8, "frames": 1024, "mt_len": 48,
+        "units_len": 256,
         "text_len": 32,
         "wall_ms_median": wall_ms, "wall_ms_all": [w * 1e3 for w in walls],
         "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
@@ -127,7 +140,7 @@ def profile_route(kernel_attention: bool, seed: int) -> str:
             for e in sorted(kernel_rows, key=lambda e: -e.self_device_time_total)[:12]],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }), flush=True)
-    return (f"== {route} route: {PROFILED_STEPS} train steps, B=8, MT 48 ==\n"
+    return (f"== {route} route, {dtype}: {PROFILED_STEPS} train steps, B=8, MT 48 ==\n"
             + events.table(sort_by="self_device_time_total", row_limit=40,
                            max_name_column_width=70) + "\n")
 
@@ -137,6 +150,8 @@ def main():
     ap.add_argument("--out", default="chiprun_out/profile_train.txt")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--route", choices=("default", "kernels", "both"), default="default")
+    ap.add_argument("--dtype", nargs="+", choices=("float32", "bfloat16"),
+                    default=["float32"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA device")
@@ -148,9 +163,10 @@ def main():
     routes = {"default": [False], "kernels": [True],
               "both": [False, True, True, False]}[args.route]
     tables = []
-    for kernel_attention in routes:
-        tables.append(profile_route(kernel_attention, args.seed))
-        torch.cuda.empty_cache()
+    for name in args.dtype:
+        for kernel_attention in routes:
+            tables.append(profile_route(kernel_attention, args.seed, getattr(torch, name)))
+            torch.cuda.empty_cache()
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text("".join(tables))
