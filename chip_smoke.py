@@ -151,7 +151,10 @@ Phases 16-19 run after phase 12:
             identity, T = D = 64) equal to ``dropout_keep_reference``; device
             ms of each, its plain version, bf16 SDPA under the same mask and
             ``dropout_p`` (forward; forward + backward minus forward) and the
-            bound at the bf16 tensor-core peak.
+            bound at the bf16 tensor-core peak; a backward row also gives the
+            CUDA kernels a call launches (B4-bf16 two, B6-bf16 one at TK <=
+            128) and each kernel's device ms by ``torch.profiler`` over
+            CUDA-graph replays (``kernels_ms_launches``).
 17. train_bf16, train_bf16_kernels  phase 8's and 11's steps with the model
             computing in bf16 (``StreamSpeechModel(cfg, dtype=torch.bfloat16)``,
             fp32 parameters and Adam): per step 2 bf16 not-blank, 2 alpha, 2
@@ -364,6 +367,38 @@ def _device_ms(fn, calls=20, reps=20):
         for _ in range(calls):
             fn()
     return _time_ms(graph.replay, reps=reps, warmup=2) / calls
+
+
+def _kernel_ms(fn, calls=5, reps=10) -> dict:
+    """{CUDA kernel name: [device ms a call, launches a call]} of ``fn``:
+    ``torch.profiler`` over replays of a CUDA graph of ``calls`` calls."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graph.replay()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        total = getattr(evt, "self_device_time_total", None)
+        if total is None:
+            total = evt.self_cuda_time_total
+        if total <= 0:
+            continue
+        name = evt.key.split("(")[0].split("<")[0].replace("void ", "").split("::")[-1]
+        ms, n = out.get(name, (0.0, 0.0))
+        out[name] = (ms + total / 1e3 / (calls * reps), n + evt.count / (calls * reps))
+    return {k: [v[0], v[1]] for k, v in sorted(out.items())}
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -1073,9 +1108,9 @@ def _check_train_kernel_bf16(family, A, q, k, v, bias, g, scale, library_mask, f
                    "delta_bound_share": delta_share,
                    "delta_from_out_bound_share": from_out_share,
                    "bit_identical_twice": same, **bwd_bound,
-                   "groups": A.bf16_backward_groups(
-                       A._MASKED_BWD_BF16_GROUPS if family == "masked"
-                       else A._BIAS_BWD_BF16_GROUPS, b, h, tq, tk, q.shape[3])}
+                   "kernels_a_call": A.bf16_backward_kernels(
+                       A._MASKED_BWD_BF16_KERNELS if family == "masked"
+                       else A._BIAS_BWD_BF16_KERNELS, b, h, tq, tk, q.shape[3])}
         if timed:
             fwd_row["ms"] = _device_ms(lambda: fwd(q, k, v, bias, scale, rate, sd, True),
                                        calls=5, reps=10)
@@ -1083,6 +1118,8 @@ def _check_train_kernel_bf16(family, A, q, k, v, bias, g, scale, library_mask, f
                                              calls=3, reps=5)
             bwd_row["ms"] = _device_ms(
                 lambda: bwd(q, k, v, bias, g, out, stats, sd, scale, rate), calls=5, reps=10)
+            bwd_row["kernels_ms_launches"] = _kernel_ms(
+                lambda: bwd(q, k, v, bias, g, out, stats, sd, scale, rate))
             bwd_row["plain_ms"] = _device_ms(
                 lambda: ref_bwd(q, k, v, bias, g, scale, keep, rate), calls=3, reps=5)
 

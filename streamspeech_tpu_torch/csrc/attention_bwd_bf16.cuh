@@ -14,54 +14,92 @@
 //   dp = (g Vᵀ) kf,  delta = Σ_j p dp,  ds = p (dp - delta) scale,
 //   dq = ds K,  dK = dsᵀ q,  dV = (p kf)ᵀ g.
 //
-// Products: `mma.sync.m16n8k16` with bf16 operands and fp32 accumulators
-// (attention_bf16.cuh's helpers). q, K and V are exact in bf16; an fp32
-// operand x (g, ds, p kf) is split into hi = bf16(x) and lo = bf16(x - hi),
-// 2^-16 of x apart from x, and enters as two products (three for dV, both of
-// whose operands are fp32: hi hi + hi lo + lo hi): s 1, dp 2, dq 2, dK 2,
-// dV 3 products, 10 against the fp32 form's 15 TF32 ones. A split product's
-// k-step goes into a zeroed accumulator, small terms first, and is added to
-// the running fp32 sum (add4). The outputs round
-// to bf16 (2^-8), so the kernel sits within about one bf16 ulp of its plain
-// version; rounding g, p or ds to bf16 whole would err by ~2^-9 before that.
+// What bounds it: operations (B4-bf16 at [8,8,1280,64]: its five products at
+// 989 TFLOP/s, 0.034 ms) and, for B6 at the unit decoder's 128 keys, bytes
+// (0.015 ms). The split products make 16 bf16 product units a (query tile,
+// key tile) pair in B4, 10 in B6; they run at ~35-40 % of the bf16 peak, and
+// the softmax's elementwise work and the dropout draws beside them take the
+// rest (PERF.md §6: 0.41 and 0.091 ms at rate 0.1 on an H100 80GB HBM3).
+// Products: `wgmma.mma_async` m64nNk16 in bf16 with fp32 accumulators, a
+// warpgroup (4 warps) on 64 rows. q, K, V (and g's bf16 parts in the dK/dV
+// pass) come into shared memory by TMA (`cp.async.bulk.tensor`, 3-D tensor
+// maps [B H, T, D] made on the host per call, 64-column boxes with the 128-byte
+// swizzle, zero-filled past D and T) onto an mbarrier ring of two stages. The
+// same swizzled tile is the K-major operand of one product and the MN-major
+// operand of another (bf16 wgmma reads B, and A from shared memory, either
+// way): q is A of s and B of dK, K is B of s and of dq, g's parts are A of dp
+// and B of dV. Operands formed in the kernel (ds, p kf, split) are A from
+// registers: an accumulator of 64 rows is, packed, the A fragment of the next
+// product over its columns.
 //
-// delta: the fp32 kernels take delta = rowsum(g out). Here out came from
-// probabilities rounded to bf16, which would put delta off Σ p dp by up to
-// 2^-8 Σ p |g v| and that error into every element of ds. So the dQ pass
-// forms delta from the fp32 p and dp: where the keys span more than one tile
-// it sweeps them twice (delta first, then ds and dq: three products more a
-// key tile), where they fit one tile (B6's 48 keys) once. It writes delta to
-// a [B, H, TQ] scratch for the dK/dV pass.
+// Precision. q, K and V are exact in bf16; an fp32 operand x (g, ds, p kf)
+// is split into hi = bf16(x) and lo = bf16(x - hi), 2^-16 of x apart from x,
+// and enters as two products (three for dV, both of whose operands are fp32:
+// lo hi + hi lo + hi hi). A split product's chain of wgmma goes into a zeroed
+// accumulator, the small terms first, over the whole contraction of one tile
+// (D for s and dp; the tile's 64 keys for dq, its 64 queries for dK and dV),
+// and the running fp32 sum over tiles takes it on the CUDA cores: the tensor
+// core's own accumulation of a large running sum lost the lo terms' bits
+// (an mma.sync form that did so put delta 34x over its bound on the card).
+// The outputs round to bf16 (2^-8), so the kernel sits within about one bf16
+// ulp of its plain version; rounding g, p or ds to bf16 whole would err by
+// ~2^-9 before that.
 //
-// Layout: 4 warps, each on 16 rows of a 64-row block. The dQ pass: a block per
-// (query tile, b h, 64-channel chunk of dq), key tiles of 64 (32 above D16 =
-// 128) through a two-stage cp.async ring, rows as attention_bf16.cuh's forward:
-// s, dp and ds stay in registers and ds's accumulator is, split, the A operand
-// of ds K. The dK/dV pass works on the transpose: a block per (key tile of 64,
-// b h, query-tile group, chunk), each warp on 16 keys; sᵀ = K qᵀ and dpᵀ =
-// V gᵀ, so that dsᵀ and (p kf)ᵀ are in registers as the A operands of dK =
-// dsᵀ q and dV = (p kf)ᵀ g. Its keep bits: a warp's 16 keys by an 8-query slab
-// are 32 Philox draws of 4 keys, one a lane, and each lane takes its four
-// bits by four shuffles. Query tiles of 64 (32 above D16 = 128) stream through
-// the ring with their statistics and delta. The causal form launches the
-// longest walks first and skips tiles above the diagonal.
-// Query-tile groups (G): where the key tiles give fewer than 2 blocks an SM
-// (B6: one key tile), block (key tile, group) takes query tiles group, group
-// + G, ... and writes fp32 partials [2, G, B, H, TK, D], which a third kernel
-// adds in group order and rounds. No atomics: one seed gives the same
-// gradients bit for bit. Wide head dims recompute s and dp for each 64-channel
-// chunk of the outputs (registers).
+// g is split once a call: the dQ pass, which first loads g, writes hi and lo
+// to its shared tiles and to a [2, B, H, TQ, D] bf16 scratch that the dK/dV
+// pass loads by TMA like q; B6's one kernel splits each query tile's g once.
 //
-// Shapes: D every multiple of 8 from 8 to 256 (D % 16 == 8: the k-steps over D
-// zero-pad to D16 as the forward does); causal T a multiple of 64, TQ = TK;
-// bias any TQ, TK. `wgmma` and fewer products are later work.
+// delta: out came from probabilities rounded to bf16, so rowsum(g out) would
+// put delta off Σ p dp by up to 2^-8 Σ p |g v| and that error into every
+// element of ds. delta is formed from the fp32 p and dp instead.
+//
+// Dropout: the keep bits of a tile (dropout.cuh, `dropout_keep_reference` bit
+// for bit) are drawn into shared memory as 32-key words, a word a thread (8
+// draws of 4 keys), while the tensor cores run the tile's score products; each
+// thread reads its elements' bits from there. A row's Philox state is formed
+// once a block (dQ pass: the block's own rows) or once a query tile (B6's one
+// kernel). Each element is drawn once a call (up to kWordCache key tiles): the
+// dQ pass keeps a key tile's words in shared memory for its second sweep and
+// writes them to a [B, H, TQ, TK / 32] scratch (1 bit an element, 1/32 of the
+// fp32 probabilities), which the dK/dV pass loads a tile ahead instead of
+// drawing again.
+//
+// Forms:
+//  - two passes (B4; B6 where TK > 128 or D > 64). dQ pass: a block per
+//    (query tile, b h, 64-channel chunk of dq), key tiles of 64 through the
+//    ring; s = q Kᵀ and dp = g Vᵀ in registers; where the keys span more than
+//    one tile it sweeps them twice (delta first, forming s and dp only; then
+//    ds and dq += ds K), else once; it writes delta ([B, H, TQ]) for the
+//    dK/dV pass. dK/dV pass: a block per (key tile of 64, b h, chunk) walking
+//    the query tiles: sᵀ = K qᵀ and dpᵀ = V gᵀ, so that dsᵀ and (p kf)ᵀ are in
+//    registers as the A operands of dK += dsᵀ q and dV += (p kf)ᵀ g. The causal
+//    form launches the longest walks first and skips tiles above the diagonal.
+//    No atomics: one seed gives the same gradients bit for bit. Wide head
+//    dims recompute s and dp for each 64-channel chunk of the outputs.
+//  - one kernel (B6 where TK <= 128 and D <= 64: every path's shape, the keys
+//    padded to the 128 tile). A thread-block cluster of C blocks (C <= 4, as
+//    many as keep one block an SM) per (b, h); block `rank` walks the query
+//    tiles rank, rank + C, .. with all keys in one shared tile, two
+//    warpgroups on 64 keys each: sᵀ, dpᵀ and p once a query tile; delta is
+//    local to the tile (a column sum over the 8 warps, in warp order); dsᵀ
+//    goes to shared memory, split, as the MN-major A of dq = ds K (m64n32, a
+//    warpgroup's half of the channels), written directly; dK and dV add up
+//    over the block's tiles in registers and over the cluster's blocks in
+//    rank order through distributed shared memory. One launch a call.
+//
+// Shapes: D every multiple of 8 from 8 to 256 (the k-steps over D run to D
+// rounded up to 16 on zero-filled columns); causal T a multiple of 64, TQ =
+// TK; bias any TQ, TK.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "attention_bf16.cuh"
 
@@ -69,12 +107,6 @@ namespace attn_bwd_bf16 {
 
 using bf16attn::kLog2e;
 using bf16attn::kNegInf;
-using bf16attn::kThreads;
-using bf16attn::ldsm_x2_trans;
-using bf16attn::ldsm_x4;
-using bf16attn::ldsm_x4_trans;
-using bf16attn::load_rows;
-using bf16attn::mma_bf16;
 using bf16attn::pack_bf16;
 using tc::cp_async16;
 using tc::cp_async4;
@@ -83,348 +115,515 @@ using tc::cp_wait;
 using tc::kMaxDevices;
 using tc::kMaxSmem;
 
-constexpr int kRows = 64;     // a block's own rows: queries (dQ), keys (dK/dV)
-constexpr int kChunk = 64;    // channels of dq, dK, dV a block writes
-constexpr int kSMs = 132;     // an H100 SXM's SMs
-constexpr int kBlocksPerSM = 2;
+constexpr int kRows = 64;        // a tile's rows: a warpgroup's M
+constexpr int kThreads = 128;    // a warpgroup
+constexpr int kSMs = 132;        // an H100 SXM's SMs
+constexpr int kMaxCluster = 4;   // B6's one kernel: blocks a (b, h)
+constexpr int kFusedKeys = 128;  // B6's one kernel: every key in one tile
+constexpr int kFusedMaxD = 64;
+// the dQ pass's second sweep reuses the keep words of this many key tiles
+// (T <= 1536), drawing again past them; with the rest of its shared memory
+// three blocks fit an SM at D = 64
+constexpr int kWordCache = 24;
 
-template <int D>
-struct Tiles {
-  static constexpr int D16 = bf16attn::Tiles<D>::D16;
-  static constexpr int LD = bf16attn::Tiles<D>::LD;  // bf16 a shared row
-  static constexpr int LDG = D16 + 8;                 // fp32 a shared row of g
-  static constexpr int KS = D16 / 16;                 // k-steps over D
-  static constexpr int BS = D16 <= 128 ? 64 : 32;     // rows of a streamed tile
-  static constexpr int NS = BS / 8;                   // its 8-row slabs
-  static constexpr int CHUNKS = (D + kChunk - 1) / kChunk;
-  static constexpr size_t kQBytes = (size_t)kRows * LD * 2;    // a bf16 [64][LD] tile
-  static constexpr size_t kGBytes = (size_t)kRows * LDG * 4;   // an fp32 [64][LDG] tile
-  // dQ: q, g, two stages of K and V
-  static constexpr size_t kDqSmem = kQBytes + kGBytes + (size_t)2 * 2 * BS * LD * 2;
-  // dK/dV: K, V, two stages of (q, g, 2 statistics and delta a row)
-  static constexpr size_t kStage = (size_t)BS * LD * 2 + (size_t)BS * LDG * 4 + BS * 3 * 4;
-  static constexpr size_t kDkvSmem = 2 * kQBytes + 2 * kStage;
-  static_assert(kDqSmem <= kMaxSmem && kDkvSmem <= kMaxSmem, "tiles do not fit");
-};
+__host__ __device__ constexpr int panels(int d) { return (d + 63) / 64; }
+// a [rows][d] bf16 tile: 64-column panels of rows x 128 bytes
+__host__ __device__ constexpr uint32_t tile_bytes(int rows, int d) {
+  return (uint32_t)rows * 128 * panels(d);
+}
+__host__ __device__ constexpr uint32_t round1k(size_t x) {
+  return (uint32_t)((x + 1023) / 1024 * 1024);
+}
 
-// Rows [r0, r0 + rows) of a [n, D] fp32 matrix into a [rows][LDG] tile, 4
-// floats a copy; rows outside [0, n) and columns D..D16 zero-filled.
-template <int D>
-__device__ __forceinline__ void load_rows_f32(float* tile, const float* src, int r0, int rows,
-                                              int n, int tid) {
-  constexpr int CH = Tiles<D>::D16 / 4, LDG = Tiles<D>::LDG;
-  for (int i = tid; i < rows * CH; i += kThreads) {
-    const int r = i / CH, c = i % CH;
-    const bool in = r0 + r < n && c < D / 4;
-    cp_async16(tile + r * LDG + 4 * c, in ? src + (size_t)(r0 + r) * D + 4 * c : src, in);
+// ---- PTX: shared-memory addresses, mbarriers, TMA, wgmma, cluster ----------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the dynamic shared memory rounded up to 1024 bytes (the swizzle's period)
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// arrive on a barrier and add `bytes` to the transfer its phase waits for
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed; a
+// copy that never lands (a fault, not a slow load) traps after ~2^28 polls
+// instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
 }
 
-// acc += c by fp32 adds. A split product's two or three `mma.sync` go into a
-// zeroed accumulator, the small terms first, and the running sum takes them
-// here: carrying the running sum through the tensor core's own accumulation,
-// which does not round as an fp32 add does, lost the lo products' bits (delta
-// 3.4e-4 off Σ p |dp| on the card, where 2^-18 of the terms was the split's
-// own error), as tc_mma.cuh's mma3 found for 3xTF32.
-__device__ __forceinline__ void add4(float acc[4], const float c[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+// the box of a 3-D tensor map at (c0, c1, c2) into shared memory at dst; the
+// copy completes its bytes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// x = hi + lo in bf16 pairs (lo in the low half, as pack_bf16)
+// this thread's shared-memory writes, made visible to the tensor cores (the
+// async proxy), before a barrier and the wgmma that reads them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// pin accumulator registers after wg_wait: no read of them moves above it
+template <int N>
+__device__ __forceinline__ void hold(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// The shared-memory matrix descriptor of a 128-byte swizzled operand at byte
+// address `addr`: 8-row groups 1024 bytes apart (SBO), `lbo` between 64-column
+// groups of an MN-major operand (unused by K-major ones and by N <= 64).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | 1ull << 62;
+}
+
+// d (m64n64, fp32) = A B (+ d where `acc`): A and B bf16 in shared memory
+// (descriptors), K-major (0) or MN-major (1) by TA, TB.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (m64n32, fp32) = A B (+ d where `acc`), as wgmma_ss64
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss32(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// d (m64n64, fp32) = A B (+ d where `acc`): A bf16 fragments in registers
+// (mma.sync's A layout, warp w on rows 16 w ..), B in shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t a[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// two floats at shared address `addr` of block `rank` of the cluster
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(addr), "r"(rank));
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// ---- tiles and products ----------------------------------------------------
+
+// The byte offset of (row r, column c) in a [rows][..] bf16 tile of 64-column
+// panels with the 128-byte swizzle (TMA's SWIZZLE_128B; wgmma's B128): a
+// row's 16-byte chunk i sits at chunk i ^ (r % 8).
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+  return (uint32_t)((c >> 6) * rows * 128 + r * 128 + ((((c >> 3) ^ r) & 7) << 4) +
+                    ((c & 7) << 1));
+}
+
+// acc = A Bᵀ over D: A and B [64 rows][D] K-major tiles at shared addresses
+// a and b (panels pa, pb bytes apart), the k-steps to D rounded up to 16 on the
+// zero-filled columns; accumulating onto acc where `accumulate`. Issued, not
+// waited.
+template <int D>
+__device__ __forceinline__ void rows_product(float* acc, uint32_t a, uint32_t pa, uint32_t b,
+                                             uint32_t pb, int accumulate) {
+#pragma unroll
+  for (int k = 0; k < (D + 15) / 16; ++k) {
+    const uint32_t p = k >> 2, o = (k & 3) * 32;
+    wgmma_ss64<0, 0>(acc, desc(a + p * pa + o, 16), desc(b + p * pb + o, 16),
+                     k > 0 || accumulate);
+  }
+}
+
+// acc (+)= A B over 64 rows of k: A the fragments a[kk] (k-step kk: rows
+// 16 kk ..), B a [64 k][64] MN-major panel at shared address b. Issued, not
+// waited.
+__device__ __forceinline__ void cols_product(float* acc, uint32_t a[4][4], uint32_t b,
+                                             int accumulate) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs64(acc, a[kk], desc(b + kk * 2048, 8192), kk > 0 || accumulate);
+}
+
+// x = hi + lo in bf16 pairs (x0 in the low half, as pack_bf16)
 __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
 }
 
-// The A fragment of a 16-key (16-query) k-step from two 8-column accumulator
-// tiles c0, c1 of the same 16 rows, split.
-__device__ __forceinline__ void split_a(const float c0[4], const float c1[4], uint32_t hi[4],
-                                        uint32_t lo[4]) {
-  split2(c0[0], c0[1], hi[0], lo[0]);
-  split2(c0[2], c0[3], hi[1], lo[1]);
-  split2(c1[0], c1[1], hi[2], lo[2]);
-  split2(c1[2], c1[3], hi[3], lo[3]);
+// The A fragments, split, of a product over the 64 columns of an m64n64
+// accumulator x (element (row, col) of slab n = col / 8 at x[4 n + ..]).
+__device__ __forceinline__ void split_frags(const float* x, uint32_t hi[4][4], uint32_t lo[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split2(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], hi[kk][r], lo[kk][r]);
 }
 
-// The causal mask from the indices plus the key bias kvb [B, T]; the
-// forward's expression (attention_bf16.cuh), so the recomputed logit is its.
-struct CausalBias {
-  static constexpr bool kCausal = true;
-  const float* kvb;
-  int T;
-  __device__ __forceinline__ float logit(float s, float scale, int b, int row, int col) const {
-    float x = s * scale + kvb[(size_t)b * T + col];
-    if (col > row) x += kNegInf;
-    return x;
+// g's rows q0 .. q0 + 63 of one (b, h) ([T, D] fp32 at src, rows past T and
+// columns past D zero) split into the swizzled bf16 tiles hi, lo of 64 DP
+// columns; with `out`, also to the scratch rows (hi at out, lo at out + half).
+template <int D, int NT>
+__device__ __forceinline__ void split_g(unsigned char* hi, unsigned char* lo, const float* src,
+                                        int q0, int T, int tid, __nv_bfloat16* out, size_t half) {
+  constexpr int C4 = 16 * panels(D);  // 4-column groups of a row
+  for (int i = tid; i < kRows * C4; i += NT) {
+    const int r = i / C4, c = (i % C4) * 4;
+    const bool in = q0 + r < T && c < D;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (in) x = *reinterpret_cast<const float4*>(src + (size_t)(q0 + r) * D + c);
+    uint2 h, l;
+    split2(x.x, x.y, h.x, l.x);
+    split2(x.z, x.w, h.y, l.y);
+    const uint32_t off = swz(r, c, kRows);
+    *reinterpret_cast<uint2*>(hi + off) = h;
+    *reinterpret_cast<uint2*>(lo + off) = l;
+    if (out != nullptr && in) {
+      *reinterpret_cast<uint2*>(out + (size_t)(q0 + r) * D + c) = h;
+      *reinterpret_cast<uint2*>(out + half + (size_t)(q0 + r) * D + c) = l;
+    }
   }
-};
+}
 
-// An arbitrary additive bias [B, TQ, TK] that carries the whole mask.
-struct FullBias {
-  static constexpr bool kCausal = false;
-  const float* bias;
-  int TQ, TK;
-  __device__ __forceinline__ float logit(float s, float scale, int b, int row, int col) const {
-    return s * scale + bias[((size_t)b * TQ + row) * TK + col];
-  }
-};
+// The keep bits of keys k0 .. k0 + 31 (k0 % 4 == 0) of one Philox row: bit j
+// for key k0 + j.
+__device__ __forceinline__ uint32_t keep_word(const dropout::Row& r, int k0, uint32_t thr) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) w |= dropout::keep4(r, (uint32_t)(k0 / 4 + j), thr) << (4 * j);
+  return w;
+}
+
+// Keep words a query row of the two-pass form's scratch [B, H, TQ, ..]: two
+// (64 keys) a key tile.
+__host__ __device__ constexpr int keep_words(int TK) { return 2 * ((TK + 63) / 64); }
+
+// 2^x, flushing a subnormal result to 0 (one MUFU.EX2; exp2f adds range
+// scaling for subnormals, which a probability that small does not need)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // p = 2^(x log2(e) - max) / sum from the forward's statistics. The product
 // x log2(e) is rounded first, as the forward rounds it before taking the max
 // (`__fmul_rn` is never contracted into an FMA): a wholly masked row's logits
 // sit near -1e9, where an unrounded product would put p off by 2^(±64).
 __device__ __forceinline__ float prob(float x, float mx, float il) {
-  return exp2f(__fmul_rn(x, kLog2e) - mx) * il;
+  return ex2(__fmul_rn(x, kLog2e) - mx) * il;
 }
 
-// s = q Kᵀ (1 product) and dp = g Vᵀ (2: g split) over the warp's 16 rows
-// (A: q at qs, g at gs, rows rw..) and the tile's 8-row slabs of K, V (B, by
-// rows at ks, vs), nt of them (even). Also the dK/dV pass's sᵀ = K qᵀ and
-// dpᵀ = V gᵀ, with A = K, V and B = q, g: kGB says g is the B side.
-template <int D, int NT, bool kGB>
-__device__ __forceinline__ void score_products(const __nv_bfloat16* as, const __nv_bfloat16* bs,
-                                               const __nv_bfloat16* vs, const float* gs,
-                                               int rw, int nt, int lane, float s[][4],
-                                               float dp[][4]) {
-  using T = Tiles<D>;
-  constexpr int LD = T::LD, LDG = T::LDG;
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int k_row = (lane >> 4) * 8 + (lane & 7), k_col = ((lane >> 3) & 1) * 8;
-  const int g = lane >> 2, lq = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < T::KS; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, as + (rw + a_row) * LD + 16 * kk + a_col);
-    uint32_t ah[4], al[4];   // dQ: g's rows split; dK/dV: V's rows
-    if constexpr (kGB) {
-      ldsm_x4(ah, vs + (rw + a_row) * LD + 16 * kk + a_col);
-    } else {
-      const float* gr = gs + (rw + g) * LDG + 16 * kk + 2 * lq;
-      const float2 x0 = *reinterpret_cast<const float2*>(gr);
-      const float2 x1 = *reinterpret_cast<const float2*>(gr + 8 * LDG);
-      const float2 x2 = *reinterpret_cast<const float2*>(gr + 8);
-      const float2 x3 = *reinterpret_cast<const float2*>(gr + 8 * LDG + 8);
-      split2(x0.x, x0.y, ah[0], al[0]);
-      split2(x1.x, x1.y, ah[1], al[1]);
-      split2(x2.x, x2.y, ah[2], al[2]);
-      split2(x3.x, x3.y, ah[3], al[3]);
+// ---- the bias, loaded with its tile -----------------------------------------
+
+// The causal mask from the indices plus the key bias kvb [B, T]; the
+// forward's expression (attention_bf16.cuh), so the recomputed logit is its.
+// Its tile: the kk keys' bias.
+struct CausalBias {
+  static constexpr bool kCausal = true;
+  const float* kvb;
+  int T;
+  static constexpr int floats(int, int kk) { return kk; }
+  template <int KQ, int KK, int NT>
+  __device__ __forceinline__ void load(float* dst, int b, int, int k0, int tid) const {
+    for (int i = tid; i < KK / 4; i += NT) {  // T % 64 == 0: whole 16-byte groups
+      const bool in = k0 + 4 * i < T;
+      cp_async16(dst + 4 * i, in ? kvb + (size_t)b * T + k0 + 4 * i : kvb, in);
     }
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      if (2 * np >= nt) break;
-      uint32_t kb[4];
-      ldsm_x4(kb, bs + (16 * np + k_row) * LD + 16 * kk + k_col);
-      mma_bf16(s[2 * np], a, kb[0], kb[1]);
-      mma_bf16(s[2 * np + 1], a, kb[2], kb[3]);
-      if constexpr (kGB) {
-        // B = gᵀ: column (query) 16 np + 8 t + g, rows (channels) 16 kk + 2 lq ..
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const float* gr = gs + (16 * np + 8 * t + g) * LDG + 16 * kk + 2 * lq;
-          const float2 x0 = *reinterpret_cast<const float2*>(gr);
-          const float2 x1 = *reinterpret_cast<const float2*>(gr + 8);
-          uint32_t bh0, bl0, bh1, bl1;
-          split2(x0.x, x0.y, bh0, bl0);
-          split2(x1.x, x1.y, bh1, bl1);
-          float c[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_bf16(c, ah, bl0, bl1);
-          mma_bf16(c, ah, bh0, bh1);
-          add4(dp[2 * np + t], c);
-        }
-      } else {
-        uint32_t vb[4];
-        ldsm_x4(vb, vs + (16 * np + k_row) * LD + 16 * kk + k_col);
-        float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(c0, al, vb[0], vb[1]);
-        mma_bf16(c0, ah, vb[0], vb[1]);
-        mma_bf16(c1, al, vb[2], vb[3]);
-        mma_bf16(c1, ah, vb[2], vb[3]);
-        add4(dp[2 * np], c0);
-        add4(dp[2 * np + 1], c1);
+  }
+  // diag: a tile that holds keys above the diagonal
+  template <int KK>
+  __device__ __forceinline__ float logit(float s, float scale, const float* tile, int, int kl,
+                                         int qry, int key, bool diag) const {
+    float x = s * scale + tile[kl];
+    if (diag && key > qry) x += kNegInf;
+    return x;
+  }
+};
+
+// An arbitrary additive bias [B, TQ, TK] that carries the whole mask. Its
+// tile: [KQ queries][KK keys + 4] (zeros outside [TQ, TK]; 16-byte copies when
+// TK % 4 == 0, else 4-byte).
+struct FullBias {
+  static constexpr bool kCausal = false;
+  const float* bias;
+  int TQ, TK;
+  static constexpr int floats(int kq, int kk) { return kq * (kk + 4); }
+  template <int KQ, int KK, int NT>
+  __device__ __forceinline__ void load(float* dst, int b, int q0, int k0, int tid) const {
+    constexpr int LD = KK + 4;
+    const float* src = bias + (size_t)b * TQ * TK;
+    if (TK % 4 == 0) {
+      for (int i = tid; i < KQ * KK / 4; i += NT) {
+        const int r = i / (KK / 4), c = (i % (KK / 4)) * 4;
+        const bool in = q0 + r < TQ && k0 + c < TK;
+        cp_async16(dst + r * LD + c, in ? src + (size_t)(q0 + r) * TK + k0 + c : bias, in);
+      }
+    } else {
+      for (int i = tid; i < KQ * KK; i += NT) {
+        const int r = i / KK, c = i % KK;
+        const bool in = q0 + r < TQ && k0 + c < TK;
+        cp_async4(dst + r * LD + c, in ? src + (size_t)(q0 + r) * TK + k0 + c : bias, in);
       }
     }
   }
-}
-
-// acc[j] += A B for the warp's 16 rows over a 16-deep k-step: A split (hi, lo),
-// B a bf16 tile stored by its k rows ([k][n] at bt, row stride LD), the
-// chunk's 8-channel slabs c0 + 8 j, nj of them: 2 products a slab.
-template <int D>
-__device__ __forceinline__ void product_bf16_b(float acc[][4], const uint32_t ah[4],
-                                               const uint32_t al[4], const __nv_bfloat16* bt,
-                                               int c0, int nj, int lane) {
-  constexpr int LD = Tiles<D>::LD;
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const __nv_bfloat16* br = bt + a_row * LD + c0;
-#pragma unroll
-  for (int jp = 0; jp < kChunk / 16; ++jp) {
-    if (2 * jp + 1 < nj) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, br + 16 * jp + a_col);
-      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(c0, al, b[0], b[1]);
-      mma_bf16(c0, ah, b[0], b[1]);
-      mma_bf16(c1, al, b[2], b[3]);
-      mma_bf16(c1, ah, b[2], b[3]);
-      add4(acc[2 * jp], c0);
-      add4(acc[2 * jp + 1], c1);
-    } else if (2 * jp < nj) {  // an odd last slab
-      uint32_t b[2];
-      ldsm_x2_trans(b, br + 16 * jp);
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(c, al, b[0], b[1]);
-      mma_bf16(c, ah, b[0], b[1]);
-      add4(acc[2 * jp], c);
-    }
+  template <int KK>
+  __device__ __forceinline__ float logit(float s, float scale, const float* tile, int ql, int kl,
+                                         int, int, bool) const {
+    return s * scale + tile[ql * (KK + 4) + kl];
   }
-}
+};
 
-// The same with B an fp32 tile (g, [k][n] at gt, row stride LDG), split: 3
-// products a slab (hi hi, hi lo, lo hi).
-template <int D>
-__device__ __forceinline__ void product_f32_b(float acc[][4], const uint32_t ah[4],
-                                              const uint32_t al[4], const float* gt, int c0,
-                                              int nj, int lane) {
-  constexpr int LDG = Tiles<D>::LDG;
-  const int g = lane >> 2, lq = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kChunk / 8; ++j) {
-    if (j >= nj) break;
-    const float* col = gt + c0 + 8 * j + g;
-    uint32_t bh0, bl0, bh1, bl1;
-    split2(col[(2 * lq) * LDG], col[(2 * lq + 1) * LDG], bh0, bl0);
-    split2(col[(2 * lq + 8) * LDG], col[(2 * lq + 9) * LDG], bh1, bl1);
-    float c[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_bf16(c, al, bh0, bh1);
-    mma_bf16(c, ah, bl0, bl1);
-    mma_bf16(c, ah, bh0, bh1);
-    add4(acc[j], c);
+// ---- two passes: the dQ pass ------------------------------------------------
+
+// Shared memory of the dQ pass: q, g hi, g lo [64][D] bf16, then a ring of
+// stages (K, V [64][D] bf16, the bias tile), the keep words of up to
+// kWordCache + 1 key tiles [64][2] and the barriers (q, a stage each). Two
+// stages where they fit.
+template <int D, class Bias>
+struct DqLayout {
+  static constexpr uint32_t kTile = tile_bytes(kRows, D);
+  static constexpr uint32_t kStage = 2 * kTile + round1k(Bias::floats(kRows, kRows) * 4);
+  static constexpr size_t bytes(int stages) {
+    return 1024 + 3 * (size_t)kTile + stages * (size_t)kStage +
+           (kWordCache + 1) * kRows * 2 * 4 + 3 * 8;
   }
-}
+  static constexpr int kStages = bytes(2) <= kMaxSmem ? 2 : 1;
+  static constexpr size_t kSmem = bytes(kStages);
+  static_assert(kSmem <= kMaxSmem, "dQ tiles do not fit");
+};
 
-template <int N>
-__device__ __forceinline__ void zero(float acc[][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-}
-
-// The dQ pass. Block (query tile, b h) of grid.x, the last query tiles first
-// (the longest walks of the causal triangle), dq chunk grid.y. Writes dq
-// (bf16) and, from chunk 0, delta.
+// Block (query tile, b h) of grid.x, the last query tiles first (the longest
+// walks of the causal triangle), dq chunk grid.y. Writes dq (bf16), from chunk
+// 0 delta, g's split parts and (rate > 0) the keep words it draws.
 template <int D, class Bias>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-          const __nv_bfloat16* __restrict__ v, const float* __restrict__ g,
+dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, const float* __restrict__ g,
           const float* __restrict__ stats, Bias bias, const long long* __restrict__ seed,
-          float rate, uint32_t thr, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-          int B, int H, int TQ, int TK, float scale) {
-  using T = Tiles<D>;
-  constexpr int LD = T::LD, BK = T::BS, NT = T::NS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* gs = reinterpret_cast<float*>(smem + T::kQBytes);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + T::kQBytes + T::kGBytes);
-  constexpr int STAGE = 2 * BK * LD;  // K, V of one stage, in bf16
+          float rate, uint32_t thr, float* __restrict__ delta,
+          __nv_bfloat16* __restrict__ gsplit, uint32_t* __restrict__ keep,
+          __nv_bfloat16* __restrict__ dq, int B, int H, int TQ, int TK, float scale) {
+  using L = DqLayout<D, Bias>;
+  constexpr uint32_t kTile = L::kTile, kPanel = kRows * 128;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  const uint32_t base = smem_u32(smem), qs = base, ghi = base + kTile, glo = base + 2 * kTile;
+  unsigned char* ring = smem + 3 * kTile;
+  // keep words [kWordCache + 1][64 rows][2]: a key tile's, kept for the second
+  // sweep (the last slot for tiles past the cache)
+  uint32_t* words = reinterpret_cast<uint32_t*>(ring + S * L::kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(words + (kWordCache + 1) * 2 * kRows);
 
-  const int nq = (TQ + kRows - 1) / kRows;
-  const int bh = blockIdx.x % (B * H);
-  const int qt = Bias::kCausal ? nq - 1 - (int)(blockIdx.x / (B * H)) : (int)(blockIdx.x / (B * H));
+  const int BH = B * H, nq = (TQ + kRows - 1) / kRows;
+  const int bh = blockIdx.x % BH;
+  const int qt = Bias::kCausal ? nq - 1 - (int)(blockIdx.x / BH) : (int)(blockIdx.x / BH);
   const int b = bh / H, h = bh % H, chunk = blockIdx.y;
-  const int c0 = chunk * kChunk, nj = min(kChunk, D - c0) / 8;
-  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, lg = lane / 4, lq = lane % 4;
-  const __nv_bfloat16* kh = k + (size_t)bh * TK * D;
-  const __nv_bfloat16* vh = v + (size_t)bh * TK * D;
-  const int q0 = qt * kRows, rw = 16 * w, row0 = q0 + rw + lg;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, lg = lane >> 2, lq = lane & 3;
+  const int q0 = qt * kRows, rl0 = 16 * w + lg;  // this lane's rows q0 + rl0, + 8
   const int kend = Bias::kCausal ? min(q0 + kRows, TK) : TK;
-  const int nk = (kend + BK - 1) / BK;
+  const int nk = (kend + kRows - 1) / kRows;
+  const int total = (nk > 1 ? 2 : 1) * nk;  // tile visits: two sweeps where the keys span tiles
   const bool drop = rate > 0.f;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
-  const dropout::Row dr =
-      drop ? tc::keep_lane((unsigned long long)*seed, b, h, row0, lq) : dropout::Row{};
 
-  load_rows<D>(qs, q + (size_t)bh * TQ * D, q0, kRows, TQ, tid);
-  load_rows_f32<D>(gs, g + (size_t)bh * TQ * D, q0, kRows, TQ, tid);
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) bar_init(bars + i);
+    bar_init_fence();
+  }
+  __syncthreads();
+  auto load = [&](int it) {  // key tile it % nk into stage it % S
+    unsigned char* dst = ring + (it % S) * L::kStage;
+    const int k0 = (it % nk) * kRows;
+    uint64_t* bar = bars + 1 + it % S;
+    if (tid == 0) {
+      bar_expect(bar, 2 * kTile);
+      for (int p = 0; p < panels(D); ++p) {
+        tma_load(dst + p * kPanel, &kmap, 64 * p, k0, bh, bar);
+        tma_load(dst + kTile + p * kPanel, &vmap, 64 * p, k0, bh, bar);
+      }
+    }
+    bias.template load<kRows, kRows, kThreads>(reinterpret_cast<float*>(dst + 2 * kTile), b, q0,
+                                               k0, tid);
+  };
+  if (tid == 0) {
+    bar_expect(bars, kTile);
+    for (int p = 0; p < panels(D); ++p) tma_load(smem + p * kPanel, &qmap, 64 * p, q0, bh, bars);
+  }
+  load(0);
+  cp_commit();
+
+  // g split once: the shared tiles, and (chunk 0) the scratch for the dK/dV pass
+  split_g<D, kThreads>(smem + kTile, smem + 2 * kTile, g + (size_t)bh * TQ * D, q0, TQ, tid,
+                       chunk == 0 ? gsplit + (size_t)bh * TQ * D : nullptr,
+                       (size_t)BH * TQ * D);
+  fence_async_smem();
   float mx[2], il[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
+    const int row = q0 + rl0 + 8 * i;
     const bool in = row < TQ;
     mx[i] = in ? stats[((size_t)bh * TQ + row) * 2] : 0.f;
     il[i] = in ? stats[((size_t)bh * TQ + row) * 2 + 1] : 0.f;
   }
+  // this thread draws row tid / 2's keys 32 (tid % 2) .. of each tile: its
+  // Philox row once a block
+  const dropout::Row dr =
+      drop ? dropout::row_state((unsigned long long)*seed, b, h, q0 + (tid >> 1)) : dropout::Row{};
+  bar_wait(bars, 0);
+  __syncthreads();
 
-  // One sweep where the keys fit a tile (delta from the same tile), else two:
-  // delta, then ds and dq.
-  float dl[2] = {0.f, 0.f}, acc[kChunk / 8][4], s[NT][4], dp[NT][4];
-  zero<kChunk / 8>(acc);
-  const int sweeps = nk > 1 ? 2 : 1;
-  for (int sweep = 0; sweep < sweeps; ++sweep) {
-    const bool last = sweep == sweeps - 1;
-    load_rows<D>(ring, kh, 0, BK, TK, tid);
-    load_rows<D>(ring + BK * LD, vh, 0, BK, TK, tid);
-    cp_commit();
-    float part[2] = {0.f, 0.f};
-    for (int kt = 0; kt < nk; ++kt) {
-      const int k0 = kt * BK;
-      const __nv_bfloat16* ks = ring + (kt & 1) * STAGE;
-      const __nv_bfloat16* vs = ks + BK * LD;
-      if (kt + 1 < nk) {
-        load_rows<D>(ring + ((kt + 1) & 1) * STAGE, kh, k0 + BK, BK, TK, tid);
-        load_rows<D>(ring + ((kt + 1) & 1) * STAGE + BK * LD, vh, k0 + BK, BK, TK, tid);
-      }
-      cp_commit();
-      cp_wait<1>();
-      __syncthreads();
-      const int nt = min(BK, (kend - k0 + 15) / 16 * 16) / 8;  // even
-      score_products<D, NT, false>(qs, ks, vs, gs, rw, nt, lane, s, dp);
-      // p from the forward's statistics, dp times the keep factors
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n >= nt) break;
-        const uint32_t kb = drop ? tc::keep_slab(dr, k0 + 8 * n, lq, thr) : 0u;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = row0 + 8 * (e >> 1), c = k0 + 8 * n + 2 * lq + (e & 1);
-          float p = 0.f;
-          if (r < TQ && c < TK) p = prob(bias.logit(s[n][e], scale, b, r, c), mx[e >> 1], il[e >> 1]);
-          s[n][e] = p;
-          if (drop) dp[n][e] = tc::keep_apply(kb, e, dp[n][e], inv_keep);
-          part[e >> 1] += p * dp[n][e];
-        }
-      }
-      if (last) {
-        if (sweeps == 1) {  // all keys in this tile: delta now
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
-            part[i] += __shfl_xor_sync(0xffffffffu, part[i], 2);
-            dl[i] = part[i];
-          }
-        }
-        // ds = p (dp kf - delta) scale, then dq += ds K (ds split: A)
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[n][e] = s[n][e] * (dp[n][e] - dl[e >> 1]) * scale;
-#pragma unroll
-        for (int kp = 0; kp < NT / 2; ++kp) {
-          if (2 * kp >= nt) break;
-          uint32_t ah[4], al[4];
-          split_a(s[2 * kp], s[2 * kp + 1], ah, al);
-          product_bf16_b<D>(acc, ah, al, ks + 16 * kp * LD, c0, nj, lane);
-        }
-      }
-      __syncthreads();  // this stage is refilled two tiles on
+  float acc[32], dl[2] = {0.f, 0.f}, part[2] = {0.f, 0.f};
+  zero(acc);
+  for (int it = 0; it < total; ++it) {
+    const int kt = it % nk, k0 = kt * kRows, st = it % S;
+    if (S == 2) {
+      if (it + 1 < total) load(it + 1);
+    } else if (it > 0) {
+      load(it);
     }
-    if (!last) {
+    cp_commit();
+    bar_wait(bars + 1 + st, (uint32_t)(it / S) & 1u);
+    cp_wait<S - 1>();
+    __syncthreads();
+    unsigned char* stage = ring + st * L::kStage;
+    const uint32_t ks = smem_u32(stage), vs = ks + kTile;
+    const float* bt = reinterpret_cast<const float*>(stage + 2 * kTile);
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    wg_fence();
+    rows_product<D>(s, qs, kPanel, ks, kPanel, 0);
+    rows_product<D>(dp, glo, kPanel, vs, kPanel, 0);  // the small terms first
+    rows_product<D>(dp, ghi, kPanel, vs, kPanel, 1);
+    wg_commit();
+    // the first sweep draws the tile's keep words, the second reuses them
+    // where the tile is cached
+    uint32_t* wt = words + min(kt, kWordCache) * 2 * kRows;
+    const bool draw = drop && (it < nk || kt >= kWordCache);
+    if (draw) {
+      const uint32_t word = keep_word(dr, k0 + 32 * (tid & 1), thr);
+      wt[tid] = word;
+      const int row = q0 + (tid >> 1);
+      if (it < nk && chunk == 0 && row < TQ)  // for the dK/dV pass
+        keep[((size_t)bh * TQ + row) * keep_words(TK) + 2 * kt + (tid & 1)] = word;
+    }
+    wg_wait();
+    hold(s);
+    hold(dp);
+    if (draw) __syncthreads();
+    if (kt == 0) part[0] = part[1] = 0.f;
+    const bool diag = Bias::kCausal && k0 == q0;
+    // p from the forward's statistics, dp times the keep factors
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = rl0 + 8 * (e >> 1), r = q0 + rl, kl = 8 * n + 2 * lq + (e & 1), c = k0 + kl;
+        float p = 0.f;
+        if (Bias::kCausal || (r < TQ && c < TK))  // causal: T % 64 == 0
+          p = prob(bias.template logit<kRows>(s[4 * n + e], scale, bt, rl, kl, r, c, diag),
+                   mx[e >> 1], il[e >> 1]);
+        float d = dp[4 * n + e];
+        if (drop) d = (wt[2 * rl + (kl >> 5)] >> (kl & 31)) & 1u ? d * inv_keep : 0.f;
+        s[4 * n + e] = p;
+        dp[4 * n + e] = d;
+        part[e >> 1] += p * d;
+      }
+    if (it == nk - 1) {  // the first sweep's last tile: delta is complete
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         part[i] += __shfl_xor_sync(0xffffffffu, part[i], 1);
@@ -432,240 +631,696 @@ dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__
         dl[i] = part[i];
       }
     }
+    if (it >= total - nk) {  // the last sweep: ds, then dq += ds K
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * n + e] = s[4 * n + e] * (dp[4 * n + e] - dl[e >> 1]) * scale;
+      uint32_t ah[4][4], al[4][4];
+      split_frags(s, ah, al);
+      float c[32];
+      zero(c);
+      const uint32_t kb = ks + chunk * kPanel;  // K's panel of this chunk's channels
+      wg_fence();
+      cols_product(c, al, kb, 0);
+      cols_product(c, ah, kb, 1);
+      wg_commit();
+      wg_wait();
+      hold(c);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] += c[i];
+    }
+    __syncthreads();  // this stage and the keep words are refilled
   }
   __nv_bfloat16* dqh = dq + (size_t)bh * TQ * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 8 * i;
+    const int row = q0 + rl0 + 8 * i;
     if (row >= TQ) continue;
     if (chunk == 0 && lq == 0) delta[(size_t)bh * TQ + row] = dl[i];
 #pragma unroll
-    for (int j = 0; j < kChunk / 8; ++j)
-      if (j < nj)
-        *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)row * D + c0 + 8 * j + 2 * lq) =
-            __floats2bfloat162_rn(acc[j][2 * i], acc[j][2 * i + 1]);
+    for (int j = 0; j < 8; ++j) {
+      const int col = chunk * 64 + 8 * j + 2 * lq;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)row * D + col) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
   }
 }
 
-// Query rows [r0, r0 + BS) of the statistics [n, 2] and delta [n] into st
-// [BS][2] and st + 2 BS [BS]; zeros past row n.
-template <int BS>
-__device__ __forceinline__ void load_row_numbers(float* st, const float* stats,
-                                                 const float* delta, int r0, int n, int tid) {
-  for (int i = tid; i < 3 * BS; i += kThreads) {
-    const bool is_stat = i < 2 * BS;
-    const int r = is_stat ? i / 2 : i - 2 * BS;
-    const bool in = r0 + r < n;
-    const float* src = is_stat ? stats + (size_t)(r0 + r) * 2 + (i & 1) : delta + r0 + r;
-    cp_async4(st + i, in ? src : stats, in);
-  }
-}
+// ---- two passes: the dK/dV pass ---------------------------------------------
 
-// The dK/dV pass. Block (key tile, b h) of grid.x (the first key tiles, the
-// longest causal walks, first), query-tile group grid.y of G, chunk grid.z.
-// G == 1: dK, dV in bf16; else fp32 partials to part[0|1][group].
+// Shared memory of the dK/dV pass: K, V [64][D] bf16, then a ring of stages
+// (q, g hi, g lo [64][D] bf16, the bias tile, and the rows' max, 1 / sum and
+// delta [64][3]), the keep words of two query tiles [2][64][2] and the
+// barriers (K and V, a stage each). Two stages where they fit.
 template <int D, class Bias>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-           const __nv_bfloat16* __restrict__ v, const float* __restrict__ g,
-           const float* __restrict__ stats, const float* __restrict__ delta, Bias bias,
-           const long long* __restrict__ seed, float rate, uint32_t thr,
-           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-           float* __restrict__ part, int B, int H, int TQ, int TK, int G, float scale) {
-  using T = Tiles<D>;
-  constexpr int LD = T::LD, LDG = T::LDG, BQ = T::BS, NT = T::NS;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + kRows * LD;
-  unsigned char* ring = smem + 2 * T::kQBytes;  // [2][q bf16, g fp32, row numbers]
+struct DkvLayout {
+  static constexpr uint32_t kTile = tile_bytes(kRows, D);
+  static constexpr uint32_t kBias = Bias::floats(kRows, kRows) * 4;
+  static constexpr uint32_t kStage = 3 * kTile + round1k(kBias + kRows * 3 * 4);
+  static constexpr size_t bytes(int stages) {
+    return 1024 + 2 * (size_t)kTile + stages * (size_t)kStage + 2 * kRows * 2 * 4 + 3 * 8;
+  }
+  static constexpr int kStages = bytes(2) <= kMaxSmem ? 2 : 1;
+  static constexpr size_t kSmem = bytes(kStages);
+  static_assert(kSmem <= kMaxSmem, "dK/dV tiles do not fit");
+};
 
-  const int bh = blockIdx.x % (B * H), kt = (int)(blockIdx.x / (B * H));
-  const int b = bh / H, h = bh % H, group = blockIdx.y, chunk = blockIdx.z;
-  const int c0 = chunk * kChunk, nj = min(kChunk, D - c0) / 8;
-  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32, lg = lane / 4, lq = lane % 4;
-  const int k0 = kt * kRows, kr0 = k0 + 16 * w;  // this warp's keys kr0 .. + 16
-  const int nq = (TQ + BQ - 1) / BQ;
-  const int first = (Bias::kCausal ? k0 / BQ : 0) + group;  // causal: from the diagonal
-  const __nv_bfloat16* qh = q + (size_t)bh * TQ * D;
-  const float* gh = g + (size_t)bh * TQ * D;
+// Blocks of the dK/dV pass an SM that its registers are held to (168 a
+// thread for 3, the chosen cut, with 68-304 bytes of spill: the pass took
+// 0.139 against 0.154 ms at one, B4-bf16 at [8,8,1280,64] rate 0 on an H100,
+// tools/sweep_bf16.py --bwd --variant).
+#ifndef ATTN_BWD_BF16_DKV_BLOCKS
+#define ATTN_BWD_BF16_DKV_BLOCKS 3
+#endif
+
+// Block (key tile, b h) of grid.x (the first key tiles, the longest causal
+// walks, first), chunk grid.y. gmap: g's split parts [2 B H, TQ, D] (hi at
+// b h, lo at B H + b h).
+template <int D, class Bias>
+__global__ void __launch_bounds__(kThreads, ATTN_BWD_BF16_DKV_BLOCKS)
+dkv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+           const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap gmap,
+           const float* __restrict__ stats, const float* __restrict__ delta, Bias bias,
+           const uint32_t* __restrict__ keep, float rate, __nv_bfloat16* __restrict__ dk,
+           __nv_bfloat16* __restrict__ dv, int B, int H, int TQ, int TK, float scale) {
+  using L = DkvLayout<D, Bias>;
+  constexpr uint32_t kTile = L::kTile, kPanel = kRows * 128;
+  constexpr int S = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  const uint32_t ks = smem_u32(smem), vs = ks + kTile;
+  unsigned char* ring = smem + 2 * kTile;
+  // keep words [2][64 queries][2]: this query tile's, and the next one's,
+  // loaded under this tile's dV and dK products
+  uint32_t* words = reinterpret_cast<uint32_t*>(ring + S * L::kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(words + 2 * 2 * kRows);  // K V, stage 0, stage 1
+
+  const int BH = B * H, nq = (TQ + kRows - 1) / kRows;
+  const int bh = blockIdx.x % BH, kt = (int)(blockIdx.x / BH);
+  const int b = bh / H, h = bh % H, chunk = blockIdx.y;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, lg = lane >> 2, lq = lane & 3;
+  const int k0 = kt * kRows, kl0 = 16 * w + lg;  // this lane's keys k0 + kl0, + 8
+  const int first = Bias::kCausal ? kt : 0;     // causal: from the diagonal
+  const int count = nq - first;
+  const bool drop = rate > 0.f;
+  const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
   const float* sth = stats + (size_t)bh * TQ * 2;
   const float* dlh = delta + (size_t)bh * TQ;
+
+  if (tid == 0) {
+    for (int i = 0; i <= S; ++i) bar_init(bars + i);
+    bar_init_fence();
+  }
+  __syncthreads();
+  auto load = [&](int it) {  // query tile first + it into stage it % S
+    unsigned char* dst = ring + (it % S) * L::kStage;
+    const int q0 = (first + it) * kRows;
+    uint64_t* bar = bars + 1 + it % S;
+    if (tid == 0) {
+      bar_expect(bar, 3 * kTile);
+      for (int p = 0; p < panels(D); ++p) {
+        tma_load(dst + p * kPanel, &qmap, 64 * p, q0, bh, bar);
+        tma_load(dst + kTile + p * kPanel, &gmap, 64 * p, q0, bh, bar);
+        tma_load(dst + 2 * kTile + p * kPanel, &gmap, 64 * p, q0, BH + bh, bar);
+      }
+    }
+    float* bt = reinterpret_cast<float*>(dst + 3 * kTile);
+    bias.template load<kRows, kRows, kThreads>(bt, b, q0, k0, tid);
+    float* nums = bt + L::kBias / 4;  // [64][2] statistics, then [64] delta
+    for (int i = tid; i < 3 * kRows; i += kThreads) {
+      const bool is_stat = i < 2 * kRows;
+      const int r = is_stat ? i / 2 : i - 2 * kRows;
+      const bool in = q0 + r < TQ;
+      const float* src = is_stat ? sth + (size_t)(q0 + r) * 2 + (i & 1) : dlh + q0 + r;
+      cp_async4(nums + i, in ? src : stats, in);
+    }
+  };
+  if (tid == 0) {
+    bar_expect(bars, 2 * kTile);
+    for (int p = 0; p < panels(D); ++p) {
+      tma_load(smem + p * kPanel, &kmap, 64 * p, k0, bh, bars);
+      tma_load(smem + kTile + p * kPanel, &vmap, 64 * p, k0, bh, bars);
+    }
+  }
+  if (count > 0) load(0);
+  cp_commit();
+  // this thread loads query tid / 2's keep word of keys k0 + 32 (tid % 2) ..
+  // of each query tile (the dQ pass drew it); the first tile's now
+  const int W = keep_words(TK);
+  const uint32_t* kw = drop ? keep + (size_t)bh * TQ * W + 2 * kt + (tid & 1) : nullptr;
+  auto keep_at = [&](int q0) {
+    const int row = q0 + (tid >> 1);
+    return row < TQ ? kw[(size_t)row * W] : 0u;
+  };
+  if (drop && count > 0) words[tid] = keep_at(first * kRows);
+
+  float dka[32], dva[32];
+  zero(dka);
+  zero(dva);
+  for (int it = 0; it < count; ++it) {
+    const int q0 = (first + it) * kRows, st = it % S;
+    const uint32_t* wt = words + (it & 1) * 2 * kRows;
+    if (S == 2) {
+      if (it + 1 < count) load(it + 1);
+    } else if (it > 0) {
+      load(it);
+    }
+    cp_commit();
+    if (it == 0) bar_wait(bars, 0);
+    bar_wait(bars + 1 + st, (uint32_t)(it / S) & 1u);
+    cp_wait<S - 1>();
+    __syncthreads();
+    unsigned char* stage = ring + st * L::kStage;
+    const uint32_t qs = smem_u32(stage), ghs = qs + kTile, gls = qs + 2 * kTile;
+    const float* bt = reinterpret_cast<const float*>(stage + 3 * kTile);
+    const float* nums = bt + L::kBias / 4;
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    wg_fence();
+    rows_product<D>(s, ks, kPanel, qs, kPanel, 0);   // sᵀ = K qᵀ
+    rows_product<D>(dp, vs, kPanel, gls, kPanel, 0);  // dpᵀ = V gᵀ, the small terms first
+    rows_product<D>(dp, vs, kPanel, ghs, kPanel, 1);
+    wg_commit();
+    wg_wait();
+    hold(s);
+    hold(dp);
+    const bool diag = Bias::kCausal && q0 == k0;
+    // dsᵀ and (p kf)ᵀ: rows keys k0 + kl0 (+ 8), columns queries
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = kl0 + 8 * (e >> 1), key = k0 + kl;
+        const int ql = 8 * n + 2 * lq + (e & 1), qry = q0 + ql;
+        float p = 0.f;
+        if (Bias::kCausal || (qry < TQ && key < TK))  // causal: T % 64 == 0
+          p = prob(bias.template logit<kRows>(s[4 * n + e], scale, bt, ql, kl, qry, key, diag),
+                   nums[2 * ql], nums[2 * ql + 1]);
+        const float kf =
+            drop ? ((wt[2 * ql + (kl >> 5)] >> (kl & 31)) & 1u ? inv_keep : 0.f) : 1.f;
+        s[4 * n + e] = p * (dp[4 * n + e] * kf - nums[2 * kRows + ql]) * scale;  // dsᵀ
+        dp[4 * n + e] = p * kf;                                                 // (p kf)ᵀ
+      }
+    const uint32_t cb = chunk * kPanel;  // this chunk's panel of q and g
+    // the next query tile's keep word, loaded under this tile's products
+    const bool next = drop && it + 1 < count;
+    const uint32_t nw = next ? keep_at(q0 + kRows) : 0u;
+    uint32_t ah[4][4], al[4][4];
+    float c[32];
+    // dV += (p kf)ᵀ g: lo hi, hi lo, hi hi into a zeroed sum
+    split_frags(dp, ah, al);
+    zero(c);
+    wg_fence();
+    cols_product(c, al, ghs + cb, 0);
+    cols_product(c, ah, gls + cb, 1);
+    cols_product(c, ah, ghs + cb, 1);
+    wg_commit();
+    wg_wait();
+    hold(c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[i] += c[i];
+    // dK += dsᵀ q
+    split_frags(s, ah, al);
+    zero(c);
+    wg_fence();
+    cols_product(c, al, qs + cb, 0);
+    cols_product(c, ah, qs + cb, 1);
+    wg_commit();
+    if (next) words[((it + 1) & 1) * 2 * kRows + tid] = nw;
+    wg_wait();
+    hold(c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] += c[i];
+    __syncthreads();  // this stage is refilled; the next tile's keep words are in
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + kl0 + 8 * i;
+    if (key >= TK) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = chunk * 64 + 8 * j + 2 * lq;
+      if (col >= D) continue;
+      const size_t at = ((size_t)bh * TK + key) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+// ---- one kernel: B6 with every key in one tile ------------------------------
+
+// Shared memory of the one-kernel form (D <= 64: one panel): K, V [128][64]
+// bf16; two stages of (q [64][64] bf16, g [64][68] fp32, the bias [64][132]
+// fp32, the statistics [64][2]); g hi, g lo [64][64] bf16; dsᵀ hi, lo [128][64]
+// bf16; the keep words [64][4]; the warps' column sums [8][64] and delta [64];
+// the barriers (K V, a stage each). After the walk the stages hold the block's
+// dK and dV partials [2][128][64] fp32 for the cluster's sum.
+struct FusedLayout {
+  static constexpr uint32_t kKV = tile_bytes(kFusedKeys, 64);  // 16 KB
+  static constexpr uint32_t kQ = tile_bytes(kRows, 64);        // 8 KB
+  static constexpr int kLdg = 68, kLdb = kFusedKeys + 4;
+  static constexpr uint32_t kG32 = kQ, kBias = kG32 + kRows * kLdg * 4;
+  static constexpr uint32_t kStats = kBias + kRows * kLdb * 4;
+  static constexpr uint32_t kStage = round1k(kStats + kRows * 2 * 4);
+  static constexpr uint32_t kRing = 2 * kKV;
+  static constexpr uint32_t kGhi = kRing + 2 * kStage, kGlo = kGhi + kQ;
+  static constexpr uint32_t kDsHi = kGlo + kQ, kDsLo = kDsHi + kKV;
+  static constexpr uint32_t kBits = kDsLo + kKV;
+  static constexpr uint32_t kParts = kBits + kRows * 4 * 4;
+  static constexpr uint32_t kDelta = kParts + 8 * kRows * 4;
+  static constexpr uint32_t kBars = kDelta + kRows * 4;
+  static constexpr size_t kSmem = 1024 + (size_t)kBars + 3 * 8;
+  static_assert(kSmem <= kMaxSmem, "the one-kernel form does not fit");
+  static_assert(2 * kStage >= 2 * kFusedKeys * 64 * 4, "no room for the cluster's partials");
+};
+
+// Grid: C blocks a (b, h) in clusters of C (block rank = cluster rank), 256
+// threads: warpgroup wg on keys 64 wg ... delta and dq (bf16) written; dK, dV
+// the sum over the cluster's blocks in rank order, each block rounding and
+// writing keys [rank 128 / C, (rank + 1) 128 / C).
+template <int D>
+__global__ void __launch_bounds__(2 * kThreads, 1)
+fused_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+             const __grid_constant__ CUtensorMap vmap, const float* __restrict__ g,
+             const float* __restrict__ stats, FullBias bias, const long long* __restrict__ seed,
+             float rate, uint32_t thr, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int B, int H, int TQ,
+             int TK, float scale) {
+  using L = FusedLayout;
+  constexpr int NT = 2 * kThreads;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1k(smem_raw);
+  const uint32_t ks = smem_u32(smem), vs = ks + L::kKV;
+  const uint32_t ghi = ks + L::kGhi, glo = ks + L::kGlo, dshi = ks + L::kDsHi, dslo = ks + L::kDsLo;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::kBits);  // [64 queries][4 words]
+  float* colsum = reinterpret_cast<float*>(smem + L::kParts);      // [8 warps][64 queries]
+  float* dls = reinterpret_cast<float*>(smem + L::kDelta);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);   // K V, stage 0, stage 1
+
+  const int C = (int)cluster_size(), rank = (int)cluster_rank();
+  const int bh = blockIdx.x / C, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, wg = tid >> 7, w8 = tid >> 5, wl = w8 & 3, lane = tid & 31;
+  const int lg = lane >> 2, lq = lane & 3;
+  const int kl0 = 64 * wg + 16 * wl + lg;  // this lane's keys kl0, kl0 + 8
+  const int nq = (TQ + kRows - 1) / kRows;
+  const int count = rank < nq ? (nq - rank + C - 1) / C : 0;
   const bool drop = rate > 0.f;
   const unsigned long long sd = drop ? (unsigned long long)*seed : 0ull;
   const float inv_keep = drop ? 1.f / (1.f - rate) : 1.f;
 
-  auto stage = [&](int st, int qt) {
-    unsigned char* base = ring + st * T::kStage;
-    __nv_bfloat16* qd = reinterpret_cast<__nv_bfloat16*>(base);
-    float* gd = reinterpret_cast<float*>(base + (size_t)BQ * LD * 2);
-    load_rows<D>(qd, qh, qt * BQ, BQ, TQ, tid);
-    load_rows_f32<D>(gd, gh, qt * BQ, BQ, TQ, tid);
-    load_row_numbers<BQ>(gd + BQ * LDG, sth, dlh, qt * BQ, TQ, tid);
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) bar_init(bars + i);
+    bar_init_fence();
+  }
+  __syncthreads();
+  auto load = [&](int it) {  // query tile rank + C it into stage it % 2
+    unsigned char* dst = smem + L::kRing + (it & 1) * L::kStage;
+    const int q0 = (rank + C * it) * kRows;
+    if (tid == 0) {
+      bar_expect(bars + 1 + (it & 1), L::kQ);
+      tma_load(dst, &qmap, 0, q0, bh, bars + 1 + (it & 1));
+    }
+    float* g32 = reinterpret_cast<float*>(dst + L::kG32);
+    const float* gh = g + (size_t)bh * TQ * D;
+    for (int i = tid; i < kRows * (D / 4); i += NT) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool in = q0 + r < TQ;
+      cp_async16(g32 + r * L::kLdg + c, in ? gh + (size_t)(q0 + r) * D + c : g, in);
+    }
+    bias.template load<kRows, kFusedKeys, NT>(reinterpret_cast<float*>(dst + L::kBias), b, q0, 0,
+                                              tid);
+    float* st = reinterpret_cast<float*>(dst + L::kStats);
+    for (int i = tid; i < 2 * kRows; i += NT) {
+      const bool in = q0 + i / 2 < TQ;
+      cp_async4(st + i, in ? stats + ((size_t)bh * TQ + q0) * 2 + i : stats, in);
+    }
   };
-
-  load_rows<D>(ks, k + (size_t)bh * TK * D, k0, kRows, TK, tid);
-  load_rows<D>(vs, v + (size_t)bh * TK * D, k0, kRows, TK, tid);
-  if (first < nq) stage(0, first);
+  if (tid == 0) {
+    bar_expect(bars, 2 * L::kKV);
+    tma_load(smem, &kmap, 0, 0, bh, bars);
+    tma_load(smem + L::kKV, &vmap, 0, 0, bh, bars);
+  }
+  if (count > 0) load(0);
   cp_commit();
 
-  float dka[kChunk / 8][4], dva[kChunk / 8][4], s[NT][4], dp[NT][4];
-  zero<kChunk / 8>(dka);
-  zero<kChunk / 8>(dva);
-  for (int qt = first, it = 0; qt < nq; qt += G, ++it) {
-    const int q0 = qt * BQ;
-    const unsigned char* base = ring + (it & 1) * T::kStage;
-    const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(base);
-    const float* gs = reinterpret_cast<const float*>(base + (size_t)BQ * LD * 2);
-    const float* st = gs + BQ * LDG;  // [BQ][2] statistics, then [BQ] delta
-    if (qt + G < nq) stage((it + 1) & 1, qt + G);
+  float dka[32], dva[32];
+  zero(dka);
+  zero(dva);
+  for (int it = 0; it < count; ++it) {
+    const int q0 = (rank + C * it) * kRows;
+    if (it + 1 < count) load(it + 1);
     cp_commit();
+    if (it == 0) bar_wait(bars, 0);
+    bar_wait(bars + 1 + (it & 1), (uint32_t)(it >> 1) & 1u);
     cp_wait<1>();
     __syncthreads();
-    const int nt = min(BQ, (TQ - q0 + 15) / 16 * 16) / 8;  // even
-    score_products<D, NT, true>(ks, qs, vs, gs, 16 * w, nt, lane, s, dp);
-    // pᵀ, dpᵀ kf, dsᵀ and (p kf)ᵀ: rows keys kr0 + lg (+ 8), columns queries
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n >= nt) break;
-      uint32_t kbits = 0u;
-      if (drop) {
-        // lane L draws query q0 + 8 n + L / 4, keys kr0 + 4 (L % 4) .. + 3;
-        // element (key lg + 8 i, query 2 lq + j) is lane (2 lq + j) 4 + (lg + 8 i) / 4's
-        const dropout::Row r = dropout::row_state(sd, b, h, q0 + 8 * n + lane / 4);
-        const uint32_t own = dropout::keep4(r, (uint32_t)(kr0 / 4 + lane % 4), thr);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = lg + 8 * (e >> 1), qry = 2 * lq + (e & 1);
-          const uint32_t got = __shfl_sync(0xffffffffu, own, qry * 4 + key / 4);
-          kbits |= ((got >> (key % 4)) & 1u) << e;
-        }
+    unsigned char* stage = smem + L::kRing + (it & 1) * L::kStage;
+    const uint32_t qs = smem_u32(stage);
+    const float* bt = reinterpret_cast<const float*>(stage + L::kBias);
+    const float* st = reinterpret_cast<const float*>(stage + L::kStats);
+    // g split once a query tile (columns past D zero)
+    {
+      const float* g32 = reinterpret_cast<const float*>(stage + L::kG32);
+      for (int i = tid; i < kRows * 16; i += NT) {
+        const int r = i >> 4, c = (i & 15) * 4;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c < D) x = *reinterpret_cast<const float4*>(g32 + r * L::kLdg + c);
+        uint2 hh, ll;
+        split2(x.x, x.y, hh.x, ll.x);
+        split2(x.z, x.w, hh.y, ll.y);
+        *reinterpret_cast<uint2*>(smem + L::kGhi + swz(r, c, kRows)) = hh;
+        *reinterpret_cast<uint2*>(smem + L::kGlo + swz(r, c, kRows)) = ll;
       }
+      fence_async_smem();
+    }
+    __syncthreads();
+    const uint32_t kw = ks + wg * kRows * 128, vw = vs + wg * kRows * 128;  // own 64 keys
+    float s[32], dp[32];
+    zero(s);
+    zero(dp);
+    wg_fence();
+    rows_product<D>(s, kw, L::kKV, qs, L::kQ, 0);     // sᵀ = K qᵀ
+    rows_product<D>(dp, vw, L::kKV, glo, L::kQ, 0);   // dpᵀ = V gᵀ, the small terms first
+    rows_product<D>(dp, vw, L::kKV, ghi, L::kQ, 1);
+    wg_commit();
+    if (drop) {  // query tid / 4's keys 32 (tid % 4) ..: its row once a tile
+      const dropout::Row r = dropout::row_state(sd, b, h, q0 + (tid >> 2));
+      bits[tid] = keep_word(r, 32 * (tid & 3), thr);
+    }
+    wg_wait();
+    hold(s);
+    hold(dp);
+    if (drop) __syncthreads();
+    // pᵀ and dpᵀ kf; each lane's 16 query columns summed over its two keys
+    float col[16];
+    zero(col);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = kr0 + lg + 8 * (e >> 1), ql = 8 * n + 2 * lq + (e & 1);
-        const int qry = q0 + ql;
+        const int kl = kl0 + 8 * (e >> 1), ql = 8 * n + 2 * lq + (e & 1), qry = q0 + ql;
         float p = 0.f;
-        if (qry < TQ && key < TK)
-          p = prob(bias.logit(s[n][e], scale, b, qry, key), st[2 * ql], st[2 * ql + 1]);
-        const float kf = drop ? ((kbits >> e) & 1u ? inv_keep : 0.f) : 1.f;
-        const float dpk = dp[n][e] * kf;
-        s[n][e] = p * (dpk - st[2 * BQ + ql]) * scale;  // dsᵀ
-        dp[n][e] = p * kf;                              // (p kf)ᵀ
+        if (qry < TQ && kl < TK)
+          p = prob(bias.template logit<kFusedKeys>(s[4 * n + e], scale, bt, ql, kl, qry, kl, false),
+                   st[2 * ql], st[2 * ql + 1]);
+        float d = dp[4 * n + e];
+        if (drop) d = (bits[4 * ql + (kl >> 5)] >> (kl & 31)) & 1u ? d * inv_keep : 0.f;
+        s[4 * n + e] = p;
+        dp[4 * n + e] = d;
+        col[2 * n + (e & 1)] += p * d;
+      }
+    // delta = Σ_keys p dp kf: over the 8 lanes of a column, then the 8 warps in order
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      col[i] += __shfl_xor_sync(0xffffffffu, col[i], 4);
+      col[i] += __shfl_xor_sync(0xffffffffu, col[i], 8);
+      col[i] += __shfl_xor_sync(0xffffffffu, col[i], 16);
+    }
+    if (lg == 0)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        colsum[w8 * kRows + 8 * n + 2 * lq] = col[2 * n];
+        colsum[w8 * kRows + 8 * n + 2 * lq + 1] = col[2 * n + 1];
+      }
+    __syncthreads();
+    if (tid < kRows) {
+      float d = colsum[tid];
+#pragma unroll
+      for (int i = 1; i < 8; ++i) d += colsum[i * kRows + tid];
+      dls[tid] = d;
+      if (q0 + tid < TQ) delta[(size_t)bh * TQ + q0 + tid] = d;
+    }
+    __syncthreads();
+    // dsᵀ (to shared memory, split, for dq) and (p kf)ᵀ
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = kl0 + 8 * (e >> 1), ql = 8 * n + 2 * lq + (e & 1);
+        const float p = s[4 * n + e];
+        const float kf =
+            drop ? ((bits[4 * ql + (kl >> 5)] >> (kl & 31)) & 1u ? inv_keep : 0.f) : 1.f;
+        s[4 * n + e] = p * (dp[4 * n + e] - dls[ql]) * scale;
+        dp[4 * n + e] = p * kf;
+      }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t hh, ll;
+        split2(s[4 * n + 2 * i], s[4 * n + 2 * i + 1], hh, ll);
+        const uint32_t off = swz(kl0 + 8 * i, 8 * n + 2 * lq, kFusedKeys);
+        *reinterpret_cast<uint32_t*>(smem + L::kDsHi + off) = hh;
+        *reinterpret_cast<uint32_t*>(smem + L::kDsLo + off) = ll;
+      }
+    fence_async_smem();
+    uint32_t ah[4][4], al[4][4];
+    float c[32];
+    // dV += (p kf)ᵀ g: lo hi, hi lo, hi hi into a zeroed sum
+    split_frags(dp, ah, al);
+    zero(c);
+    wg_fence();
+    cols_product(c, al, ghi, 0);
+    cols_product(c, ah, glo, 1);
+    cols_product(c, ah, ghi, 1);
+    wg_commit();
+    wg_wait();
+    hold(c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dva[i] += c[i];
+    // dK += dsᵀ q
+    split_frags(s, ah, al);
+    zero(c);
+    wg_fence();
+    cols_product(c, al, qs, 0);
+    cols_product(c, ah, qs, 1);
+    wg_commit();
+    wg_wait();
+    hold(c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] += c[i];
+    __syncthreads();  // both warpgroups' dsᵀ
+    // dq = ds K over the 128 keys: this warpgroup's 32 channels 32 wg ..
+    float cq[16];
+    zero(cq);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFusedKeys / 16; ++kk)
+      wgmma_ss32<1, 1>(cq, desc(dslo + kk * 2048, 8192), desc(ks + kk * 2048 + 64 * wg, 8192),
+                       kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kFusedKeys / 16; ++kk)
+      wgmma_ss32<1, 1>(cq, desc(dshi + kk * 2048, 8192), desc(ks + kk * 2048 + 64 * wg, 8192), 1);
+    wg_commit();
+    wg_wait();
+    hold(cq);
+    __nv_bfloat16* dqh = dq + (size_t)bh * TQ * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + 16 * wl + lg + 8 * i;
+      if (row >= TQ) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int cl = 32 * wg + 8 * j + 2 * lq;
+        if (cl < D)
+          *reinterpret_cast<__nv_bfloat162*>(dqh + (size_t)row * D + cl) =
+              __floats2bfloat162_rn(cq[4 * j + 2 * i], cq[4 * j + 2 * i + 1]);
       }
     }
-    // dK += dsᵀ q, dV += (p kf)ᵀ g, 16 queries a k-step
-#pragma unroll
-    for (int kp = 0; kp < NT / 2; ++kp) {
-      if (2 * kp >= nt) break;
-      uint32_t ah[4], al[4];
-      split_a(s[2 * kp], s[2 * kp + 1], ah, al);
-      product_bf16_b<D>(dka, ah, al, qs + 16 * kp * LD, c0, nj, lane);
-      split_a(dp[2 * kp], dp[2 * kp + 1], ah, al);
-      product_f32_b<D>(dva, ah, al, gs + 16 * kp * LDG, c0, nj, lane);
-    }
-    __syncthreads();  // this stage is refilled two tiles on
+    __syncthreads();  // the stage, g's parts, dsᵀ and the keep words are refilled
   }
-  const size_t rows = (size_t)B * H * TK;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = kr0 + lg + 8 * i;
-    if (key >= TK) continue;
-    const size_t at = ((size_t)bh * TK + key) * D + c0 + 2 * lq;
-#pragma unroll
-    for (int j = 0; j < kChunk / 8; ++j) {
-      if (j >= nj) break;
-      if (G == 1) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + at + 8 * j) =
-            __floats2bfloat162_rn(dka[j][2 * i], dka[j][2 * i + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(dv + at + 8 * j) =
-            __floats2bfloat162_rn(dva[j][2 * i], dva[j][2 * i + 1]);
-      } else {
-        float* pk = part + (size_t)group * rows * D;
-        float* pv = part + ((size_t)G + group) * rows * D;
-        *reinterpret_cast<float2*>(pk + at + 8 * j) = make_float2(dka[j][2 * i], dka[j][2 * i + 1]);
-        *reinterpret_cast<float2*>(pv + at + 8 * j) = make_float2(dva[j][2 * i], dva[j][2 * i + 1]);
-      }
-    }
-  }
-}
 
-// dk = Σ_gr part[0][gr], dv = Σ_gr part[1][gr], gr = 0..G-1 in order, rounded
-// to bf16; two elements a thread a step.
-__global__ void __launch_bounds__(256)
-reduce_kernel(const float2* __restrict__ part, __nv_bfloat162* __restrict__ dk,
-              __nv_bfloat162* __restrict__ dv, long long n2, int G) {
-  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < 2 * n2;
-       i += (long long)gridDim.x * 256) {
-    const bool is_v = i >= n2;
-    const long long j = is_v ? i - n2 : i;
-    const float2* src = part + (is_v ? (long long)G * n2 : 0) + j;
-    float2 sum = src[0];
-    for (int gr = 1; gr < G; ++gr) {
-      const float2 x = src[(long long)gr * n2];
+  // dK, dV: this block's partial, added over the cluster in rank order
+  auto out = [&](int which, int key, int cl, float x, float y) {
+    if (key < TK && cl < D)
+      *reinterpret_cast<__nv_bfloat162*>((which ? dv : dk) + ((size_t)bh * TK + key) * D + cl) =
+          __floats2bfloat162_rn(x, y);
+  };
+  if (C == 1) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        out(0, kl0 + 8 * i, 8 * j + 2 * lq, dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
+        out(1, kl0 + 8 * i, 8 * j + 2 * lq, dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+      }
+    return;
+  }
+  float* red = reinterpret_cast<float*>(smem + L::kRing);  // [2][128 keys][64]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int at = (kl0 + 8 * i) * 64 + 8 * j + 2 * lq;
+      *reinterpret_cast<float2*>(red + at) = make_float2(dka[4 * j + 2 * i], dka[4 * j + 2 * i + 1]);
+      *reinterpret_cast<float2*>(red + kFusedKeys * 64 + at) =
+          make_float2(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+    }
+  cluster_sync();
+  const int rows = kFusedKeys / C, r0 = rank * rows;
+  for (int i = tid; i < 2 * rows * 32; i += NT) {
+    const int which = i / (rows * 32), key = r0 + (i % (rows * 32)) / 32, cl = (i % 32) * 2;
+    const uint32_t addr = smem_u32(red + (which * kFusedKeys + key) * 64 + cl);
+    float2 sum = ld_cluster2(addr, 0);
+    for (int rr = 1; rr < C; ++rr) {
+      const float2 x = ld_cluster2(addr, (uint32_t)rr);
       sum.x += x.x;
       sum.y += x.y;
     }
-    (is_v ? dv : dk)[j] = __floats2bfloat162_rn(sum.x, sum.y);
+    out(which, key, cl, sum.x, sum.y);
   }
+  cluster_sync();  // no block leaves while another may read its partials
 }
 
-// Query-tile groups of the dK/dV pass: 1 where the key tiles give at least
-// kBlocksPerSM blocks an SM, else enough for that many, at most one a query
-// tile. A function of the shape alone.
-template <int D>
-inline int groups(int B, int H, int TQ, int TK) {
-  const long long blocks = (long long)((TK + kRows - 1) / kRows) * B * H;
-  const long long want = kBlocksPerSM * kSMs;
-  if (blocks >= want) return 1;
-  const long long nq = (TQ + Tiles<D>::BS - 1) / Tiles<D>::BS;
-  const long long g = (want + blocks - 1) / blocks;
-  return (int)(g < nq ? g : nq);
+// ---- host: tensor maps and launches ----------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime once, so that
+// nothing links libcuda
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
-// The backward on `stream`: the dQ pass (writes delta), the dK/dV pass and,
-// for G > 1, the reduction. Returns the cudaError_t code.
+// The tensor map of a [outer, T, D] bf16 tensor at base: boxes of 64 columns
+// by `rows` rows of one outer index, the 128-byte swizzle, zeros outside.
+// Returns 0 or an error code.
+inline int bf16_map(CUtensorMap* map, const void* base, int D, int T, int outer, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                            strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Whether B6 takes the one-kernel form at this shape.
+inline bool fused(int TK, int D) { return TK <= kFusedKeys && D <= kFusedMaxD; }
+
+// The one-kernel form's blocks a (b, h): the most, up to kMaxCluster and one
+// a query tile, that keep all blocks on the card at once (one an SM).
+inline int cluster_blocks(int B, int H, int TQ) {
+  const long long heads = (long long)B * H, nq = (TQ + kRows - 1) / kRows;
+  int c = kMaxCluster;
+  while (c > 1 && (heads * c > kSMs || c > nq)) c /= 2;
+  return c;
+}
+
+inline bool misaligned(std::initializer_list<const void*> p16, std::initializer_list<const void*> p8) {
+  for (const void* p : p16)
+    if ((uintptr_t)p % 16 != 0) return true;
+  for (const void* p : p8)
+    if ((uintptr_t)p % 8 != 0) return true;
+  return false;
+}
+
+// The two-pass backward on `stream`: the dQ pass (writes delta, g's split
+// parts to gsplit [2, B, H, TQ, D] bf16 and, at rate > 0, the keep words it
+// draws to keep [B, H, TQ, keep_words(TK)]), then the dK/dV pass, which reads
+// both. Returns the cudaError_t code.
 template <int D, class Bias>
-int launch_bwd(const void* q, const void* k, const void* v, const float* g,
-               const float* stats, const long long* seed, float* delta, float* part, int G,
-               void* dq, void* dk, void* dv, Bias bias, int B, int H, int TQ, int TK,
-               float scale, float rate, cudaStream_t stream) {
-  using T = Tiles<D>;
+int launch_two_pass(const void* q, const void* k, const void* v, const float* g,
+                    const float* stats, const long long* seed, float* delta, void* gsplit,
+                    uint32_t* keep, void* dq, void* dk, void* dv, Bias bias, int B, int H,
+                    int TQ, int TK, float scale, float rate, cudaStream_t stream) {
+  using Dq = DqLayout<D, Bias>;
+  using Dkv = DkvLayout<D, Bias>;
   const long long heads = (long long)B * H;
   const long long nq = (TQ + kRows - 1) / kRows, nk = (TK + kRows - 1) / kRows;
-  if (G != groups<D>(B, H, TQ, TK) || (G > 1 && part == nullptr) ||
-      nq * heads > 2147483647LL || nk * heads > 2147483647LL || rate < 0.f || rate >= 1.f ||
-      (rate > 0.f && seed == nullptr))
+  if (gsplit == nullptr || (rate > 0.f && keep == nullptr) || nq * heads > 2147483647LL ||
+      nk * heads > 2147483647LL || 2 * heads > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  // 16-byte cp.async and 4-byte bf16 pair stores: rows are D elements, D a
-  // multiple of 8, so the bases decide
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)g | (uintptr_t)dq |
-       (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)part) % 16 != 0 ||
-      ((uintptr_t)stats | (uintptr_t)delta) % 8 != 0)
+  if (misaligned({q, k, v, g, gsplit, dq, dk, dv}, {stats, delta}))
     return (int)cudaErrorMisalignedAddress;
-  static bool raised_dq[kMaxDevices] = {}, raised_dkv[kMaxDevices] = {};
-  int err = tc::raise_smem(dq_kernel<D, Bias>, T::kDqSmem, raised_dq);
+  CUtensorMap qm, km, vm, gm;
+  int err = bf16_map(&qm, q, D, TQ, (int)heads, kRows);
+  if (err == 0) err = bf16_map(&km, k, D, TK, (int)heads, kRows);
+  if (err == 0) err = bf16_map(&vm, v, D, TK, (int)heads, kRows);
+  if (err == 0) err = bf16_map(&gm, gsplit, D, TQ, (int)(2 * heads), kRows);
   if (err != 0) return err;
-  err = tc::raise_smem(dkv_kernel<D, Bias>, T::kDkvSmem, raised_dkv);
+  static bool raised_dq[kMaxDevices] = {}, raised_dkv[kMaxDevices] = {};
+  err = tc::raise_smem(dq_kernel<D, Bias>, Dq::kSmem, raised_dq);
+  if (err == 0) err = tc::raise_smem(dkv_kernel<D, Bias>, Dkv::kSmem, raised_dkv);
   if (err != 0) return err;
   const uint32_t thr = dropout::threshold(rate);
   using bf = __nv_bfloat16;
-  dq_kernel<D, Bias><<<dim3((unsigned)(nq * heads), T::CHUNKS), kThreads, T::kDqSmem, stream>>>(
-      static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), g,
-      stats, bias, seed, rate, thr, delta, static_cast<bf*>(dq), B, H, TQ, TK, scale);
+  dq_kernel<D, Bias><<<dim3((unsigned)(nq * heads), panels(D)), kThreads, Dq::kSmem, stream>>>(
+      qm, km, vm, g, stats, bias, seed, rate, thr, delta, static_cast<bf*>(gsplit), keep,
+      static_cast<bf*>(dq), B, H, TQ, TK, scale);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dkv_kernel<D, Bias>
-      <<<dim3((unsigned)(nk * heads), G, T::CHUNKS), kThreads, T::kDkvSmem, stream>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k), static_cast<const bf*>(v), g,
-          stats, delta, bias, seed, rate, thr, static_cast<bf*>(dk), static_cast<bf*>(dv),
-          part, B, H, TQ, TK, G, scale);
-  err = (int)cudaGetLastError();
-  if (err != 0 || G == 1) return err;
-  const long long n2 = heads * TK * D / 2;
-  const long long blocks = (2 * n2 + 255) / 256;
-  reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-      reinterpret_cast<const float2*>(part), static_cast<__nv_bfloat162*>(dk),
-      static_cast<__nv_bfloat162*>(dv), n2, G);
+  dkv_kernel<D, Bias><<<dim3((unsigned)(nk * heads), panels(D)), kThreads, Dkv::kSmem, stream>>>(
+      qm, km, vm, gm, stats, delta, bias, keep, rate, static_cast<bf*>(dk),
+      static_cast<bf*>(dv), B, H, TQ, TK, scale);
+  return (int)cudaGetLastError();
+}
+
+// B6's one-kernel form on `stream` (TK <= 128, D <= 64). Returns the
+// cudaError_t code.
+template <int D>
+int launch_fused(const void* q, const void* k, const void* v, const float* g, const float* stats,
+                 const long long* seed, float* delta, void* dq, void* dk, void* dv, FullBias bias,
+                 int B, int H, int TQ, int TK, float scale, float rate, cudaStream_t stream) {
+  static_assert(D <= kFusedMaxD, "one panel of head dims");
+  const long long heads = (long long)B * H;
+  const int C = cluster_blocks(B, H, TQ);
+  if (TK > kFusedKeys || heads * C > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (misaligned({q, k, v, g, dq, dk, dv}, {stats, delta})) return (int)cudaErrorMisalignedAddress;
+  CUtensorMap qm, km, vm;
+  int err = bf16_map(&qm, q, D, TQ, (int)heads, kRows);
+  if (err == 0) err = bf16_map(&km, k, D, TK, (int)heads, kFusedKeys);
+  if (err == 0) err = bf16_map(&vm, v, D, TK, (int)heads, kFusedKeys);
+  if (err != 0) return err;
+  static bool raised[kMaxDevices] = {};
+  err = tc::raise_smem(fused_kernel<D>, FusedLayout::kSmem, raised);
+  if (err != 0) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(heads * C));
+  cfg.blockDim = dim3(2 * kThreads);
+  cfg.dynamicSmemBytes = FusedLayout::kSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  using bf = __nv_bfloat16;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, fused_kernel<D>, qm, km, vm, g, stats, bias, seed, rate, dropout::threshold(rate),
+      delta, static_cast<bf*>(dq), static_cast<bf*>(dk), static_cast<bf*>(dv), B, H, TQ, TK,
+      scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

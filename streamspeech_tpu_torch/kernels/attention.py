@@ -42,7 +42,7 @@ For CPU tensors each wrapper computes its plain version (``*_reference``,
 launches its kernel or raises. There is no fallback. Each counts its launches:
 ``f.launches`` for a forward (``f.bf16_launches`` for the bf16 forms),
 ``f_backward.launches`` once per backward call (``f_backward.bf16_launches``
-for the bf16 form; a call launches two or three CUDA kernels),
+for the bf16 form; a call launches one or two CUDA kernels),
 ``dropout_keep.launches`` for the
 kernel that writes the mask out alone. ``mask_draws`` counts the forward
 launches and backward calls that drew the mask inside their own kernels.
@@ -84,15 +84,16 @@ _BIAS_BF16 = ("bias_attention_bf16", "bias_attention_bf16", (_P,) * 5 + (_I,) * 
 # the bf16 forwards' training form: the fp32 forwards' arguments
 _MASKED_BF16_TRAIN = ("masked_attention_bf16", "masked_attention_bf16_train", _MASKED[2])
 _BIAS_BF16_TRAIN = ("bias_attention_bf16", "bias_attention_bf16_train", _BIAS[2])
-# the bf16 backwards: q, k, v, bias, g, stats, seed, delta, part, dq, dk, dv,
-# B, H, TQ, TK, D, groups, scale, rate; and their query-tile groups at a shape
-_BWD_BF16_ARGS = (_P,) * 12 + (_I,) * 6 + (_F, _F, _P)
+# the bf16 backwards: q, k, v, bias, g, stats, seed, delta, gsplit, keep, dq,
+# dk, dv, B, H, TQ, TK, D, scale, rate; and the CUDA kernels a call launches at
+# a shape
+_BWD_BF16_ARGS = (_P,) * 13 + (_I,) * 5 + (_F, _F, _P)
 _MASKED_BWD_BF16 = ("masked_attention_bwd_bf16", "masked_attention_bwd_bf16", _BWD_BF16_ARGS)
 _BIAS_BWD_BF16 = ("bias_attention_bwd_bf16", "bias_attention_bwd_bf16", _BWD_BF16_ARGS)
-_MASKED_BWD_BF16_GROUPS = ("masked_attention_bwd_bf16", "masked_attention_bwd_bf16_groups",
-                           (_I,) * 5)
-_BIAS_BWD_BF16_GROUPS = ("bias_attention_bwd_bf16", "bias_attention_bwd_bf16_groups",
-                         (_I,) * 5)
+_MASKED_BWD_BF16_KERNELS = ("masked_attention_bwd_bf16", "masked_attention_bwd_bf16_kernels",
+                            (_I,) * 5)
+_BIAS_BWD_BF16_KERNELS = ("bias_attention_bwd_bf16", "bias_attention_bwd_bf16_kernels",
+                          (_I,) * 5)
 _QKV_DTYPES = (torch.float32, torch.bfloat16)
 
 Seed = Union[int, torch.Tensor]
@@ -533,40 +534,43 @@ def masked_attention_backward(q, k, v, kv_bias, g, out, stats, seed, scale: floa
 def backward_bf16(family: str, q, k, v, bias, g, stats, seed, scale: float,
                   rate: float = 0.0):
     """The bf16 backward of B4 (``family`` "masked", bias the [B, 1, T] key
-    bias) or B6 ("bias") on the card: (dq, dK, dV, delta). A dQ pass forms
-    delta = Σ_j p dp from the fp32 probabilities, writes dq and delta ([B, H,
-    TQ] fp32, returned for checks), then a dK/dV pass over G query-tile groups
-    (G > 1: fp32 partials [2, G, B, H, TK, D] added in group order by a third
-    kernel). G comes from the built library. Inputs as the backward wrappers,
-    which call this after their checks."""
-    spec, groups_spec, fn = {
-        "masked": (_MASKED_BWD_BF16, _MASKED_BWD_BF16_GROUPS, masked_attention_backward),
-        "bias": (_BIAS_BWD_BF16, _BIAS_BWD_BF16_GROUPS, bias_attention_backward)}[family]
+    bias) or B6 ("bias") on the card: (dq, dK, dV, delta), delta = Σ_j p dp
+    from the fp32 probabilities ([B, H, TQ] fp32, returned for checks). Two
+    CUDA kernels (a dQ pass that also splits g into a [2, B, H, TQ, D] bf16
+    scratch and, with dropout, writes the keep words it draws to a [B, H, TQ,
+    TK / 32] scratch; then a dK/dV pass that reads both) or, for B6 at TK <=
+    128 and D <= 64, one; the count comes from the built library. Inputs as
+    the backward wrappers, which call this after their checks."""
+    spec, kernels_spec, fn = {
+        "masked": (_MASKED_BWD_BF16, _MASKED_BWD_BF16_KERNELS, masked_attention_backward),
+        "bias": (_BIAS_BWD_BF16, _BIAS_BWD_BF16_KERNELS, bias_attention_backward)}[family]
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    groups = bf16_backward_groups(groups_spec, b, h, tq, tk, d)
+    kernels = bf16_backward_kernels(kernels_spec, b, h, tq, tk, d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = g.new_empty((b, h, tq))
-    part = g.new_empty((2, groups, b, h, tk, d)) if groups > 1 else None
+    gsplit = q.new_empty((2, b, h, tq, d)) if kernels == 2 else None
+    keep = g.new_empty((b, h, tq, 2 * -(-tk // TILE)), dtype=torch.int32) \
+        if kernels == 2 and rate > 0 else None
     build.launch(spec, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  bias.data_ptr(), g.data_ptr(), stats.data_ptr(),
-                 _ptr(seed) if rate > 0 else None, delta.data_ptr(), _ptr(part),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, groups,
+                 _ptr(seed) if rate > 0 else None, delta.data_ptr(), _ptr(gsplit), _ptr(keep),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d,
                  float(scale), float(rate))
     _count(fn, rate, bf16=True)
     return dq, dk, dv, delta
 
 
 @functools.lru_cache(maxsize=None)
-def bf16_backward_groups(groups_spec, b: int, h: int, tq: int, tk: int, d: int) -> int:
-    """The query-tile groups G of a bf16 backward (``_MASKED_BWD_BF16_GROUPS``
-    or ``_BIAS_BWD_BF16_GROUPS``) at this shape; the library owns the tile
-    sizes. Raises where the head dim has no instance."""
-    groups = build.bind(*groups_spec)(b, h, tq, tk, d)
-    if groups < 1:
+def bf16_backward_kernels(kernels_spec, b: int, h: int, tq: int, tk: int, d: int) -> int:
+    """The CUDA kernels a bf16 backward call launches (``_MASKED_BWD_BF16_KERNELS``
+    or ``_BIAS_BWD_BF16_KERNELS``) at this shape: 1 or 2; the library owns the
+    choice. Raises where the head dim has no instance."""
+    kernels = build.bind(*kernels_spec)(b, h, tq, tk, d)
+    if kernels < 1:
         raise ValueError(f"no bf16 backward instance at B={b}, H={h}, TQ={tq}, TK={tk}, "
                          f"D={d}")
-    return groups
+    return kernels
 
 
 class _MaskedAttention(torch.autograd.Function):

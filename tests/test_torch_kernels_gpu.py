@@ -1068,13 +1068,27 @@ def _assert_bf16_grads(got, want, terms):
         assert share <= 1.0, f"{name}: an element reached {share} of its bound"
 
 
+# The bias route's keys on the path: the MT decoder's 48 padded to the 128 tile
+# (zero K and V, a NEG_INF bias past the valid keys), as JAX pads them.
+PATH_KEY_TILE, PATH_VALID_KEYS = 128, 48
+
+
 def _bf16_family_inputs(family, b, h, tq, tk, d, seed, masked_row=False):
     """bf16 q, k, v, an fp32 g and the family's bias on the card: causal with
     the last 8 keys of row 0 invalid; bias the wait-k mask with key validity,
-    and with ``masked_row`` row 1's query 0 wholly masked."""
+    and with ``masked_row`` row 1's query 0 wholly masked. A bias case at TK =
+    PATH_KEY_TILE has the path's layout: PATH_VALID_KEYS keys, the rest
+    padding."""
     if family == "masked":
         q, k, v, kvb = _inputs(b, h, tq, d, seed=seed, n_valid=[tq - 8] + [tq] * (b - 1))
         bias = kvb
+    elif tk == PATH_KEY_TILE:
+        q, k, v, bias = _bias_inputs(b, h, tq, PATH_VALID_KEYS, d, seed=seed)
+        pad = tk - PATH_VALID_KEYS
+        k, v = (np.pad(x, ((0, 0), (0, 0), (0, pad), (0, 0))) for x in (k, v))
+        bias = np.pad(bias, ((0, 0), (0, 0), (0, pad)), constant_values=NEG_INF)
+        if masked_row:
+            bias[min(1, b - 1), 0] = NEG_INF
     else:
         q, k, v, bias = _bias_inputs(b, h, tq, tk, d, seed=seed)
         if masked_row:
@@ -1092,7 +1106,9 @@ BF16_TRAIN_CASES = [("masked", 1, 2, 64, 64, d) for d in (8, 16, 24, 64, 72, 136
     [("masked", 2, 2, 320, 320, d) for d in (16, 64, 256)] + \
     [("masked", 1, 2, 1280, 1280, 64)] + \
     [("bias", 2, 2, tq, tk, d) for tq, tk in ((70, 24), (1200, 48), (130, 65), (100, 130))
-     for d in (8, 24, 64, 136, 256)]
+     for d in (8, 24, 64, 136, 256)] + \
+    [("bias", 2, 2, 1200, PATH_KEY_TILE, 64)] + \
+    [("bias", 9, 8, 130, 65, 64)]   # 72 heads: B6-bf16's one kernel without a cluster
 
 
 @pytest.mark.gpu
@@ -1129,6 +1145,36 @@ def test_bf16_training_forward_and_backward_match_plain_versions(hopper, family,
     _assert_bf16_grads(grads, ref_bwd(q, k, v, bias, g, scale, keep, rate),
                        _bf16_grad_bounds(family, q, k, v, bias, g, scale, keep, rate))
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,b,tq,tk,kernels", [
+    ("masked", 2, 1280, 1280, 2), ("bias", 2, 1200, PATH_KEY_TILE, 1), ("bias", 2, 130, 65, 1),
+    ("bias", 2, 100, 130, 2)])
+def test_bf16_backward_launches_the_cuda_kernels_its_form_states(hopper, family, b, tq, tk,
+                                                                   kernels):
+    """Counted by ``torch.profiler``: a B6-bf16 call at TK <= 128 (D 64)
+    launches one CUDA kernel (the one-kernel form), B4-bf16 and B6-bf16 past
+    128 keys two (the dQ pass, then the dK/dV pass), as
+    ``bf16_backward_kernels`` states; no other device work."""
+    d = 64
+    q, k, v, bias, g = _bf16_family_inputs(family, b, 2, tq, tk, d, seed=3)
+    seed = _seed(hopper, 5)
+    out, stats = getattr(attention, f"{family}_attention_forward")(
+        q, k, v, bias, 0.125, 0.1, seed, True)
+    spec = attention._MASKED_BWD_BF16_KERNELS if family == "masked" else \
+        attention._BIAS_BWD_BF16_KERNELS
+    assert attention.bf16_backward_kernels(spec, b, 2, tq, tk, d) == kernels
+    attention.backward_bf16(family, q, k, v, bias, g, stats, seed, 0.125, 0.1)  # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        attention.backward_bf16(family, q, k, v, bias, g, stats, seed, 0.125, 0.1)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == kernels, names
+    want = ["fused_kernel"] if kernels == 1 else ["dq_kernel", "dkv_kernel"]
+    assert all(w in n for w, n in zip(want, names)), names
 
 
 @pytest.mark.gpu

@@ -71,13 +71,14 @@ KERNELS = {
     "bias_dkv_kernel": ("attn_bwd::dkv_kernel", "FullBias"),
     "bias_reduce_kernel": ("attn_bwd::reduce_kernel",),
     "rowdot_kernel": ("rowdot_kernel",),
-    # the bf16 forms: B3/B5 (one template, causal and bias), B4/B6
+    # the bf16 forms: B3/B5 (one template, causal and bias), B4/B6 (B6 at TK <=
+    # 128 one kernel, past that the two passes)
     "attention_bf16_kernel": ("attention_bf16_kernel",),
     "causal_dq_bf16_kernel": ("attn_bwd_bf16::dq_kernel", "CausalBias"),
     "causal_dkv_bf16_kernel": ("attn_bwd_bf16::dkv_kernel", "CausalBias"),
+    "bias_bwd_bf16_kernel": ("attn_bwd_bf16::fused_kernel",),
     "bias_dq_bf16_kernel": ("attn_bwd_bf16::dq_kernel", "FullBias"),
     "bias_dkv_bf16_kernel": ("attn_bwd_bf16::dkv_kernel", "FullBias"),
-    "bias_reduce_bf16_kernel": ("attn_bwd_bf16::reduce_kernel",),
 }
 PROFILED_STEPS = 3
 

@@ -1,6 +1,8 @@
-"""Time the bf16 forms of B3, B5 and B7 at other cuts on one CUDA card.
+"""Time the bf16 forms of B3, B5 and B7 at other cuts, or the bf16 backwards
+B4 and B6, on one CUDA card.
 
     python3 tools/sweep_bf16.py [--not-blank rule 1 2 4 8] [--lib DIR ...]
+    python3 tools/sweep_bf16.py --bwd [--lib DIR ...] [--variant NAME=DEFINES ...]
 
 The port's own build of the bf16 attention forms is timed as ``bq64``.
 ``--lib DIR`` adds a directory holding ``libmasked_attention_bf16.so`` and
@@ -19,12 +21,31 @@ the forward's 640, bias [1,8,600x24,64] and [8,8,1200x48,64], not-blank
 CUDA-graph replay as in ``chip_smoke.py``, the error against the plain bf16
 version, and beside it one bf16 ``F.scaled_dot_product_attention`` call under
 the same mask (attention). Then the card's name and power limit.
+
+``--bwd`` times the bf16 backwards instead, this tree's build as ``this``,
+each ``--variant NAME=DEFINES`` (the two backward sources built with those
+nvcc defines into ``build/bf16_variants/NAME/``) and each ``--lib DIR`` (a
+directory holding an earlier build of ``libmasked_attention_bwd_bf16.so``,
+``libbias_attention_bwd_bf16.so`` and the bf16 forwards; the C interface of
+either generation is read from the library's symbols) under its path, each
+in a process of its own,
+A B .. B A: B4-bf16 at [8,8,1280,64] (1200 valid keys) and B6-bf16 at
+[8,8,1200x128,64] (48 valid keys padded to 128) at rate 0 and 0.1, and B6 at
+[8,8,1200x64,64] (the same keys padded to 64, one key tile). One JSON line per
+library, shape and rate: the call's device ms by CUDA-graph replay, each CUDA
+kernel of the call by ``torch.profiler`` over graph replays (device ms a call
+and launches a call, by kernel name), and the gradients' largest share of
+``chip_smoke.py``'s bound against the plain bf16 backward. Then one line per
+library with ``cuobjdump -sass``'s count of ``HGMMA`` instructions in each
+backward library, and the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import shlex
 import sys
 from pathlib import Path
 
@@ -109,21 +130,136 @@ def time_library(name: str, lib_dir: Path) -> None:
                 "ms": C._device_ms(lambda: policy.not_blank_probs(logits))}), flush=True)
 
 
+BACKWARD = ("masked_attention_bwd_bf16", "bias_attention_bwd_bf16")
+# (family, B, TQ, TK valid, TK the kernel sees)
+BWD_SHAPES = [("masked", 8, 1280, 1200, 1280), ("bias", 8, 1200, 48, 128),
+              ("bias", 8, 1200, 48, 64)]
+
+
+def _earlier_backward(lib_dir: Path, family: str):
+    """The backward entry point of a library built with the earlier C
+    interface (query-tile groups and an fp32 partials scratch, exported with a
+    ``*_groups`` symbol), as a function of the wrapper's arguments; None for
+    this tree's interface."""
+    lib = ctypes.CDLL(str(lib_dir / f"lib{family}_attention_bwd_bf16.so"))
+    if not hasattr(lib, f"{family}_attention_bwd_bf16_groups"):
+        return None
+    fn = getattr(lib, f"{family}_attention_bwd_bf16")
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + \
+        [ctypes.c_void_p]
+    groups_fn = getattr(lib, f"{family}_attention_bwd_bf16_groups")
+    groups_fn.argtypes = [ctypes.c_int] * 5
+
+    def call(q, k, v, bias, g, stats, seed, scale, rate):
+        b, h, tq, d = q.shape
+        tk = k.shape[2]
+        groups = groups_fn(b, h, tq, tk, d)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = g.new_empty((b, h, tq))
+        part = g.new_empty((2, groups, b, h, tk, d)) if groups > 1 else None
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                 stats.data_ptr(), seed.data_ptr() if rate > 0 else None, delta.data_ptr(),
+                 None if part is None else part.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, tq, tk, d, groups, scale, rate,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{family} backward: CUDA error {err}")
+        return dq, dk, dv, delta
+    return call
+
+
+def time_backward(name: str, lib_dir: Path) -> None:
+    sweeps.use_libraries(lib_dir)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(C.SEED + 15)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    for family, b, tq, tk_valid, tk in BWD_SHAPES:
+        earlier = _earlier_backward(lib_dir, family)
+        if family == "masked":
+            q, k, v = (randn(b, 8, tq, 64).bfloat16() for _ in range(3))
+            g = randn(b, 8, tq, 64)
+            bias = torch.where(torch.arange(tq, device=dev) < tk_valid, 0.0, NEG_INF).float()
+            bias = bias.view(1, 1, tq).expand(b, 1, tq).contiguous()
+        else:
+            q, k, v, g, bias = C._bias_train_inputs(b, tq, tk_valid, randn)
+            pad = tk - tk_valid
+            k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+            bias = F.pad(bias, (0, pad), value=NEG_INF).contiguous()
+            q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        fwd = getattr(A, f"{family}_attention_forward")
+        for rate in (0.0, C.ATTN_DROPOUT):
+            seed = torch.tensor([C.SEED + 40 + tq], dtype=torch.int64, device=dev)
+            _, stats = fwd(q, k, v, bias, 0.125, rate, seed, True)
+            if earlier is None:
+                def call():
+                    return A.backward_bf16(family, q, k, v, bias, g, stats, seed, 0.125, rate)
+            else:
+                def call():
+                    return earlier(q, k, v, bias, g, stats, seed, 0.125, rate)
+            got = call()
+            keep = A.dropout_keep_reference(seed, b, 8, tq, tk, rate) if rate > 0 else None
+            want = getattr(A, f"{family}_attention_backward_reference")(
+                q, k, v, bias, g, 0.125, keep, rate)
+            terms, _ = C._bf16_backward_terms(family, A, q, k, v, bias, g, 0.125, keep, rate)
+            shares = {}
+            for grad, a, w, t in zip(("dq", "dk", "dv"), got, want, terms):
+                bound = torch.maximum(C._bf16_ulp(a), C._bf16_ulp(w)) + \
+                    C.BF16_GRAD_TERMS * t + 1e-30
+                shares[grad] = C._bound_share(a.float(), w.float(), bound)
+            del want, terms
+            print(json.dumps({
+                "library": name, "kernel": f"{family}_attention_bwd_bf16", "b": b, "h": 8,
+                "tq": tq, "tk": tk, "tk_valid": tk_valid, "d": 64, "rate": rate,
+                "interface": "earlier" if earlier is not None else "this tree",
+                "bound_share_by_grad": shares,
+                "ms": C._device_ms(call, calls=5, reps=10),
+                "kernels_ms_launches": C._kernel_ms(call)}), flush=True)
+
+
+def hgmma_counts(libs: dict) -> None:
+    """``cuobjdump -sass``'s count of HGMMA instructions in each backward
+    library of each directory."""
+    for name, lib_dir in libs.items():
+        counts = {src: sweeps.cuobjdump("-sass", str(Path(lib_dir) / f"lib{src}.so"))
+                  .count("HGMMA") for src in BACKWARD}
+        print(json.dumps({"library": name, "hgmma_instructions": counts}), flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--not-blank", nargs="*", default=["rule", "1", "2", "4", "8"])
     parser.add_argument("--lib", type=Path, nargs="*", default=[],
                         help="directories that hold both bf16 attention libraries")
+    parser.add_argument("--bwd", action="store_true",
+                        help="time the bf16 backwards B4 and B6 instead")
+    parser.add_argument("--variant", nargs="*", default=[],
+                        help="--bwd: NAME=DEFINES, the backward sources built with them")
     parser.add_argument("--time", nargs=2, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.time is not None:
-        time_library(args.time[0], Path(args.time[1]))
+        (time_backward if args.bwd else time_library)(args.time[0], Path(args.time[1]))
         return
     if not torch.cuda.is_available():
         raise SystemExit("sweep_bf16: needs a CUDA device")
-    libs = {f"bq_{d.name}": d.resolve() for d in args.lib}
-    libs.update(build_variants(args.not_blank))
-    ok = sweeps.time_each(__file__, libs, twice=True, timeout=300)
+    if args.bwd:
+        variants = {}
+        for spec in args.variant:
+            name, sep, defines = spec.partition("=")
+            if not sep:
+                raise SystemExit(f"sweep_bf16: variant {spec!r} is not NAME=DEFINES")
+            variants[name] = (BACKWARD, shlex.split(defines))
+        libs = {"this": sweeps.build.BUILD_DIR}
+        libs.update(sweeps.build_variants(VARIANT_DIR, variants, base=[*BACKWARD, *ATTENTION]))
+        libs.update({str(d): d.resolve() for d in args.lib})
+        ok = sweeps.time_each(__file__, libs, args=["--bwd"], twice=True, timeout=600)
+        hgmma_counts(libs)
+    else:
+        libs = {f"bq_{d.name}": d.resolve() for d in args.lib}
+        libs.update(build_variants(args.not_blank))
+        ok = sweeps.time_each(__file__, libs, twice=True, timeout=300)
     print(sweeps.card_line(), flush=True)
     sys.exit(0 if ok else 1)
 
