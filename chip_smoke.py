@@ -121,7 +121,12 @@ Phases 13-15 run after phases 3, 4 and 6 in turn:
             within 1e-6; ms,
             plain ms, one bf16 SDPA call under the mask cast to bf16 (none for
             B7), and the bound at the bf16 tensor-core peak, max(flops / 989
-            TFLOP/s, bytes / 3.35 TB/s).
+            TFLOP/s, bytes / 3.35 TB/s). The attention rows add the form the
+            call takes (``bf16_forward_form``), the CUDA kernels one call
+            launches by ``torch.profiler`` over graph replays
+            (``kernels_a_call``, ``kernels_ms_launches``) and the HGMMA count of
+            the library (``cuobjdump -sass``); the phase fails unless D = 64
+            runs the wgmma form, one kernel a call, HGMMA in its library.
 14. forward_bf16  phase 6's model and inputs with ``dtype=torch.bfloat16``
             (fp32 weights, bf16 compute): card against the same bf16 model on
             the CPU, each float output's RMS distance within 2x the CPU bf16
@@ -151,7 +156,9 @@ Phases 16-19 run after phase 12:
             identity, T = D = 64) equal to ``dropout_keep_reference``; device
             ms of each, its plain version, bf16 SDPA under the same mask and
             ``dropout_p`` (forward; forward + backward minus forward) and the
-            bound at the bf16 tensor-core peak; a backward row also gives the
+            bound at the bf16 tensor-core peak; a timed forward row adds its
+            form, CUDA kernels and HGMMA count as phase 13's (and fails the
+            same way); a backward row also gives the
             CUDA kernels a call launches (B4-bf16 two, B6-bf16 one at TK <=
             128) and each kernel's device ms by ``torch.profiler`` over
             CUDA-graph replays (``kernels_ms_launches``).
@@ -183,12 +190,14 @@ cuDNN convolutions. Phase 12's train shapes are also phase 16's.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -401,6 +410,37 @@ def _kernel_ms(fn, calls=5, reps=10) -> dict:
     return {k: [v[0], v[1]] for k, v in sorted(out.items())}
 
 
+@functools.lru_cache(maxsize=None)
+def _hgmma_count(source: str) -> int:
+    """``cuobjdump -sass``'s count of HGMMA instructions (``wgmma``) in the
+    built library of ``csrc/<source>.cu``."""
+    from streamspeech_tpu_torch.kernels import build
+
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(build.library_path(source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout.count("HGMMA")
+
+
+def _bf16_forward_form(A, family, call, tk, d) -> dict:
+    """The bf16 forward's form at this shape (``bf16_forward_form``), the CUDA
+    kernels one call launches (``_kernel_ms``: their names, and each one's
+    launches a call, which the profiler may undercount by a dropped record)
+    and its library's HGMMA count; raises unless the head dim the path runs
+    (64) takes the wgmma form, ``fwd_kernel`` once a call, from a library with
+    HGMMA in it."""
+    ms = _kernel_ms(call)
+    row = {"form": A.bf16_forward_form(family, tk, d), "kernels_a_call": len(ms),
+           "kernels_ms_launches": ms,
+           "hgmma_instructions": _hgmma_count(f"{family}_attention_bf16")}
+    if d == 64 and not (row["form"] == "wgmma" and list(ms) == ["fwd_kernel"]
+                        and round(ms["fwd_kernel"][1]) == 1
+                        and row["hgmma_instructions"] > 0):
+        raise AssertionError(f"the bf16 {family} forward at D = 64 does not run the wgmma "
+                             f"form alone: {row}")
+    return row
+
+
 def _bound(flops: float, nbytes: float) -> dict:
     """The least time the card could take: the larger of the operations over
     the fp32 peak and the bytes over the memory rate, and which one bounds."""
@@ -477,9 +517,10 @@ def _pad_keys(k, v, bias):
             F.pad(bias, (0, pad), value=NEG_INF).contiguous())
 
 
-def _check_kernel(name, fn, plain, library, args, atol, bound, **shape):
+def _check_kernel(name, fn, plain, library, args, atol, bound, extra=None, **shape):
     """Run ``fn`` and ``plain`` on the same inputs, compare, time both (and the
-    library yardstick, if any); emit and return the row."""
+    library yardstick, if any); emit and return the row (with the fields of
+    ``extra(*args)``, if given)."""
     got = fn(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -491,7 +532,8 @@ def _check_kernel(name, fn, plain, library, args, atol, bound, **shape):
            "atol": atol, "bound_share": share, "ms": _device_ms(lambda: fn(*args)),
            "plain_ms": _device_ms(lambda: plain(*args)),
            "library_ms": None if library is None else _device_ms(lambda: library(*args)),
-           "eager_call_ms": _time_ms(lambda: fn(*args)), **bound}
+           "eager_call_ms": _time_ms(lambda: fn(*args)), **bound,
+           **({} if extra is None else extra(*args))}
     emit(row)
     if not share <= 1.0:
         raise AssertionError(f"{name} disagrees with its plain version at {shape}: "
@@ -627,6 +669,8 @@ def phase_kernel_bf16():
             lambda q, k, v, _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                               scale=0.125),
             (q, k, v, kvb), _bf16_bound(A.masked_attention_reference, q, k, v, kvb), bound,
+            lambda *a: _bf16_forward_form(A, "masked", lambda: A.masked_attention(*a, 0.125),
+                                          t_pad, 64),
             b=1, h=8, t_pad=t_pad, t=t, d=64))
         del mask
 
@@ -646,6 +690,7 @@ def phase_kernel_bf16():
             lambda q, k, v, _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                               scale=0.125),
             (q, k, v, bias), _bf16_bound(A.bias_attention_reference, q, k, v, bias), bound,
+            lambda *a: _bf16_forward_form(A, "bias", lambda: A.bias_attention(*a, 0.125), tk, 64),
             b=b, h=8, tq=tq, tk=tk, tk_valid=tk_valid, d=64))
 
     for b, t, vocab in NOT_BLANK_SHAPES:
@@ -1114,6 +1159,8 @@ def _check_train_kernel_bf16(family, A, q, k, v, bias, g, scale, library_mask, f
         if timed:
             fwd_row["ms"] = _device_ms(lambda: fwd(q, k, v, bias, scale, rate, sd, True),
                                        calls=5, reps=10)
+            fwd_row.update(_bf16_forward_form(
+                A, family, lambda: fwd(q, k, v, bias, scale, rate, sd, True), tk, q.shape[3]))
             fwd_row["plain_ms"] = _device_ms(lambda: ref(q, k, v, bias, scale, keep, rate),
                                              calls=3, reps=5)
             bwd_row["ms"] = _device_ms(
@@ -1977,13 +2024,15 @@ def main():
             "bias_attention_bwd": ["attention_bwd.cuh", "tc_mma.cuh", "dropout.cuh"],
             "not_blank_probs": ["tc_mma.cuh"],
             "dropout_keep": ["dropout.cu", "tc_mma.cuh"],
-            "masked_attention_bf16": ["attention_bf16.cuh", "tc_mma.cuh"],
-            "bias_attention_bf16": ["attention_bf16.cuh", "tc_mma.cuh"],
+            "masked_attention_bf16": ["attention_bf16.cuh", "wgmma.cuh", "tc_mma.cuh",
+                                      "dropout.cuh"],
+            "bias_attention_bf16": ["attention_bf16.cuh", "wgmma.cuh", "tc_mma.cuh",
+                                    "dropout.cuh"],
             "not_blank_probs_bf16": ["tc_mma.cuh"],
             "masked_attention_bwd_bf16": ["attention_bwd_bf16.cuh", "attention_bf16.cuh",
-                                          "tc_mma.cuh", "dropout.cuh"],
+                                          "wgmma.cuh", "tc_mma.cuh", "dropout.cuh"],
             "bias_attention_bwd_bf16": ["attention_bwd_bf16.cuh", "attention_bf16.cuh",
-                                        "tc_mma.cuh", "dropout.cuh"]}
+                                        "wgmma.cuh", "tc_mma.cuh", "dropout.cuh"]}
     paths = {"serving": serving_launches, "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches,
              "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches,

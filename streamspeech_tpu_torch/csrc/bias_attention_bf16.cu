@@ -6,9 +6,10 @@
 // unit decoder's cross-attention under the streaming mask, `models/layers.py:
 // 325-362`). The design, its bound and its rounding are attention_bf16.cuh's;
 // this file instantiates its bias form for every head dim, inference and
-// training. Keys go in one
-// tile of TK rounded up to 16 while that is at most 64 (32 above D = 128): the
-// unit decoder's 24 or 48 keys are one tile.
+// training: the wgmma form where D <= 64 and TK <= 128 (every key in one tile:
+// the unit decoder's keys padded to the 128 tile), the mma.sync form
+// elsewhere (key tiles of TK rounded up to 16 while that is at most 64, 32
+// above D = 128). One CUDA kernel a call.
 
 #include "attention_bf16.cuh"
 
@@ -45,6 +46,18 @@ extern "C" int bias_attention_bf16_train(const void* q, const void* k, const voi
   switch (D) {
     ATTN_FOR_EACH_HEAD_DIM(CASE)
     default: return (int)cudaErrorInvalidValue;
+  }
+#undef CASE
+}
+
+// Whether a call at this shape takes the wgmma form (1) or the mma.sync form
+// (0); -1 for a head dim with no instance.
+extern "C" int bias_attention_bf16_wgmma(int TK, int D) {
+#define CASE(d) \
+  case d: return bf16attn::wgmma_form(false, TK, d) ? 1 : 0;
+  switch (D) {
+    ATTN_FOR_EACH_HEAD_DIM(CASE)
+    default: return -1;
   }
 #undef CASE
 }

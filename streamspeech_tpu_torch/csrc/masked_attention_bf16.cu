@@ -5,7 +5,9 @@
 // streamspeech_tpu/ops/pallas_attention.py where a bf16 model calls it (the
 // unit decoder's causal self-attention, `models/layers.py:289-323`). The
 // design, its bound and its rounding are attention_bf16.cuh's; this file
-// instantiates its causal form for every head dim, inference and training.
+// instantiates its causal form for every head dim, inference and training:
+// the wgmma form up to D = 64, the mma.sync form above. One CUDA kernel a
+// call.
 
 #include "attention_bf16.cuh"
 
@@ -47,6 +49,18 @@ extern "C" int masked_attention_bf16_train(const void* q, const void* k, const v
   switch (D) {
     ATTN_FOR_EACH_HEAD_DIM(CASE)
     default: return (int)cudaErrorInvalidValue;
+  }
+#undef CASE
+}
+
+// Whether a call at this shape takes the wgmma form (1) or the mma.sync form
+// (0); -1 for a head dim with no instance.
+extern "C" int masked_attention_bf16_wgmma(int T, int D) {
+#define CASE(d) \
+  case d: return bf16attn::wgmma_form(true, T, d) ? 1 : 0;
+  switch (D) {
+    ATTN_FOR_EACH_HEAD_DIM(CASE)
+    default: return -1;
   }
 #undef CASE
 }

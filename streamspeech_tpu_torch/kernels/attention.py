@@ -28,8 +28,9 @@ The bias and the seed get no gradient.
 bf16 model's unit decoder), as the TPU kernels take their inputs' dtype: fp32
 scores and softmax, the probabilities (times the keep factor) rounded to bf16
 for the P·V product, summed in fp32, an fp32 output (``attention_bf16.cuh`` on
-the card: an inference form, and a training form that draws the dropout mask
-and writes the row statistics). Their backward takes the bf16 q, k and v and
+the card, ``wgmma`` fed by TMA up to D = 64, ``mma.sync`` above,
+``bf16_forward_form``: an inference form, and a training form that draws the
+dropout mask and writes the row statistics). Their backward takes the bf16 q, k and v and
 an fp32 g, as the TPU backward kernels do (`pallas_attention.py:515`, :720):
 every product in fp32 on widened operands, the probabilities recomputed in
 fp32 and not rounded, and dq, dK and dV cast to bf16 at the end (:538,
@@ -92,6 +93,9 @@ _MASKED_BWD_BF16 = ("masked_attention_bwd_bf16", "masked_attention_bwd_bf16", _B
 _BIAS_BWD_BF16 = ("bias_attention_bwd_bf16", "bias_attention_bwd_bf16", _BWD_BF16_ARGS)
 _MASKED_BWD_BF16_KERNELS = ("masked_attention_bwd_bf16", "masked_attention_bwd_bf16_kernels",
                             (_I,) * 5)
+# the bf16 forwards' form at a shape (TK, D): 1 the wgmma form, 0 the mma.sync one
+_MASKED_BF16_WGMMA = ("masked_attention_bf16", "masked_attention_bf16_wgmma", (_I,) * 2)
+_BIAS_BF16_WGMMA = ("bias_attention_bf16", "bias_attention_bf16_wgmma", (_I,) * 2)
 _BIAS_BWD_BF16_KERNELS = ("bias_attention_bwd_bf16", "bias_attention_bwd_bf16_kernels",
                           (_I,) * 5)
 _QKV_DTYPES = (torch.float32, torch.bfloat16)
@@ -571,6 +575,20 @@ def bf16_backward_kernels(kernels_spec, b: int, h: int, tq: int, tk: int, d: int
         raise ValueError(f"no bf16 backward instance at B={b}, H={h}, TQ={tq}, TK={tk}, "
                          f"D={d}")
     return kernels
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_forward_form(family: str, tk: int, d: int) -> str:
+    """The form of the bf16 forward of B3 (``family`` "masked") or B5 ("bias")
+    a call at this shape launches, one CUDA kernel either way: "wgmma"
+    (``fwd_kernel``, D <= 64 and for B5 TK <= 128) or "mma.sync"
+    (``attention_bf16_kernel``); the library owns the choice. Raises where the
+    head dim has no instance."""
+    spec = {"masked": _MASKED_BF16_WGMMA, "bias": _BIAS_BF16_WGMMA}[family]
+    form = build.bind(*spec)(tk, d)
+    if form < 0:
+        raise ValueError(f"no bf16 forward instance at TK={tk}, D={d}")
+    return "wgmma" if form else "mma.sync"
 
 
 class _MaskedAttention(torch.autograd.Function):

@@ -920,7 +920,8 @@ def _bf16(*arrays, device):
 # every head dim at one tile and at five, ragged; the serving buckets at D = 64
 BF16_CAUSAL_CASES = [(d, t_pad, n_valid) for d in range(8, 257, 8)
                      for t_pad, n_valid in ((64, 40), (320, 300))] + \
-    [(64, 512, 400), (64, 3200, 3200)]
+    [(64, 512, 400), (64, 3200, 3200)] + \
+    [(64, 896, 800), (64, 1664, 1600), (64, 640, 600)]  # the other serving buckets, the forward's
 
 
 @pytest.mark.gpu
@@ -1233,6 +1234,70 @@ def test_bf16_kernels_keep_bits_equal_the_plain_mask(hopper, family, t):
     assert 0.3 < float(allowed.float().mean()) and 0.8 < float(want.sum() / allowed.sum()) < 0.99
     assert torch.equal(out != 0, want)
     assert torch.equal(dv.transpose(-1, -2) != 0, want)
+
+
+# The bf16 forwards' two forms (``attention.bf16_forward_form``): wgmma at D <=
+# 64 (the bias form at TK <= 128), mma.sync elsewhere; one CUDA kernel a call.
+BF16_FORWARD_FORMS = [("masked", 512, 64, "wgmma"), ("masked", 128, 72, "mma.sync"),
+                      ("bias", PATH_KEY_TILE, 64, "wgmma"), ("bias", 24, 8, "wgmma"),
+                      ("bias", 130, 64, "mma.sync"), ("bias", 48, 136, "mma.sync")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("family,tk,d,form", BF16_FORWARD_FORMS)
+def test_bf16_forward_launches_one_cuda_kernel_of_its_form(hopper, family, tk, d, form, rate):
+    """Counted by ``torch.profiler``: a bf16 forward call (the inference form
+    at rate 0, the training form at 0.1) launches one CUDA kernel, ``fwd_kernel``
+    in the wgmma form, ``attention_bf16_kernel`` in the mma.sync form, as
+    ``bf16_forward_form`` states; no other device work."""
+    tq = tk if family == "masked" else 130
+    q, k, v, bias, _ = _bf16_family_inputs(family, 2, 2, tq, tk, d, seed=4)
+    assert attention.bf16_forward_form(family, tk, d) == form
+    fwd = getattr(attention, f"{family}_attention_forward")
+    seed = _seed(hopper, 6)
+
+    def call():
+        if rate == 0.0:
+            return fwd(q, k, v, bias, d ** -0.5)
+        return fwd(q, k, v, bias, d ** -0.5, rate, seed, True)
+    call()  # warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = "fwd_kernel" if form == "wgmma" else "attention_bf16_kernel"
+    assert len(names) == 1 and want in names[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("family", ["masked", "bias"])
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_bf16_training_forward_every_head_dim_twice_bit_identical(hopper, d, family, rate):
+    """The training forward at every head dim (causal T = 128: two key tiles;
+    bias: the path's padded keys, TQ 130 with a wholly masked row) within the
+    bf16 forward's bound of the plain version under the same keep mask, its
+    statistics finite, and a second call equal bit for bit, output and
+    statistics."""
+    tq, tk = (128, 128) if family == "masked" else (130, PATH_KEY_TILE)
+    q, k, v, bias, _ = _bf16_family_inputs(family, 2, 2, tq, tk, d, seed=d + 11,
+                                           masked_row=True)
+    scale = d ** -0.5
+    seed = _seed(hopper, 900 + d)
+    fwd = getattr(attention, f"{family}_attention_forward")
+    ref = getattr(attention, f"{family}_attention_reference")
+    out, stats = fwd(q, k, v, bias, scale, rate, seed, True)
+    again, stats_again = fwd(q, k, v, bias, scale, rate, seed, True)
+    torch.cuda.synchronize()
+    keep = attention.dropout_keep_reference(seed, 2, 2, tq, tk, rate) if rate > 0 else None
+    want = ref(q, k, v, bias, scale, keep, rate)
+    bound = 2.0 ** -7 * ref(q, k, v.float().abs(), bias, scale, keep, rate) + 1e-5
+    assert float(((out - want).abs() / bound).max()) <= 1.0
+    assert torch.isfinite(stats).all()
+    assert torch.equal(out, again) and torch.equal(stats, stats_again)
 
 
 @pytest.mark.gpu

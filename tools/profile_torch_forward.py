@@ -37,7 +37,8 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel  # noqa
 from streamspeech_tpu_torch.weights import doctor_params, random_init_  # noqa: E402
 
 KERNELS = ("relpos_attention_kernel", "bias_attention_kernel",
-           "causal_attention_kernel", "attention_bf16_kernel", "not_blank_kernel")
+           "causal_attention_kernel", "bf16attn::fwd_kernel", "attention_bf16_kernel",
+           "not_blank_kernel")
 FORWARD_KW = dict(chunk_size=8, conv_chunk_size=8, k1=0, n1=1, k2=0, n2=1)
 
 

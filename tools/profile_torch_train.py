@@ -71,8 +71,10 @@ KERNELS = {
     "bias_dkv_kernel": ("attn_bwd::dkv_kernel", "FullBias"),
     "bias_reduce_kernel": ("attn_bwd::reduce_kernel",),
     "rowdot_kernel": ("rowdot_kernel",),
-    # the bf16 forms: B3/B5 (one template, causal and bias), B4/B6 (B6 at TK <=
-    # 128 one kernel, past that the two passes)
+    # the bf16 forms: B3/B5 (wgmma at D <= 64, the bias form at TK <= 128;
+    # mma.sync elsewhere), B4/B6 (B6 at TK <= 128 one kernel, past that the two
+    # passes)
+    "bf16_fwd_kernel": ("bf16attn::fwd_kernel",),
     "attention_bf16_kernel": ("attention_bf16_kernel",),
     "causal_dq_bf16_kernel": ("attn_bwd_bf16::dq_kernel", "CausalBias"),
     "causal_dkv_bf16_kernel": ("attn_bwd_bf16::dkv_kernel", "CausalBias"),
