@@ -10,9 +10,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             per source, registers and spill bytes per kernel instance.
 3. kernel   each kernel against its plain PyTorch version on the same inputs:
             causal masked attention at the unit decoder's serving shapes
-            (B=1, H=8, D=64, T_pad 512/896/1664/3200) and the forward's
-            (T_pad 640); rel-pos attention at [1|8, 4, 256, 64] and
-            [1, 4, 512, 64]; bias attention at TQ/TK 600/24 (B=1) and
+            (B=1, H=8, D=64, T_pad 512/896/1664/3200), the forward's
+            (T_pad 640) and the batched wave's (B=8, T_pad 1664, each row's
+            keys valid to its own length, 400-1664: ``MASKED_BATCHED_SHAPE``);
+            rel-pos attention at [1|8, 4, 256, 64] and [1, 4, 512, 64]; bias attention at TQ/TK 600/24 (B=1) and
             1200/48 (B=8), H=8, D=64; the not-blank posterior at
             [1|8, 256, 6000], and untimed at [3, 65, 513] with blank V - 1
             (its 4-byte loads). Max abs error against its tolerance; the device
@@ -34,6 +35,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 5. reference ``full_config`` widths with a 2-layer encoder, run on the card
             and on the CPU over the same audio: the same MT tokens and units,
             the wav within tolerance.
+5b. serving_batched  (after phase 5) phase 4's engine, vocoder and
+            dictionaries serve eight ``_babble`` utterances of 2-10 s
+            (``BATCHED_SECONDS``, the first three phase 4's) as one wave of
+            ``BatchedS2STEvaluator(batch=8, quality_metrics=[])`` in 320 ms
+            segments, and each alone through
+            the sequential ``SentenceLevelEvaluator`` over phase 4's agent:
+            every instance the same delays, MT tokens and units, its stitched
+            wav within ``REFERENCE_WAV_ATOL``; B3 launched, some of it at batch
+            8 (``masked_attention.launches_by_batch``). A line an instance
+            (writes, tokens, units, its latency scores) and one for the wave,
+            timed after a warm-up wave: wall s, seconds of audio per wall
+            second of the wave and of the eight single runs summed, launches,
+            and the card's busy share (the wave again under ``torch.profiler``:
+            kernel time over the profiled wave's wall and over the timed one's).
 6. forward  the offline (teacher-forced) forward of the same ``full_config``
             model, batch 2 (fbank lengths 1024 and 800, MT prefix 24 with the
             second row PAD after 18, chunk 8, CTC streaming mask, n2=1) on the
@@ -179,10 +194,12 @@ Phases 16-19 run after phase 12:
 The bias route pads its keys to the 128 tile as JAX does
 (``models/layers.py`` ``_bias_kernel``), so every bias-attention row runs at
 TK = 128 with the valid keys beside (``tk_valid``).
+Every phase line gives ``at_s``, the script's seconds so far.
 Then the ``kernels`` summary line (fifteen entries, the ten kernels and the
 bf16 forms of B3-B7, launches by path; the bf16 B3 and B5 entries carry their
-training form; the mask's own kernel runs on no path, so its entry carries the
-draws by path), the card's name and power limit, and last the ``ok`` line.
+training form, the B3 entry its batched shape (``batched_shape``); the mask's
+own kernel runs on no path, so its entry carries the draws by path), the card's
+name and power limit, and last the ``ok`` line.
 
 fp32 throughout but the bf16 phases: TF32 is switched off for matmuls and
 cuDNN convolutions. Phase 12's train shapes are also phase 16's.
@@ -245,6 +262,11 @@ BIAS_TRAIN_SHAPES = [(8, 1200, 48), (2, 650, 30)]         # (B, TQ, TK)
 # _bias_kernel): the bias kernels run at TK = 128 with the valid TK above
 BIAS_KEY_TILE = 128
 UTTERANCE_SECONDS = (3.0, 6.0, 10.0)
+# the batched serving wave: phase 4's three utterances, then five more
+BATCHED_SECONDS = UTTERANCE_SECONDS + (2.0, 4.0, 5.0, 7.0, 8.0)
+# (B, T_pad, valid keys of each row): causal attention as the unit decoder
+# runs it for B streams served together, each row at its own length
+MASKED_BATCHED_SHAPE = (8, 1664, (400, 575, 750, 925, 1100, 1275, 1450, 1664))
 SEED = 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
 # Integer instructions a second on each of an SM's two integer pipes, which
@@ -280,7 +302,14 @@ BF16_TENSOR_DRIFT = 4.0
 BF16_LOSS_RTOL = 2.0 ** -8
 
 
+_START = time.perf_counter()
+
+
 def emit(obj):
+    """Print one JSON line; a phase's line also gives the script's seconds so
+    far (``at_s``), so each phase's share of the time limit shows."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -541,6 +570,32 @@ def _check_kernel(name, fn, plain, library, args, atol, bound, extra=None, **sha
     return row
 
 
+def _check_masked_batched(A, randn, dev):
+    """B3 at the batched wave's shape: B streams in one call, each row's keys
+    valid to its own length (``MASKED_BATCHED_SHAPE``). The bound counts the
+    pairs this data needs: query i of row b reads min(i + 1, valid_b) keys."""
+    import torch.nn.functional as F
+
+    from streamspeech_tpu_torch.ops.masks import NEG_INF
+
+    b, t_pad, valid = MASKED_BATCHED_SHAPE
+    q, k, v = (randn(b, 8, t_pad, 64) for _ in range(3))
+    n_valid = torch.tensor(valid, device=dev)
+    i = torch.arange(t_pad, device=dev)
+    kvb = torch.where(i[None] < n_valid[:, None], 0.0, NEG_INF).float().view(b, 1, t_pad)
+    mask = (kvb[:, :, None, :]
+            + torch.where(i[:, None] >= i[None, :], 0.0, NEG_INF).float())
+    pairs = sum(float(torch.clamp(i + 1, max=n).sum()) for n in valid)
+    bound = _bound_3xtf32(4 * 8 * pairs * 64, _nbytes(q, k, v, kvb, q))
+    return _check_kernel(
+        "masked_attention", lambda *a: A.masked_attention(*a, 0.125),
+        lambda *a: A.masked_attention_reference(*a, 0.125),
+        lambda q, k, v, _: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                          scale=0.125),
+        (q, k, v, kvb), KERNEL_ATOL, bound, b=b, h=8, t_pad=t_pad, t=max(valid), d=64,
+        rows_valid=list(valid))
+
+
 def phase_kernel():
     import torch.nn.functional as F
 
@@ -573,6 +628,8 @@ def phase_kernel():
                                                               scale=0.125),
             (q, k, v, kvb), KERNEL_ATOL, bound, b=1, h=8, t_pad=t_pad, t=t, d=64)
         rows["masked_attention"].append(row)
+
+    rows["masked_attention"].append(_check_masked_batched(A, randn, dev))
 
     for b, t in RELPOS_SHAPES:
         qu, qv, k, v = (randn(b, 4, t, 64) for _ in range(4))
@@ -1438,9 +1495,119 @@ def phase_serving(dtype=torch.float32, fp32_runs=None):
     if dtype != torch.float32 and (launches["masked_attention"] or launches["bias_attention"]
                                    or launches["not_blank_probs"]):
         raise AssertionError(f"{name} launched an fp32 attention or not-blank kernel")
-    del agent
-    torch.cuda.empty_cache()
-    return launches, runs
+    return launches, runs, agent
+
+
+def _trace_busy_ms(prof) -> float:
+    """The card's busy ms in a profiled run: the summed duration of its
+    kernels, copies and sets, read from the exported trace (one stream, so
+    none overlap). ``key_averages`` would take about a minute over the wave's
+    ~400,000 events; the export and a JSON parse take seconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return sum(e.get("dur", 0) for e in events
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+
+
+def _instance_scores(evaluator, index) -> dict:
+    """Every latency scorer of ``evaluator`` on its instance ``index`` alone."""
+    ins = {index: evaluator.instances[index]}
+    return {name: scorer(ins) for name, scorer in evaluator.latency_scorers.items()}
+
+
+def phase_serving_batched(agent):
+    """Phase 4's engine, vocoder and dictionaries serve ``BATCHED_SECONDS`` (8
+    utterances, the first three phase 4's) as one wave of
+    ``BatchedS2STEvaluator(batch=8)``, and each utterance alone through the
+    sequential evaluator over phase 4's agent; every instance must have the
+    same delays, MT tokens and units and its stitched wav within
+    ``REFERENCE_WAV_ATOL``, and the wave must launch B3 at batch 8. A first
+    wave warms its shapes; the counted wave is timed after it, and a third
+    runs under ``torch.profiler`` for the card's busy time, given as a share
+    of its own (profiled) wall and of the counted wave's. Returns the counted
+    wave's launches and its row."""
+    from streamspeech_tpu_torch.eval.batched_evaluator import BatchedS2STEvaluator
+    from streamspeech_tpu_torch.eval.evaluator import SentenceLevelEvaluator
+    from streamspeech_tpu_torch.kernels.attention import masked_attention
+
+    rng = np.random.RandomState(SEED)
+    sources = [_babble(rng, seconds).tolist() for seconds in BATCHED_SECONDS]
+    refs = [None] * len(sources)    # no reference text: lengths from the delays
+    seg_ms = agent.cfg.source_segment_size
+    seq = SentenceLevelEvaluator(agent, source_segment_size=seg_ms, quality_metrics=[])
+    singles = []
+    for i, src in enumerate(sources):
+        ins = seq._make_instance(i, src, None, 16000)
+        t0 = time.perf_counter()
+        seq.run_instance(ins)
+        torch.cuda.synchronize()
+        seq.instances[i] = ins
+        singles.append((list(agent.session.mt_tokens), list(agent.units),
+                        time.perf_counter() - t0))
+
+    def wave():
+        ev = BatchedS2STEvaluator(agent.engine, agent.cfg, agent.src_dict, agent.tgt_dict,
+                                  agent.unit_dict, batch=len(sources), quality_metrics=[])
+        t0 = time.perf_counter()
+        scores = ev(sources, refs)
+        torch.cuda.synchronize()
+        return ev, scores, time.perf_counter() - t0
+
+    wave()
+    _zero_counts()
+    masked_attention.launches_by_batch = {}
+    ev, scores, wall = wave()
+    launches = _read_counts()
+    by_batch = dict(masked_attention.launches_by_batch)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, _, profiled_wall = wave()
+    busy_ms = _trace_busy_ms(prof)
+
+    bad = []
+    for i, seconds in enumerate(BATCHED_SECONDS):
+        got, want = ev.instances[i], seq.instances[i]
+        tokens, units, _ = singles[i]
+        same_wav = (got.stitched is None) == (want.stitched is None)
+        err = None
+        if same_wav and want.stitched is not None:
+            same_wav = got.stitched.shape == want.stitched.shape
+            err = float(np.abs(got.stitched - want.stitched).max()) if same_wav else None
+            same_wav = same_wav and err <= REFERENCE_WAV_ATOL
+        row = {"phase": "serving_batched_instance", "index": i, "seconds_audio": seconds,
+               "writes": len(got.delays), "text_tokens": len(got.final_mt_tokens),
+               "units": len(got.final_units), "same_delays": got.delays == want.delays,
+               "same_tokens": got.final_mt_tokens == tokens,
+               "same_units": got.final_units == units, "wav_max_abs_err": err,
+               "atol": REFERENCE_WAV_ATOL, "single_wall_s": singles[i][2],
+               "latency": _instance_scores(ev, i)}
+        emit(row)
+        if not (row["same_delays"] and row["same_tokens"] and row["same_units"]
+                and same_wav):
+            bad.append(i)
+    audio = sum(BATCHED_SECONDS)
+    single_wall = sum(w for _, _, w in singles)
+    row = {"phase": "serving_batched", "streams": len(sources), "seconds_audio": audio,
+           "wave_wall_s": wall, "singles_wall_s": single_wall,
+           "audio_s_per_wall_s": audio / wall,
+           "singles_audio_s_per_wall_s": audio / single_wall,
+           "launches": launches, "masked_attention_launches_by_batch": by_batch,
+           "profiled_wave_wall_s": profiled_wall, "profiled_device_busy_ms": busy_ms,
+           "busy_share_of_profiled_wall": busy_ms / 1e3 / profiled_wall,
+           "busy_share_of_wall": busy_ms / 1e3 / wall, "scores": scores,
+           "instances_differing": bad}
+    emit(row)
+    if bad:
+        raise AssertionError(f"batched instances {bad} differ from their single runs")
+    if launches["masked_attention"] < 1 or by_batch.get(len(sources), 0) < 1:
+        raise AssertionError(f"the wave never launched B3 at batch {len(sources)}: "
+                             f"{by_batch}")
+    if sum(len(ins.final_units) for ins in ev.instances.values()) < 1:
+        raise AssertionError("the wave wrote no units")
+    return launches, row
 
 
 def phase_reference():
@@ -1961,9 +2128,14 @@ def main():
     phase_build()
     rows = phase_kernel()
     rows.update(phase_kernel_bf16())
-    serving_launches, fp32_runs = phase_serving()
-    serving_bf16_launches, _ = phase_serving(torch.bfloat16, fp32_runs)
+    serving_launches, fp32_runs, agent = phase_serving()
+    serving_bf16_launches, _, agent_bf16 = phase_serving(torch.bfloat16, fp32_runs)
+    del agent_bf16
+    torch.cuda.empty_cache()
     phase_reference()
+    serving_batched_launches, _ = phase_serving_batched(agent)
+    del agent
+    torch.cuda.empty_cache()
     forward_launches, times32, model32, ref32, card32 = phase_forward()
     forward_bf16_launches = phase_forward_bf16(model32, ref32, card32, times32)
     del model32, ref32, card32
@@ -2033,7 +2205,8 @@ def main():
                                           "wgmma.cuh", "tc_mma.cuh", "dropout.cuh"],
             "bias_attention_bwd_bf16": ["attention_bwd_bf16.cuh", "attention_bf16.cuh",
                                         "wgmma.cuh", "tc_mma.cuh", "dropout.cuh"]}
-    paths = {"serving": serving_launches, "forward": forward_launches,
+    paths = {"serving": serving_launches, "serving_batched": serving_batched_launches,
+             "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches,
              "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches,
              "train_bf16": train_bf16_launches, "train_bf16_kernels": train_bf16_kernel_launches}
@@ -2070,6 +2243,12 @@ def main():
             "shape": {k: row[k] for k in ("b", "h", "t", "t_pad", "tq", "tk", "d", "v",
                                           "s") if k in row},
             **({"dropout_gap_ms": row["dropout_gap_ms"]} if "dropout_gap_ms" in row else {}),
+            # B3 at the batched wave's shape: B streams, each row its own length
+            **({"batched_shape": next(
+                {k: r[k] for k in ("b", "h", "t_pad", "rows_valid", "d", "max_abs_err", "ms",
+                                   "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for r in rows[name] if "rows_valid" in r)}
+               if name == "masked_attention" else {}),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     emit({"kernels": kernels})

@@ -470,6 +470,12 @@ def _count(fn, rate: float, bf16: bool = False):
         mask_draws += 1
 
 
+def _count_batch(b: int):
+    """``masked_attention.launches_by_batch``: its launches (both dtypes) by
+    the batch of the call, B streams served together showing as B."""
+    masked_attention.launches_by_batch[b] = masked_attention.launches_by_batch.get(b, 0) + 1
+
+
 # ---------------------------------------------------------------------------
 # Causal masked attention
 # ---------------------------------------------------------------------------
@@ -495,6 +501,7 @@ def masked_attention_forward(q, k, v, kv_bias, scale, rate=0.0, seed=None,
         build.launch(_MASKED_BF16, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      kv_bias.data_ptr(), out.data_ptr(), b, h, t, d, float(scale))
         masked_attention.bf16_launches += 1
+        _count_batch(b)
         return out, None
     _check_seed(seed, q.device, rate)
     stats = out.new_empty((b, h, t, 2)) if want_stats else None
@@ -503,6 +510,7 @@ def masked_attention_forward(q, k, v, kv_bias, scale, rate=0.0, seed=None,
                  _ptr(seed) if rate > 0 else None, _ptr(stats), b, h, t, d, float(scale),
                  float(rate))
     _count(masked_attention, rate, bf16)
+    _count_batch(b)
     return out, stats
 
 
@@ -837,3 +845,4 @@ for _fn in (masked_attention, bias_attention, relpos_attention, masked_attention
 for _fn in (masked_attention, bias_attention, masked_attention_backward,
             bias_attention_backward):
     _fn.bf16_launches = 0
+masked_attention.launches_by_batch = {}

@@ -88,11 +88,12 @@ class Conv1dSubsampler(nn.Module):
             in_length = (in_length - 1) // 2 + 1
         return in_length
 
-    def step(self, x_block, ctxs, conv_chunk_size, valid_len: Optional[int] = None):
+    def step(self, x_block, ctxs, conv_chunk_size, valid_len=None):
         """x_block [B, Tb, F] (Tb divisible by 4); ctxs = per-conv input tails.
-        ``valid_len`` (final partial block only): real frames in the block; the
-        frames past ceil(valid/2) of each level are zeroed, as the offline
-        conv's right zero-padding would make them (`conformer.py:97-121`)."""
+        ``valid_len`` (final partial block only): real frames in the block, an
+        int or a tensor [B] (B streams in lockstep, each its own); the frames
+        past ceil(valid/2) of each level are zeroed, as the offline conv's right
+        zero-padding would make them (`conformer.py:97-121`)."""
         new_ctxs = []
         for conv, ctx in zip(self.convs(), ctxs):
             x_block, new_ctx = conv.step(torch.cat([ctx, x_block], dim=1),
@@ -101,8 +102,10 @@ class Conv1dSubsampler(nn.Module):
             x_block = _glu(x_block)
             if valid_len is not None:
                 valid_len = -(-valid_len // 2)
-                keep = torch.arange(x_block.shape[1], device=x_block.device) < valid_len
-                x_block = x_block * keep[None, :, None].to(x_block.dtype)
+                r = torch.arange(x_block.shape[1], device=x_block.device)
+                keep = (r[None] < valid_len[:, None] if torch.is_tensor(valid_len)
+                        else (r < valid_len)[None])
+                x_block = x_block * keep[:, :, None].to(x_block.dtype)
         return x_block, new_ctxs
 
 
@@ -139,13 +142,13 @@ class ConformerLayer(nn.Module):
         return self.final_layer_norm(x)
 
     def step(self, x, pos_emb, allowed, kv: KVCache, conv_ctx, q_offset: int,
-             conv_chunk_size):
+             conv_chunk_size, frame_valid: Optional[torch.Tensor] = None):
         """Incremental block step (`conformer.py:191`). Returns (y, kv, conv_ctx')."""
         x = x + 0.5 * self.ffn1(x)
         y, kv = self.self_attn(self.self_attn_layer_norm(x), pos_emb, allowed, kv,
                                q_offset)
         x = x + y
-        y, conv_ctx = self.conv_module.step(x, conv_ctx, conv_chunk_size)
+        y, conv_ctx = self.conv_module.step(x, conv_ctx, conv_chunk_size, frame_valid)
         x = x + y
         x = x + 0.5 * self.ffn2(x)
         return self.final_layer_norm(x), kv, conv_ctx
@@ -221,13 +224,17 @@ class ChunkConformerEncoder(nn.Module):
         return self._rel_tables[key]
 
     def encode_block(self, block: torch.Tensor, state: EncoderStreamState,
-                     chunk_size: int, conv_chunk_size: int,
-                     valid_len: Optional[int] = None
+                     chunk_size: int, conv_chunk_size: int, valid_len=None
                      ) -> Tuple[torch.Tensor, EncoderStreamState]:
         """Encode one new block [B, Tb, 80] (Tb = 4 × whole chunks) against the
         caches (`conformer.py:337-402`). Returns (enc [B, Tb/4, C], state');
-        the state's tensors and caches are updated in place."""
-        c = self.cfg
+        the state's tensors and caches are updated in place.
+
+        ``valid_len`` as a tensor [B] (B streams in lockstep): row b holds
+        ``valid_len[b]`` real frames, and its encoder frames past
+        ceil(valid/4) are masked as attention keys and as depthwise-conv taps,
+        so that its real frames equal its single-stream encoding; a row of 0
+        (a finished stream) gives frames that the caller throws away."""
         x, state.sub_ctx = self.subsample.step(block, state.sub_ctx,
                                                conv_chunk_size, valid_len)
         s = x.shape[1]
@@ -241,9 +248,14 @@ class ChunkConformerEncoder(nn.Module):
         q_abs = pos + torch.arange(s, device=x.device)[:, None]
         j_abs = torch.arange(max_frames, device=x.device)[None, :]
         allowed = j_abs < (q_abs // chunk_size + 1) * chunk_size
+        frame_valid = None
+        if torch.is_tensor(valid_len):
+            enc_end = pos - (-valid_len // 4)                       # [B] absolute
+            allowed = allowed[None] & (j_abs[None] < enc_end[:, None, None])
+            frame_valid = (pos + torch.arange(s, device=x.device))[None] < enc_end[:, None]
         for i, layer in enumerate(self.layers()):
             x, state.kv[i], state.conv_ctx[i] = layer.step(
                 x, pos_emb, allowed, state.kv[i], state.conv_ctx[i], pos,
-                conv_chunk_size)
+                conv_chunk_size, frame_valid)
         state.pos = pos + s
         return x, state

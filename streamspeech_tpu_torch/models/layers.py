@@ -8,7 +8,8 @@ mirror the flax tree so ``weights.py`` can carry JAX weights across by name.
 
 Unlike the JAX package, KV caches are updated in place: serving never reuses a
 cache's old state, so the port writes new keys into the preallocated buffers
-instead of copying them, and the valid length is a host integer.
+instead of copying them, and the valid length is a host integer (the MT
+self caches, ``StreamKVCache``, take one a row from their owner).
 
 Training options follow flax: ``deterministic=False`` turns dropout on (its
 keep masks drawn from an explicit ``torch.Generator``, the counterpart of
@@ -176,6 +177,52 @@ class KVCache:
 
     def valid(self) -> torch.Tensor:
         return torch.arange(self.max_len, device=self.k.device) < self.index
+
+
+class StreamKVCache:
+    """A KV buffer whose rows each append at their own position (JAX's
+    ``KVCache.create(..., per_example_index=True)`` and the vmapped update of
+    ``_append_kv``, `layers.py:99-150`): k, v [B, max_len + headroom, H, Dh].
+
+    The cache keeps no length of its own. Its owner holds each row's valid
+    length on the host, checks the room there (an index past the buffer
+    would be a device fault, where JAX's ``dynamic_update_slice`` clamps),
+    and sets ``index``, the rows' write positions [B] on the device, before
+    an append: ``TransformerDecoder.step`` sets it from its position
+    offsets, so every layer reads one tensor. Attention reads the first
+    ``max_len`` positions; ``headroom`` positions past them take the entries
+    that a fixed-length scan appends after a row has stopped, which the next
+    call overwrites."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, max_len: int):
+        self.k, self.v, self.max_len = k, v, max_len
+        self.index: Optional[torch.Tensor] = None
+        self._rows = torch.arange(k.shape[0], device=k.device)[:, None]
+        self._positions = torch.arange(max_len, device=k.device)[None]
+
+    @classmethod
+    def create(cls, batch: int, max_len: int, num_heads: int, head_dim: int,
+               device, dtype=torch.float32, headroom: int = 0) -> "StreamKVCache":
+        shape = (batch, max_len + headroom, num_heads, head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), max_len)
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[1]
+
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Write S new positions at each row's ``index``. Returns (k_all,
+        v_all, valid [B, max_len])."""
+        s = k_new.shape[1]
+        pos = self.index[:, None]
+        if s > 1:
+            pos = pos + torch.arange(s, device=pos.device)[None]
+        self.k[self._rows, pos] = k_new.to(self.k.dtype)
+        self.v[self._rows, pos] = v_new.to(self.v.dtype)
+        valid = self._positions < (self.index + s)[:, None]
+        return self.k[:, :self.max_len], self.v[:, :self.max_len], valid
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -602,9 +649,14 @@ class ConvolutionModule(nn.Module):
         x = self._post(self.depthwise_conv(self._pre(x), chunk_size), use_running_stats)
         return dropout(x, self.dropout, deterministic, generator)
 
-    def step(self, x_new, conv_ctx, chunk_size: Optional[int]):
+    def step(self, x_new, conv_ctx, chunk_size: Optional[int],
+             frame_valid: Optional[torch.Tensor] = None):
         """conv_ctx [B, K//2, C] holds the previous post-GLU activations.
-        Returns (y, new_ctx)."""
-        x, new_ctx = self.depthwise_conv.step(
-            torch.cat([conv_ctx, self._pre(x_new)], dim=1), chunk_size)
+        ``frame_valid`` [B, S] (B streams in lockstep): a row's frames past its
+        end read as zero taps, as the single stream's right zero-padding gives
+        them (`layers.py:805-819`). Returns (y, new_ctx)."""
+        x = self._pre(x_new)
+        if frame_valid is not None:
+            x = x * frame_valid[:, :, None].to(x.dtype)
+        x, new_ctx = self.depthwise_conv.step(torch.cat([conv_ctx, x], dim=1), chunk_size)
         return self._post(x), new_ctx

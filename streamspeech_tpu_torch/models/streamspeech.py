@@ -21,7 +21,7 @@ bf16 training forms and bf16 backwards of the causal and bias kernels.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -32,7 +32,7 @@ from streamspeech_tpu_torch.models.conformer import (
     ChunkConformerEncoder,
     EncoderStreamState,
 )
-from streamspeech_tpu_torch.models.layers import KVCache
+from streamspeech_tpu_torch.models.layers import KVCache, StreamKVCache
 from streamspeech_tpu_torch.models.transformer import (
     PAD,
     CTCHead,
@@ -184,29 +184,46 @@ class StreamSpeechModel(nn.Module):
         st_ids = torch.argmax(self.ctc_target_unigram_head(enc), dim=-1)
         return enc, state, asr_ids, st_ids
 
-    def mt_decode_greedy(self, first_token: int, offset: int, budget: int,
-                         self_caches: List[KVCache], cross_caches: List[KVCache],
-                         max_steps: int) -> Tuple[List[int], bool]:
-        """Greedy-decode up to ``min(budget, max_steps)`` MT tokens for one
-        stream (`streamspeech.py:206-237`). A Python loop takes the place of the
-        JAX scan and stops at EOS or the budget. Returns (tokens, hit_eos); the
-        self caches hold one new entry per step, which the caller truncates to
-        offset + len(tokens)."""
-        feed = first_token
-        device = self.mt_decoder.embed_tokens.device
-        tokens: List[int] = []
+    def mt_decode_greedy(self, first: torch.Tensor, offset: torch.Tensor,
+                         budget: torch.Tensor, self_caches: List[StreamKVCache],
+                         cross_caches: List[KVCache], max_steps: int,
+                         cross_valid: Optional[torch.Tensor] = None):
+        """Greedy MT decode for B streams in the scan form
+        (`streamspeech.py:206-237`): ``max_steps`` decoder steps, each stream
+        stopping on the card at its EOS (PAD reads as EOS) or its ``budget``;
+        nothing is read back, so the caller reads the three results once.
+        first, offset, budget [B] on the model's device; offset is each
+        stream's fed tokens, its self caches' valid length. Returns (tokens
+        [B, max_steps] PAD past each stream's stop, emitted [B], hit_eos [B]).
+        ``hit_eos`` counts only an EOS predicted by a step within the budget,
+        where JAX's scan also reports one from the steps past it. Every step
+        appends to every row's self caches, which the caller's next offsets
+        (offset + emitted) cut back."""
+        b = first.shape[0]
+        dev = first.device
+        stop_token = torch.zeros((self.mt_decoder.embed_tokens.shape[0],),
+                                 dtype=torch.bool, device=dev)
+        stop_token[EOS] = True
+        stop_token[PAD] = True                  # PAD is never emitted: it reads as EOS
+        live = budget > 0
+        emitted = torch.zeros((b,), dtype=torch.long, device=dev)
+        hit_eos = torch.zeros((b,), dtype=torch.bool, device=dev)
+        feed, steps = first.long(), []
         for i in range(max_steps):
-            if len(tokens) >= budget:
-                break
-            logits, _ = self.mt_decoder.step(
-                torch.tensor([[feed]], device=device), offset + i, self_caches,
-                cross_caches)
-            nxt = int(torch.argmax(logits[0, -1]))
-            if nxt in (PAD, EOS):  # PAD is never emitted: it reads as EOS
-                return tokens, True
-            tokens.append(nxt)
-            feed = nxt
-        return tokens, False
+            logits, _ = self.mt_decoder.step(feed[:, None], offset + i, self_caches,
+                                             cross_caches, cross_valid)
+            # a stopped row's later steps feed its own predictions; they are
+            # neither emitted nor kept in its caches' valid length
+            feed = torch.argmax(logits[:, -1], dim=-1)
+            steps.append(feed)
+            emits = live & ~stop_token[feed]
+            hit_eos |= live ^ emits             # live rows that predicted a stop
+            emitted += emits
+            live = emits & (emitted < budget)
+        # a row emits its first ``emitted`` steps and nothing after
+        tokens = torch.stack(steps, dim=1)
+        kept = torch.arange(max_steps, device=dev)[None] < emitted[:, None]
+        return torch.where(kept, tokens, PAD), emitted, hit_eos
 
     def mt_fill_cross(self, enc_new, cross_caches):
         return self.mt_decoder.fill_cross_caches(enc_new, cross_caches)

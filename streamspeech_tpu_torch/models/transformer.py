@@ -215,15 +215,26 @@ class TransformerDecoder(nn.Module):
                                   deterministic, generator)
         return self.output_layer(x), x
 
-    def step(self, tokens_new, position_offset: int, self_caches, cross_caches):
+    def step(self, tokens_new, position_offset, self_caches, cross_caches,
+             cross_valid: Optional[torch.Tensor] = None):
         """Incremental decode of tokens_new [B, S_new] after ``position_offset``
-        fed tokens; caches are updated in place. Returns (logits, features)
+        fed tokens; caches are updated in place. ``position_offset`` is an int
+        with ``KVCache`` self caches, or a tensor [B] with ``StreamKVCache``
+        ones, each stream decoding at its own position: the fed tokens are
+        the cache's valid length, so the offsets are also the rows' write
+        positions. The cross-attention reads the cache's valid length unless
+        ``cross_valid`` [B, T] says each row's. Returns (logits, features)
         (`transformer.py:568-593`)."""
         b, s = tokens_new.shape
-        positions = PAD + 1 + position_offset + torch.arange(s, device=tokens_new.device)
-        x = self.embed(tokens_new, positions[None].expand(b, s))
+        offset = position_offset
+        if torch.is_tensor(offset):
+            for sc in self_caches:
+                sc.index = offset
+            offset = offset[:, None]
+        positions = PAD + 1 + offset + torch.arange(s, device=tokens_new.device)[None]
+        x = self.embed(tokens_new, positions.expand(b, s))
         for layer, sc, cc in zip(self.layers(), self_caches, cross_caches):
-            x = layer(x, self_cache=sc, cross_cache=cc)
+            x = layer(x, enc_valid=cross_valid, self_cache=sc, cross_cache=cc)
         x = self._final(x)
         return self.output_layer(x), x
 

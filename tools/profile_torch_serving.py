@@ -1,7 +1,7 @@
 """Where the time of the port's serving loop goes, on one CUDA card.
 
     python3 tools/profile_torch_serving.py [--out chiprun_out/profile_serving.txt]
-                                           [--dtype float32|bfloat16]
+                                           [--dtype float32|bfloat16] [--batched]
 
 Builds the ``chip_smoke.py`` serving setup (``full_config``, seeded random
 weights doctored so the policy writes, full-width vocoder), runs a 3 s warm-up
@@ -11,6 +11,12 @@ utterance, then one 10 s utterance twice:
    ``emit_tail`` call of the session, each fenced by device syncs;
 2. under ``torch.profiler`` (CPU + CUDA activities): device time, the
    ``cudaLaunchKernel`` count and the masked-attention kernel's share.
+
+``--batched`` does the same for ``chip_smoke.py``'s batched wave (its eight
+utterances through ``BatchedS2STEvaluator(batch=8)``, after a warm-up wave):
+the host clock around the lockstep session's ``encode_ready_blocks``,
+``mt_decode`` and ``emit_tail``, the rest being the evaluator's own host work
+(fbank, policy), then the profiled wave.
 
 Prints one JSON line per run and the card's ``nvidia-smi`` name and power
 limit; the profiler's tables go to ``--out``. TF32 off; ``--dtype bfloat16``
@@ -39,32 +45,109 @@ from streamspeech_tpu_torch.kernels.attention import masked_attention  # noqa: E
 from streamspeech_tpu_torch.models.vocoder import DEFAULT_VOCODER_CFG  # noqa: E402
 
 PARTS = ("push_features", "mt_decode", "emit_tail")
+BATCHED_PARTS = ("encode_ready_blocks", "mt_decode", "emit_tail")
+
+
+def _timed(name, fn, split):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        split[name] = split.get(name, 0.0) + time.perf_counter() - t0
+        split[name + "_calls"] = split.get(name + "_calls", 0) + 1
+        return out
+    return run
 
 
 def _timed_sessions(engine, split):
     """Wrap the engine's ``new_session`` so every session times ``PARTS``."""
     new_session = engine.new_session
 
-    def timed(name, fn):
-        @functools.wraps(fn)
-        def run(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            split[name] = split.get(name, 0.0) + time.perf_counter() - t0
-            split[name + "_calls"] = split.get(name + "_calls", 0) + 1
-            return out
-        return run
-
     def make():
         session = new_session()
         for name in PARTS:
-            setattr(session, name, timed(name, getattr(session, name)))
+            setattr(session, name, _timed(name, getattr(session, name), split))
         return session
 
     engine.new_session = make
     return new_session
+
+
+def _device_ms(events) -> float:
+    """Device time of the kernels alone: an op's row repeats its kernels' time."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def _write_tables(events, path):
+    out = Path(path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(
+        events.table(sort_by="self_device_time_total", row_limit=30,
+                     max_name_column_width=70) + "\n"
+        + events.table(sort_by="self_cpu_time_total", row_limit=20,
+                       max_name_column_width=70))
+
+
+def profile_batched(agent, out):
+    """The batched wave of ``chip_smoke.py`` with the lockstep session's parts
+    timed, then profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from streamspeech_tpu_torch.eval import batched_evaluator
+
+    rng = np.random.RandomState(cs.SEED)
+    sources = [cs._babble(rng, seconds).tolist() for seconds in cs.BATCHED_SECONDS]
+    session_cls = batched_evaluator.BatchedStreamingSession
+    split = {}
+
+    class TimedSession(session_cls):
+        pass
+
+    for name in BATCHED_PARTS:
+        setattr(TimedSession, name, _timed(name, getattr(session_cls, name), split))
+
+    def wave():
+        ev = batched_evaluator.BatchedS2STEvaluator(
+            agent.engine, agent.cfg, agent.src_dict, agent.tgt_dict, agent.unit_dict,
+            batch=len(sources), quality_metrics=[])
+        t0 = time.perf_counter()
+        ev(sources, [None] * len(sources))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wave()                                                   # warm-up
+    batched_evaluator.BatchedStreamingSession = TimedSession
+    try:
+        masked_attention.launches_by_batch = {}
+        wall = wave()
+    finally:
+        batched_evaluator.BatchedStreamingSession = session_cls
+    parts = sum(split[n] for n in BATCHED_PARTS)
+    audio = sum(cs.BATCHED_SECONDS)
+    print(json.dumps({"run": "batched_split", "streams": len(sources),
+                      "seconds_audio": audio, "wall_s": wall, "split_s": split,
+                      "rest_s": wall - parts,
+                      "masked_attention_launches_by_batch":
+                          masked_attention.launches_by_batch}), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_wall = wave()
+    events = prof.key_averages()
+    device_ms = _device_ms(events)
+    print(json.dumps({"run": "batched_profiled", "wall_s": profiled_wall,
+                      "device_self_ms": device_ms,
+                      "device_busy_share": device_ms / 1e3 / profiled_wall,
+                      "device_busy_share_of_unprofiled_wall": device_ms / 1e3 / wall,
+                      "cudaLaunchKernel_calls": sum(e.count for e in events
+                                                    if e.key == "cudaLaunchKernel"),
+                      "masked_attention_device_ms": sum(
+                          e.self_device_time_total for e in events
+                          if "causal_attention_kernel" in e.key) / 1e3}), flush=True)
+    _write_tables(events, out)
 
 
 def main():
@@ -72,6 +155,8 @@ def main():
     ap.add_argument("--out", default="chiprun_out/profile_serving.txt")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--batched", action="store_true",
+                    help="profile chip_smoke.py's batched wave of 8 (float32)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serving: needs a CUDA device")
@@ -86,6 +171,10 @@ def main():
     kernel = "attention_bf16_kernel" if bf16 else "causal_attention_kernel"
     agent = cs._build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", args.seed,
                             getattr(torch, args.dtype))
+    if args.batched:
+        profile_batched(agent, args.out)
+        print(smi, flush=True)
+        return
     rng = np.random.RandomState(args.seed)
     cs._run_utterance(agent, cs._babble(rng, 3.0))          # warm-up
     samples = cs._babble(rng, 10.0)
@@ -102,16 +191,13 @@ def main():
           flush=True)
     agent.engine.new_session = new_session
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     setattr(masked_attention, counter, 0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         stats, *_ = cs._run_utterance(agent, samples)
     events = prof.key_averages()
-    # device time of the kernels alone: an op's row repeats its kernels' time
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
+    device_ms = _device_ms(events)
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     kernel_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3
     print(json.dumps({"run": "profiled", "dtype": args.dtype, "utterance": stats,
@@ -123,13 +209,7 @@ def main():
                       "masked_attention_device_ms": kernel_ms,
                       "masked_attention_launches": getattr(masked_attention, counter)}),
           flush=True)
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(
-        events.table(sort_by="self_device_time_total", row_limit=30,
-                     max_name_column_width=70) + "\n"
-        + events.table(sort_by="self_cpu_time_total", row_limit=20,
-                       max_name_column_width=70))
+    _write_tables(events, args.out)
     print(smi, flush=True)
 
 
