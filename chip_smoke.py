@@ -32,6 +32,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             CodeHiFiGAN vocoder, through the S2ST agent over three synthetic
             speech-like utterances of 3, 6 and 10 s in 320 ms segments; the
             masked-attention kernel's launch count over this phase must be > 0.
+4b. serving_fused  phase 4's agent and utterances on the fused tick
+            (``use_fused``) after ``engine.warmup`` captured its B = 1 CUDA
+            graphs: each utterance's write turns, MT tokens and units equal
+            to phase 4's and its wav within ``REFERENCE_WAV_ATOL``; B3
+            launched inside the replayed graphs (a count is the launches a
+            graph holds times its replays). Graphs captured, capture s, pool
+            bytes, replays, wall; the 10 s utterance again under
+            ``torch.profiler``: device busy ms and share, the CUDA API
+            launches by call (a graph replay one).
 5. reference ``full_config`` widths with a 2-layer encoder, run on the card
             and on the CPU over the same audio: the same MT tokens and units,
             the wav within tolerance.
@@ -49,6 +58,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             second of the wave and of the eight single runs summed, launches,
             and the card's busy share (the wave again under ``torch.profiler``:
             kernel time over the profiled wave's wall and over the timed one's).
+5c. serving_batched_fused  phase 5b's wave with ``use_fused=True`` after
+            ``engine.warmup`` captured the B = 8 graphs (the timed wave, a
+            profiled one): every instance equal to its single run as in
+            phase 5b; the numbers of phase 4b.
 6. forward  the offline (teacher-forced) forward of the same ``full_config``
             model, batch 2 (fbank lengths 1024 and 800, MT prefix 24 with the
             second row PAD after 18, chunk 8, CTC streaming mask, n2=1) on the
@@ -138,7 +151,8 @@ Phases 13-15 run after phases 3, 4 and 6 in turn:
             B7), and the bound at the bf16 tensor-core peak, max(flops / 989
             TFLOP/s, bytes / 3.35 TB/s). The attention rows add the form the
             call takes (``bf16_forward_form``), the CUDA kernels one call
-            launches by ``torch.profiler`` over graph replays
+            launches, read from a captured graph's kernel nodes, with each
+            one's device ms by ``torch.profiler`` over graph replays
             (``kernels_a_call``, ``kernels_ms_launches``) and the HGMMA count of
             the library (``cuobjdump -sass``); the phase fails unless D = 64
             runs the wgmma form, one kernel a call, HGMMA in its library.
@@ -154,7 +168,9 @@ Phases 13-15 run after phases 3, 4 and 6 in turn:
             vocoder float32): writes, units, RTF, bf16 causal launches (> 0); the
             counterpart of ``measure_bf16_drift`` against phase 4: each
             utterance's unit normalised edit distance and write positions that
-            differ, reported, not gated.
+            differ, reported, not gated. Then serving_bf16_batched_fused:
+            phase 5c with the bf16 agent, each instance held to the same
+            engine's host wave (run first).
 Phases 16-19 run after phase 12:
 16. kernel  (continued) the bf16 training forms: B3-bf16 and B5-bf16 with
             dropout and row statistics, B4-bf16 and B6-bf16
@@ -175,8 +191,8 @@ Phases 16-19 run after phase 12:
             form, CUDA kernels and HGMMA count as phase 13's (and fails the
             same way); a backward row also gives the
             CUDA kernels a call launches (B4-bf16 two, B6-bf16 one at TK <=
-            128) and each kernel's device ms by ``torch.profiler`` over
-            CUDA-graph replays (``kernels_ms_launches``).
+            128; the graph's kernel nodes) and each kernel's device ms by
+            ``torch.profiler`` over CUDA-graph replays (``kernels_ms_launches``).
 17. train_bf16, train_bf16_kernels  phase 8's and 11's steps with the model
             computing in bf16 (``StreamSpeechModel(cfg, dtype=torch.bfloat16)``,
             fp32 parameters and Adam): per step 2 bf16 not-blank, 2 alpha, 2
@@ -407,36 +423,113 @@ def _device_ms(fn, calls=20, reps=20):
     return _time_ms(graph.replay, reps=reps, warmup=2) / calls
 
 
+def _short_kernel_name(name: str) -> str:
+    """``void ns::fwd_kernel<64>(float const*, ...)`` -> ``fwd_kernel``."""
+    return name.split("(")[0].split("<")[0].replace("void ", "").split("::")[-1]
+
+
+def _graph_nodes(graph) -> dict:
+    """{kernel name: kernel nodes} of a captured ``torch.cuda.CUDAGraph(keep_graph=True)``,
+    read from the graph itself with the driver API (``cuGraphGetNodes``, the
+    kernel nodes' functions named by ``cuFuncGetName`` and demangled by
+    ``cu++filt``); memcpy and memset nodes count under ``memcpy`` / ``memset``."""
+    import ctypes
+
+    from streamspeech_tpu_torch.kernels import build
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: CUresult {rc}")
+
+    class KernelNodeParams(ctypes.Structure):            # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p)] + [
+            (f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz", "smem")] + [
+            ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+            ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    mangled, out = [], {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value in (1, 2):                         # CU_GRAPH_NODE_TYPE_MEMCPY / MEMSET
+            key = "memcpy" if kind.value == 1 else "memset"
+            out[key] = out.get(key, 0) + 1
+        if kind.value != 0:                              # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params.func:
+            check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)),
+                  "cuKernelGetName")
+        mangled.append(name.value.decode())
+    if mangled:
+        tool = Path(build._nvcc()).with_name("cu++filt")
+        names = subprocess.run([str(tool)], input="\n".join(mangled) + "\n",
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) != len(mangled):
+            raise RuntimeError(f"cu++filt gave {len(names)} names for {len(mangled)}")
+        for full in names:
+            key = _short_kernel_name(full)
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
 def _kernel_ms(fn, calls=5, reps=10) -> dict:
-    """{CUDA kernel name: [device ms a call, launches a call]} of ``fn``:
-    ``torch.profiler`` over replays of a CUDA graph of ``calls`` calls."""
+    """{CUDA kernel name: [device ms a call, launches a call]} of ``fn``, from a
+    CUDA graph of ``calls`` calls. The names and launches are the graph's own
+    kernel nodes (``_graph_nodes``), exact. The ms is ``torch.profiler``'s mean
+    duration of that kernel's records over ``reps`` replays times its launches
+    a call (None where the profiler kept no record of it): the profiler may
+    drop records, more of them late in a long process, so its counts are not
+    used. The profiled window is padded with 20 ms of host sleep on each side."""
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
+    nodes = _graph_nodes(graph)
     graph.replay()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
         for _ in range(reps):
             graph.replay()
         torch.cuda.synchronize()
-    out = {}
+        time.sleep(0.02)
+    recorded = {}
     for evt in prof.key_averages():
         total = getattr(evt, "self_device_time_total", None)
         if total is None:
             total = evt.self_cuda_time_total
-        if total <= 0:
+        if total <= 0 or evt.count <= 0:
             continue
-        name = evt.key.split("(")[0].split("<")[0].replace("void ", "").split("::")[-1]
-        ms, n = out.get(name, (0.0, 0.0))
-        out[name] = (ms + total / 1e3 / (calls * reps), n + evt.count / (calls * reps))
-    return {k: [v[0], v[1]] for k, v in sorted(out.items())}
+        us, n = recorded.get(_short_kernel_name(evt.key), (0.0, 0))
+        recorded[_short_kernel_name(evt.key)] = (us + total, n + evt.count)
+    out = {}
+    for name, n in sorted(nodes.items()):
+        per_call = n / calls
+        us, seen = recorded.get(name, (0.0, 0))
+        out[name] = [us / seen / 1e3 * per_call if seen else None, per_call]
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -453,8 +546,8 @@ def _hgmma_count(source: str) -> int:
 
 def _bf16_forward_form(A, family, call, tk, d) -> dict:
     """The bf16 forward's form at this shape (``bf16_forward_form``), the CUDA
-    kernels one call launches (``_kernel_ms``: their names, and each one's
-    launches a call, which the profiler may undercount by a dropped record)
+    kernels one call launches (``_kernel_ms``: their names and each one's
+    launches a call, read from the captured graph's kernel nodes)
     and its library's HGMMA count; raises unless the head dim the path runs
     (64) takes the wgmma form, ``fwd_kernel`` once a call, from a library with
     HGMMA in it."""
@@ -463,7 +556,7 @@ def _bf16_forward_form(A, family, call, tk, d) -> dict:
            "kernels_ms_launches": ms,
            "hgmma_instructions": _hgmma_count(f"{family}_attention_bf16")}
     if d == 64 and not (row["form"] == "wgmma" and list(ms) == ["fwd_kernel"]
-                        and round(ms["fwd_kernel"][1]) == 1
+                        and ms["fwd_kernel"][1] == 1
                         and row["hgmma_instructions"] > 0):
         raise AssertionError(f"the bf16 {family} forward at D = 64 does not run the wgmma "
                              f"form alone: {row}")
@@ -1470,9 +1563,10 @@ def phase_serving(dtype=torch.float32, fp32_runs=None):
     agent = _build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", SEED, dtype)
     rng = np.random.RandomState(SEED)
     _zero_counts()
-    runs = []
+    runs, outputs = [], []
     for n, seconds in enumerate(UTTERANCE_SECONDS):
-        stats, wav, _, units = _run_utterance(agent, _babble(rng, seconds))
+        stats, wav, tokens, units = _run_utterance(agent, _babble(rng, seconds))
+        outputs.append((stats["write_turns"], tokens, units, wav))
         stats = {"phase": name, "seconds_audio": seconds, **stats,
                  "rtf": stats["wall_s"] / seconds}
         if fp32_runs is not None:
@@ -1495,22 +1589,29 @@ def phase_serving(dtype=torch.float32, fp32_runs=None):
     if dtype != torch.float32 and (launches["masked_attention"] or launches["bias_attention"]
                                    or launches["not_blank_probs"]):
         raise AssertionError(f"{name} launched an fp32 attention or not-blank kernel")
-    return launches, runs, agent
+    return launches, runs, agent, outputs
 
 
-def _trace_busy_ms(prof) -> float:
+def _trace_summary(prof):
     """The card's busy ms in a profiled run: the summed duration of its
     kernels, copies and sets, read from the exported trace (one stream, so
-    none overlap). ``key_averages`` would take about a minute over the wave's
-    ~400,000 events; the export and a JSON parse take seconds."""
+    none overlap); and the CUDA API launches by call (``cudaLaunchKernel``,
+    ``cudaGraphLaunch``, ...: a graph replay is one). ``key_averages`` would
+    take about a minute over the wave's ~400,000 events; the export and a
+    JSON parse take seconds."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    return sum(e.get("dur", 0) for e in events
+    busy = sum(e.get("dur", 0) for e in events
                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+    launches = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "Launch" in e.get("name", ""):
+            launches[e["name"]] = launches.get(e["name"], 0) + 1
+    return busy, launches
 
 
 def _instance_scores(evaluator, index) -> dict:
@@ -1551,7 +1652,8 @@ def phase_serving_batched(agent):
 
     def wave():
         ev = BatchedS2STEvaluator(agent.engine, agent.cfg, agent.src_dict, agent.tgt_dict,
-                                  agent.unit_dict, batch=len(sources), quality_metrics=[])
+                                  agent.unit_dict, batch=len(sources), use_fused=False,
+                                  quality_metrics=[])
         t0 = time.perf_counter()
         scores = ev(sources, refs)
         torch.cuda.synchronize()
@@ -1565,28 +1667,20 @@ def phase_serving_batched(agent):
     by_batch = dict(masked_attention.launches_by_batch)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, _, profiled_wall = wave()
-    busy_ms = _trace_busy_ms(prof)
+    busy_ms, _ = _trace_summary(prof)
 
     bad = []
     for i, seconds in enumerate(BATCHED_SECONDS):
         got, want = ev.instances[i], seq.instances[i]
         tokens, units, _ = singles[i]
-        same_wav = (got.stitched is None) == (want.stitched is None)
-        err = None
-        if same_wav and want.stitched is not None:
-            same_wav = got.stitched.shape == want.stitched.shape
-            err = float(np.abs(got.stitched - want.stitched).max()) if same_wav else None
-            same_wav = same_wav and err <= REFERENCE_WAV_ATOL
         row = {"phase": "serving_batched_instance", "index": i, "seconds_audio": seconds,
                "writes": len(got.delays), "text_tokens": len(got.final_mt_tokens),
-               "units": len(got.final_units), "same_delays": got.delays == want.delays,
-               "same_tokens": got.final_mt_tokens == tokens,
-               "same_units": got.final_units == units, "wav_max_abs_err": err,
+               "units": len(got.final_units),
+               **_same_instance(got, (want.delays, tokens, units, want.stitched)),
                "atol": REFERENCE_WAV_ATOL, "single_wall_s": singles[i][2],
                "latency": _instance_scores(ev, i)}
         emit(row)
-        if not (row["same_delays"] and row["same_tokens"] and row["same_units"]
-                and same_wav):
+        if not all(row[k] for k in SAME_INSTANCE):
             bad.append(i)
     audio = sum(BATCHED_SECONDS)
     single_wall = sum(w for _, _, w in singles)
@@ -1607,7 +1701,152 @@ def phase_serving_batched(agent):
                              f"{by_batch}")
     if sum(len(ins.final_units) for ins in ev.instances.values()) < 1:
         raise AssertionError("the wave wrote no units")
-    return launches, row
+    return launches, row, {i: (ins.delays, singles[i][0], singles[i][1], ins.stitched)
+                           for i, ins in seq.instances.items()}
+
+
+SAME_INSTANCE = ("same_delays", "same_tokens", "same_units", "same_wav")
+
+
+def _same_instance(got, want) -> dict:
+    """How an instance of a wave compares with its reference run (delays, MT
+    tokens, units, stitched wav): each check and the wav's max abs error."""
+    delays, tokens, units, wav = want
+    same_wav = (got.stitched is None) == (wav is None)
+    err = None
+    if same_wav and wav is not None:
+        same_wav = got.stitched.shape == wav.shape
+        err = float(np.abs(got.stitched - wav).max()) if same_wav else None
+        same_wav = same_wav and err <= REFERENCE_WAV_ATOL
+    return {"same_delays": got.delays == delays, "same_tokens": got.final_mt_tokens == tokens,
+            "same_units": got.final_units == units, "same_wav": same_wav,
+            "wav_max_abs_err": err}
+
+
+def phase_serving_fused(agent, outputs):
+    """Phase 4's agent and utterances on the fused path (``agent.use_fused``)
+    after ``engine.warmup`` has captured the B = 1 graphs: each utterance's
+    write turns, MT tokens and units equal to phase 4's, its wav within
+    ``REFERENCE_WAV_ATOL``; B3 launched inside the replayed graphs (a count
+    is the launches a graph holds times its replays). Then the 10 s
+    utterance again under ``torch.profiler``: device ms, busy share and the
+    CUDA API launches (a graph replay one). Returns the launches."""
+    engine, cfg = agent.engine, agent.cfg
+    t0 = time.perf_counter()
+    warm = engine.warmup(cfg.chunk_size, cfg.conv_chunk_size, batch_sizes=(1,))
+    emit({"phase": "serving_fused_warmup", "batch_sizes": [1],
+          "seconds": time.perf_counter() - t0, **warm})
+    agent.use_fused = True
+    rng = np.random.RandomState(SEED)
+    _zero_counts()
+    replays0 = engine.graphs.replays
+    bad, wall, last = [], 0.0, None
+    for n, seconds in enumerate(UTTERANCE_SECONDS):
+        last = _babble(rng, seconds)
+        stats, wav, tokens, units = _run_utterance(agent, last)
+        turns, tokens0, units0, wav0 = outputs[n]
+        same_shape = wav.shape == wav0.shape
+        err = (float(np.abs(wav - wav0).max()) if wav.size else 0.0) if same_shape else None
+        same = (stats["write_turns"] == turns and tokens == tokens0 and units == units0
+                and same_shape and err <= REFERENCE_WAV_ATOL)
+        wall += stats["wall_s"]
+        emit({"phase": "serving_fused", "seconds_audio": seconds, **stats,
+              "rtf": stats["wall_s"] / seconds, "same_write_turns": stats["write_turns"] == turns,
+              "same_tokens": tokens == tokens0, "same_units": units == units0,
+              "wav_max_abs_err": err, "atol": REFERENCE_WAV_ATOL})
+        if not same:
+            bad.append(seconds)
+    launches = _read_counts()
+    replays = engine.graphs.replays - replays0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        stats, *_ = _run_utterance(agent, last)
+    busy_ms, api = _trace_summary(prof)
+    agent.use_fused = False
+    emit({"phase": "serving_fused_total", "utterances_s": list(UTTERANCE_SECONDS),
+          "wall_s": wall, "launches": launches, "graph_replays": replays,
+          **engine.graphs.stats(), "profiled_utterance_s": UTTERANCE_SECONDS[-1],
+          "profiled_wall_s": stats["wall_s"], "profiled_device_busy_ms": busy_ms,
+          "busy_share_of_profiled_wall": busy_ms / 1e3 / stats["wall_s"],
+          "cuda_api_launches": api, "cuda_api_launches_total": sum(api.values()),
+          "utterances_differing": bad})
+    if bad:
+        raise AssertionError(f"fused utterances {bad} differ from the host path's")
+    if launches["masked_attention"] < 1 or replays < 1:
+        raise AssertionError("the fused path replayed no graph or never launched B3")
+    return launches
+
+
+def phase_serving_batched_fused(agent, reference=None):
+    """Phase 5b's wave of 8 through ``BatchedS2STEvaluator(use_fused=True)``
+    after ``engine.warmup`` has captured the B = 8 graphs, every instance
+    held to ``reference`` (phase 5b's single runs) as phase 5b holds its
+    wave; without one (the bf16 agent), to the same engine's host wave, run
+    here first. The timed wave (warm: the graphs were captured by the
+    warmup, the host path's shapes by the host waves before it), then one
+    under ``torch.profiler``: wall, device ms, busy share, CUDA API launches,
+    the graphs' numbers. Returns the timed wave's launches."""
+    from streamspeech_tpu_torch.eval.batched_evaluator import BatchedS2STEvaluator
+
+    engine, cfg = agent.engine, agent.cfg
+    bf16 = engine.model.dtype == torch.bfloat16
+    name = "serving_bf16_batched_fused" if bf16 else "serving_batched_fused"
+    causal = "masked_attention_bf16" if bf16 else "masked_attention"
+    rng = np.random.RandomState(SEED)
+    sources = [_babble(rng, seconds).tolist() for seconds in BATCHED_SECONDS]
+    refs = [None] * len(sources)
+
+    def wave(use_fused):
+        ev = BatchedS2STEvaluator(engine, cfg, agent.src_dict, agent.tgt_dict,
+                                  agent.unit_dict, batch=len(sources), use_fused=use_fused,
+                                  quality_metrics=[])
+        t0 = time.perf_counter()
+        ev(sources, refs)
+        torch.cuda.synchronize()
+        return ev, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    warm = engine.warmup(cfg.chunk_size, cfg.conv_chunk_size, batch_sizes=(len(sources),))
+    warm_s = time.perf_counter() - t0
+    host_wall = None
+    if reference is None:
+        host, host_wall = wave(False)
+        reference = {i: (ins.delays, ins.final_mt_tokens, ins.final_units, ins.stitched)
+                     for i, ins in host.instances.items()}
+    _zero_counts()
+    replays0, captured0 = engine.graphs.replays, engine.graphs.captured
+    ev, wall = wave(True)
+    launches = _read_counts()
+    replays = engine.graphs.replays - replays0
+    captured = engine.graphs.captured - captured0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, profiled_wall = wave(True)
+    busy_ms, api = _trace_summary(prof)
+    bad = []
+    for i, seconds in enumerate(BATCHED_SECONDS):
+        got = ev.instances[i]
+        row = {"phase": f"{name}_instance", "index": i, "seconds_audio": seconds,
+               "writes": len(got.delays), "text_tokens": len(got.final_mt_tokens),
+               "units": len(got.final_units), **_same_instance(got, reference[i]),
+               "atol": REFERENCE_WAV_ATOL}
+        emit(row)
+        if not all(row[k] for k in SAME_INSTANCE):
+            bad.append(i)
+    audio = sum(BATCHED_SECONDS)
+    emit({"phase": name, "streams": len(sources), "seconds_audio": audio,
+          "warmup_s": warm_s, "warmup": warm, "host_wave_wall_s": host_wall,
+          "wave_wall_s": wall, "audio_s_per_wall_s": audio / wall,
+          "launches": launches, "graph_replays": replays,
+          "graphs_captured_in_wave": captured, **engine.graphs.stats(),
+          "profiled_wave_wall_s": profiled_wall, "profiled_device_busy_ms": busy_ms,
+          "busy_share_of_profiled_wall": busy_ms / 1e3 / profiled_wall,
+          "busy_share_of_wall": busy_ms / 1e3 / wall,
+          "cuda_api_launches": api, "cuda_api_launches_total": sum(api.values()),
+          "instances_differing": bad})
+    if bad:
+        raise AssertionError(f"{name}: instances {bad} differ from their reference runs")
+    if launches[causal] < 1 or replays < 1:
+        raise AssertionError(f"{name} replayed no graph or never launched {causal}")
+    return launches
 
 
 def phase_reference():
@@ -2128,12 +2367,15 @@ def main():
     phase_build()
     rows = phase_kernel()
     rows.update(phase_kernel_bf16())
-    serving_launches, fp32_runs, agent = phase_serving()
-    serving_bf16_launches, _, agent_bf16 = phase_serving(torch.bfloat16, fp32_runs)
+    serving_launches, fp32_runs, agent, outputs = phase_serving()
+    serving_fused_launches = phase_serving_fused(agent, outputs)
+    serving_bf16_launches, _, agent_bf16, _ = phase_serving(torch.bfloat16, fp32_runs)
+    bf16_fused_launches = phase_serving_batched_fused(agent_bf16)
     del agent_bf16
     torch.cuda.empty_cache()
     phase_reference()
-    serving_batched_launches, _ = phase_serving_batched(agent)
+    serving_batched_launches, _, singles = phase_serving_batched(agent)
+    batched_fused_launches = phase_serving_batched_fused(agent, singles)
     del agent
     torch.cuda.empty_cache()
     forward_launches, times32, model32, ref32, card32 = phase_forward()
@@ -2206,6 +2448,9 @@ def main():
             "bias_attention_bwd_bf16": ["attention_bwd_bf16.cuh", "attention_bf16.cuh",
                                         "wgmma.cuh", "tc_mma.cuh", "dropout.cuh"]}
     paths = {"serving": serving_launches, "serving_batched": serving_batched_launches,
+             "serving_fused": serving_fused_launches,
+             "serving_batched_fused": batched_fused_launches,
+             "serving_bf16_batched_fused": bf16_fused_launches,
              "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches,
              "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches,

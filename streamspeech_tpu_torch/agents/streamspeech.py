@@ -7,6 +7,14 @@ the allowed MT length is ((tgt_ctc_len − k1)//n)·n; whole-word truncation rol
 the KV caches back; each write carries only the new waveform tail
 (dur[−len(new units):].sum() × 320 samples). The agent is not registered in
 any registry: the JAX package owns the name "streamspeech_s2st".
+
+With ``use_fused`` it takes the engine's fused tick, as the JAX agent does
+whenever its engine has one (`agents/streamspeech.py:126-181`): a streaming
+chunk of one whole block runs encode, gates, decode, rollback and emission on
+the device (``StreamingSession.fused_policy``), and the host path takes the
+chunks it does not apply to, the finish, a budget above the fused scan and an
+emission window that overflows. Both paths give the same actions; the host
+path, the reference form, is the default.
 """
 
 from __future__ import annotations
@@ -93,13 +101,28 @@ class _StreamSpeechAgentBase:
         return self.session.enc_len
 
 
-class StreamSpeechS2STAgent(_StreamSpeechAgentBase, SpeechToSpeechAgent):
-    """Flagship simultaneous speech-to-speech agent (synchronous host policy)."""
+def starts_word_table(engine: StreamSpeechEngine, tgt_dict) -> np.ndarray:
+    """[V] bool: which MT tokens start a word ("▁"), the table of the fused
+    tick's whole-word rollback (`agents/streamspeech.py:126-135`)."""
+    vocab = engine.model.cfg.mt_decoder.vocab_size
+    table = np.zeros((vocab,), bool)
+    for i in range(min(len(tgt_dict), vocab)):
+        table[i] = tgt_dict[i].startswith("▁")
+    return table
 
-    def __init__(self, engine, cfg, src_dict, tgt_dict, unit_dict, gcmvn=None):
+
+class StreamSpeechS2STAgent(_StreamSpeechAgentBase, SpeechToSpeechAgent):
+    """Flagship simultaneous speech-to-speech agent. ``use_fused`` sends its
+    streaming chunks through the engine's fused tick (an engine without a
+    vocoder cannot take it); off, every chunk takes the host policy."""
+
+    def __init__(self, engine, cfg, src_dict, tgt_dict, unit_dict, gcmvn=None,
+                 use_fused: bool = False):
         _StreamSpeechAgentBase.__init__(self, engine, cfg, src_dict, tgt_dict, gcmvn)
         self.unit_dict = unit_dict
         self.unit_blank = unit_dict.blank()
+        self.use_fused = use_fused and engine.vocoder is not None
+        self._starts_word = starts_word_table(engine, tgt_dict)
         SpeechToSpeechAgent.__init__(self)
 
     def reset(self):
@@ -118,10 +141,79 @@ class StreamSpeechS2STAgent(_StreamSpeechAgentBase, SpeechToSpeechAgent):
                                          finished=True), finished=True)
 
     def policy(self):
+        cfg = self.cfg
         finished = self.states.source_finished
+        if self.use_fused and not finished:
+            feats = self._extract_feats(self.states)
+            out = self.session.fused_policy(
+                feats, cfg.chunk_size, cfg.conv_chunk_size, cfg.lagging_k1,
+                cfg.stride_n, cfg.whole_word, cfg.max_len, self._starts_word,
+                self.src_ctc_prefix_length, self.tgt_ctc_prefix_length,
+                len(self.units))
+            if out is not None:
+                return self._fused_action(out)
+            # not applicable this chunk: the pending frames go the host way
+            self.session.push_features(np.zeros((0, feats.shape[1]), np.float32),
+                                       cfg.chunk_size, cfg.conv_chunk_size)
+            if self.session.enc_len == 0:
+                return ReadAction()
+            return self._host_policy(finished)
         if self.ingest(self.states) == 0:
             return self._final_write() if finished else ReadAction()
         return self._host_policy(finished)
+
+    def _fused_action(self, out):
+        """The action of a fused tick's bundle (`agents/streamspeech.py:
+        380-425`): the decisions were made on the device; here the
+        bookkeeping, the host continuation where the budget was above the
+        fused scan, and the host emission where the tail window overflowed."""
+        cfg = self.cfg
+        hyps = self.session.ctc_hypotheses()
+        self.asr_text = spm_text(self.src_dict, hyps["asr"][0])
+        self.st_text = spm_text(self.tgt_dict, hyps["st"][0])
+        if out["grew"]:
+            self.src_ctc_prefix_length = max(out["asr_count"],
+                                             self.src_ctc_prefix_length)
+            self.tgt_ctc_prefix_length = max(out["st_count"],
+                                             self.tgt_ctc_prefix_length)
+        if not out["do_decode"]:
+            if out["grew"] and out["budget_over"]:
+                # the host decode for this chunk; the device caches are as before
+                subword = ((out["st_count"] - cfg.lagging_k1)
+                           // cfg.stride_n) * cfg.stride_n
+                if cfg.whole_word:
+                    subword += 1
+                new_subword = subword - len(self.session.mt_tokens)
+                if new_subword < 1:
+                    return ReadAction()
+                return self._decode_and_emit(False, new_subword)
+            return ReadAction()
+        if not out["do_emit"]:
+            # a rollback to nothing, or the same or a shorter prefix: READ
+            return ReadAction()
+        if not out["ok"]:
+            return self._emit_from_host() or ReadAction()
+        return self._write_units(out["units"], np.asarray(out["tail"])) or ReadAction()
+
+    def _emit_from_host(self):
+        """The host emission of the current prefix (`agents/streamspeech.py:
+        365-378`), which takes the full emission where the tail window
+        overflows; the write of its new units, or None."""
+        units, new_wav, _ = self.session.emit_tail(len(self.units))
+        return self._write_units(units, new_wav)
+
+    def _write_units(self, units, new_wav):
+        """A streaming write of ``units`` and their new wav, or None where
+        they add no unit."""
+        if len(units) == 0 or len(units) <= len(self.units):
+            return None
+        if self.unfinished_wav is not None and len(self.unfinished_wav) > 0:
+            new_wav = np.concatenate([self.unfinished_wav, new_wav])
+            self.unfinished_wav = None
+        self.units = list(units)
+        return WriteAction(SpeechSegment(content=np.asarray(new_wav).tolist(),
+                                         sample_rate=SAMPLE_RATE, finished=False),
+                           finished=False)
 
     def _host_policy(self, finished):
         cfg = self.cfg

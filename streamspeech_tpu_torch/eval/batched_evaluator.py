@@ -25,8 +25,18 @@ the JAX host tick (`batched_evaluator.py:356-425`) does otherwise:
 The corpus runs in waves of ``batch`` instances, a fresh
 ``BatchedStreamingSession`` a wave (streams are position-locked, so a slot is
 not refilled inside a wave); sort the corpus by length for tight waves. The
-JAX evaluator's fused tick (``use_fused``) and its mesh sharding are not
-ported (ROADMAP §A items 6 and 10).
+JAX evaluator's mesh sharding is not ported (ROADMAP §A item 10).
+
+``use_fused`` (on by default, as in JAX, `batched_evaluator.py:205-213`)
+runs each lockstep tick through the engine's fused tick
+(``BatchedStreamingSession.fused_tick``: one encode, decode and emission of
+every stream on the device, CUDA graphs on a card). A tick it does not apply
+to, out of lockstep, takes the host tick; a stream whose budget exceeds the
+fused scan takes the host continuation; a stream whose tail window
+overflowed, the host emission. A finished stream decodes in tranches of
+``fused_steps`` a tick once its whole tail is encoded, and when it stops
+growing, one host decode to EOS and ONE emission finish it as the sequential
+agent's finish does: no emission where the finish decode added no token.
 """
 
 from __future__ import annotations
@@ -38,7 +48,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from streamspeech_tpu_torch.agents.base import SpeechSegment
-from streamspeech_tpu_torch.agents.streamspeech import SAMPLE_RATE, StreamSpeechAgentConfig
+from streamspeech_tpu_torch.agents.streamspeech import (
+    SAMPLE_RATE,
+    StreamSpeechAgentConfig,
+    starts_word_table,
+)
 from streamspeech_tpu_torch.dictionary import Dictionary
 from streamspeech_tpu_torch.eval.evaluator import SentenceLevelEvaluator
 from streamspeech_tpu_torch.eval.instance import Instance
@@ -60,6 +74,7 @@ class _StreamState:
         self.pushed_finished = False
         self.done = False
         self.turns = 0
+        self.finish_from = None      # hypothesis length when the finish decode began
 
 
 class _BatchedStreamingEvaluator(SentenceLevelEvaluator):
@@ -67,6 +82,7 @@ class _BatchedStreamingEvaluator(SentenceLevelEvaluator):
     per-tick policy and write phase of its output."""
 
     target_type = "speech"
+    use_fused = False
 
     def __init__(self, engine: StreamSpeechEngine, agent_cfg: StreamSpeechAgentConfig,
                  src_dict: Dictionary, tgt_dict: Dictionary,
@@ -125,7 +141,9 @@ class _BatchedStreamingEvaluator(SentenceLevelEvaluator):
                     bs.push_features(i, feats, finished=seg.finished)
                     st[i].pushed_finished = seg.finished
                 st[i].turns += 1
-            bs.encode_ready_blocks(cfg.chunk_size, cfg.conv_chunk_size)
+            if not self.use_fused:
+                # the fused tick encodes inside itself
+                bs.encode_ready_blocks(cfg.chunk_size, cfg.conv_chunk_size)
             self._tick(bs, st, instances, live)
         for i in range(b):
             # each stream's last state, for drift and quality analysis
@@ -159,21 +177,141 @@ class _BatchedStreamingEvaluator(SentenceLevelEvaluator):
 class BatchedS2STEvaluator(_BatchedStreamingEvaluator):
     """A ``SentenceLevelEvaluator`` for S2ST whose device work is batched over
     waves of ``batch`` instances, on the engine's device (the card unless the
-    engine was made with ``device="cpu"``)."""
+    engine was made with ``device="cpu"``); ``use_fused`` as above (an engine
+    without a vocoder takes the host tick)."""
 
     target_type = "speech"
 
     def __init__(self, engine, agent_cfg, src_dict, tgt_dict, unit_dict, gcmvn=None,
-                 batch: int = 8, **evaluator_kwargs):
+                 batch: int = 8, use_fused: bool = True, **evaluator_kwargs):
         super().__init__(engine, agent_cfg, src_dict, tgt_dict, gcmvn, batch,
                          **evaluator_kwargs)
         self.unit_dict = unit_dict
+        self.use_fused = use_fused and engine.vocoder is not None
+        self._starts_word = starts_word_table(engine, tgt_dict)
 
     def _tick(self, bs, st, instances, live) -> None:
+        """The fused tick where it applies, else the host tick
+        (`batched_evaluator.py:223-231`)."""
+        if self.use_fused:
+            if self._tick_fused(bs, st, instances, live):
+                return
+            # out of lockstep: the host tick drains what is pending
+            bs.encode_ready_blocks(self.agent_cfg.chunk_size,
+                                   self.agent_cfg.conv_chunk_size)
+        self._tick_host(bs, st, instances, live)
+
+    def _tick_fused(self, bs, st, instances, live) -> bool:
+        """One fused tick of the wave (`batched_evaluator.py:233-314`), then
+        each stream's bookkeeping; False where the tick did not apply."""
+        cfg = self.agent_cfg
+        b = bs.batch
+        live_set = set(live)
+        active = np.asarray([i in live_set and not st[i].done for i in range(b)])
+        finished = np.asarray([instances[i].source_finished_reading for i in range(b)])
+        out = bs.fused_tick(
+            cfg.chunk_size, cfg.conv_chunk_size, cfg.lagging_k1, cfg.stride_n,
+            cfg.whole_word, cfg.max_len, self._starts_word,
+            [s.src_ctc_prefix_length for s in st], [s.tgt_ctc_prefix_length for s in st],
+            [len(s.units) for s in st], active, finished)
+        if out is None:
+            return False
+        drained = []
+        for i in live:
+            r = out[i]
+            if r["grew"]:
+                st[i].src_ctc_prefix_length = max(r["asr_count"],
+                                                  st[i].src_ctc_prefix_length)
+                st[i].tgt_ctc_prefix_length = max(r["st_count"],
+                                                  st[i].tgt_ctc_prefix_length)
+            if finished[i]:
+                if int(bs.enc_len[i]) == 0:
+                    self._final_write(instances[i], st[i])
+                    continue
+                if not r["tail_ready"]:
+                    continue        # its tail waits for the lockstep clock
+                if st[i].finish_from is None:
+                    st[i].finish_from = r["prev_tokens"]
+                # it decodes in tranches; drained when it stops growing
+                if r["hit_eos"] or not r["do_decode"] or r["keep"] <= r["prev_tokens"]:
+                    drained.append(i)
+                continue
+            if not r["do_decode"]:
+                if r["grew"] and r["budget_over"]:
+                    self._host_continue(bs, st, instances, i)
+                continue
+            if not r["do_emit"]:
+                continue
+            if r["ok"]:
+                units, new_wav = r["units"], np.asarray(r["tail"])
+            else:
+                units, new_wav, _ = bs.emit_tail([len(s.units) for s in st])[i]
+            if len(units) == 0 or len(units) <= len(st[i].units):
+                continue
+            st[i].units = list(units)
+            self._write(instances[i], st[i], new_wav, finished=False,
+                        target_finished=False)
+        if drained:
+            self._finish(bs, st, instances, drained)
+        return True
+
+    def _finish(self, bs, st, instances, drained) -> None:
+        """The sequential agent's finish for the drained streams: decode the
+        rest to EOS (usually nothing: the tranches reached it), then, where
+        the finish decode added a token, ONE emission and the final write."""
+        budgets = np.zeros((bs.batch,), np.int64)
+        budgets[drained] = -1
+        bs.mt_decode(budgets, max_len=self.agent_cfg.max_len)
+        writers = [i for i in drained if len(bs.mt_tokens[i]) > st[i].finish_from]
+        outs = bs.emit_tail([len(s.units) for s in st]) if writers else None
+        for i in drained:
+            if i not in writers:
+                self._final_write(instances[i], st[i])
+                continue
+            units, new_wav, _ = outs[i]
+            if len(units) == 0 or len(units) <= len(st[i].units):
+                self._final_write(instances[i], st[i])
+                continue
+            st[i].units = list(units)
+            self._write(instances[i], st[i], new_wav, finished=True, target_finished=True)
+
+    def _host_continue(self, bs, st, instances, i) -> None:
+        """The host decode of one streaming stream whose budget exceeded the
+        fused scan (`batched_evaluator.py:316-354`, the sequential agent's
+        continuation in ``_fused_action``)."""
+        cfg = self.agent_cfg
+        st_tokens, _ = bs.ctc_hypotheses(i)["st"]
+        subword = ((len(st_tokens) - cfg.lagging_k1) // cfg.stride_n) * cfg.stride_n
+        if cfg.whole_word:
+            subword += 1
+        new_sub = subword - len(bs.mt_tokens[i])
+        if new_sub < 1:
+            return
+        budgets = np.zeros((bs.batch,), np.int64)
+        budgets[i] = new_sub
+        prev_tokens = list(bs.mt_tokens[i])
+        bs.mt_decode(budgets, max_len=cfg.max_len)
+        if cfg.whole_word:
+            toks = bs.mt_tokens[i]
+            j = 0
+            for j in range(len(toks) - 1, -1, -1):
+                if self.tgt_dict[toks[j]].startswith("▁"):
+                    break
+            bs.mt_truncate(i, j)
+            if j == 0:
+                return
+        if len(bs.mt_tokens[i]) <= len(prev_tokens):
+            return
+        units, new_wav, _ = bs.emit_tail([len(s.units) for s in st])[i]
+        if len(units) == 0 or len(units) <= len(st[i].units):
+            return
+        st[i].units = list(units)
+        self._write(instances[i], st[i], new_wav, finished=False, target_finished=False)
+
+    def _tick_host(self, bs, st, instances, live) -> None:
         """The host tick of every live stream (`batched_evaluator.py:356-425`
-        ``_tick_host``): decisions → one decode → whole-word rollback → one
-        emission. JAX's ``_host_continue`` (:316-354) serves only its fused
-        tick and comes with it."""
+        ``_tick_host``), in the sequential agent's order: decisions → one
+        decode → whole-word rollback → one emission."""
         cfg = self.agent_cfg
         budgets = np.zeros((bs.batch,), np.int64)
         wants = {}   # stream -> (finished, new_subword_tokens, prev_tokens)
@@ -189,7 +327,10 @@ class BatchedS2STEvaluator(_BatchedStreamingEvaluator):
             if new_sub is None:
                 continue  # READ
             budgets[i] = new_sub
-            wants[i] = (finished, new_sub, list(bs.mt_tokens[i]))
+            prev = bs.mt_tokens[i]
+            if finished and st[i].finish_from is not None:
+                prev = prev[:st[i].finish_from]   # fused tranches began its finish
+            wants[i] = (finished, new_sub, list(prev))
 
         if wants:
             bs.mt_decode(budgets, max_len=cfg.max_len)

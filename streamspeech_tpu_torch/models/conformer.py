@@ -43,12 +43,16 @@ from streamspeech_tpu_torch.ops.pos_encoding import rel_pos_encoding
 @dataclasses.dataclass
 class EncoderStreamState:
     """Incremental-encoding state: subsampler conv tails (input-rate frames),
-    per-layer depthwise-conv tails, per-layer attention KV caches, and ``pos``,
-    the encoder frames emitted so far."""
+    per-layer depthwise-conv tails, per-layer attention KV caches, and the
+    encoder frames emitted so far: ``pos_dev`` on the device (a 0-dim int64
+    tensor, JAX's traced ``pos``), which the block step reads, and ``pos``,
+    its host mirror. A block step updates every tensor in place, so a
+    captured CUDA graph of it advances the same state at each replay."""
 
     sub_ctx: List[torch.Tensor]
     conv_ctx: List[torch.Tensor]
     kv: List[KVCache]
+    pos_dev: torch.Tensor
     pos: int = 0
 
 
@@ -98,7 +102,7 @@ class Conv1dSubsampler(nn.Module):
         for conv, ctx in zip(self.convs(), ctxs):
             x_block, new_ctx = conv.step(torch.cat([ctx, x_block], dim=1),
                                          conv_chunk_size)
-            new_ctxs.append(new_ctx)
+            new_ctxs.append(ctx.copy_(new_ctx))
             x_block = _glu(x_block)
             if valid_len is not None:
                 valid_len = -(-valid_len // 2)
@@ -167,6 +171,7 @@ class ChunkConformerEncoder(nn.Module):
             self.add_module(f"layers_{i}", ConformerLayer(cfg, dtype))
         self.embed_scale = 1.0 if cfg.no_scale_embedding else math.sqrt(cfg.embed_dim)
         self._rel_tables: Dict[Tuple[int, str], torch.Tensor] = {}
+        self._aranges: Dict[Tuple[int, str], torch.Tensor] = {}
 
     def layers(self) -> List[ConformerLayer]:
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.layers)]
@@ -214,7 +219,15 @@ class ChunkConformerEncoder(nn.Module):
                     for _ in range(c.layers)]
         kv = [KVCache.create(batch, max_frames, c.attention_heads, dh, device, self.dtype)
               for _ in range(c.layers)]
-        return EncoderStreamState(sub_ctx, conv_ctx, kv, 0)
+        return EncoderStreamState(sub_ctx, conv_ctx, kv,
+                                  torch.zeros((), dtype=torch.long, device=device))
+
+    def _steps(self, n: int, device) -> torch.Tensor:
+        """arange(n) on ``device``, made once."""
+        key = (n, str(device))
+        if key not in self._aranges:
+            self._aranges[key] = torch.arange(n, device=device)
+        return self._aranges[key]
 
     def _rel_table(self, n: int, device) -> torch.Tensor:
         key = (n, str(device))
@@ -240,22 +253,26 @@ class ChunkConformerEncoder(nn.Module):
         s = x.shape[1]
         x = self.linear(x * self.embed_scale)
         max_frames = state.kv[0].max_len
-        pos = state.pos
-        # table row 0 ↔ relative position (pos + s - 1) (`conformer.py:367-372`)
-        start = (max_frames + s - 1) - (pos + s - 1)
-        pos_emb = self._rel_table(max_frames + s, x.device)[start:start + s + max_frames]
+        pos = state.pos_dev
+        # table row 0 <-> relative position (pos + s - 1) (`conformer.py:367-372`):
+        # rows (max_frames + s - 1) - (pos + s - 1) on, gathered at the device pos
+        table = self._rel_table(max_frames + s, x.device)
+        pos_emb = table.index_select(0, max_frames - pos + self._steps(s + max_frames,
+                                                                       x.device))
         # query i (absolute pos+i) may see key j iff j < ((pos+i)//chunk + 1)*chunk
-        q_abs = pos + torch.arange(s, device=x.device)[:, None]
-        j_abs = torch.arange(max_frames, device=x.device)[None, :]
-        allowed = j_abs < (q_abs // chunk_size + 1) * chunk_size
+        q_abs = pos + self._steps(s, x.device)
+        j_abs = self._steps(max_frames, x.device)[None, :]
+        allowed = j_abs < (q_abs[:, None] // chunk_size + 1) * chunk_size
         frame_valid = None
         if torch.is_tensor(valid_len):
             enc_end = pos - (-valid_len // 4)                       # [B] absolute
             allowed = allowed[None] & (j_abs[None] < enc_end[:, None, None])
-            frame_valid = (pos + torch.arange(s, device=x.device))[None] < enc_end[:, None]
+            frame_valid = q_abs[None] < enc_end[:, None]
         for i, layer in enumerate(self.layers()):
-            x, state.kv[i], state.conv_ctx[i] = layer.step(
-                x, pos_emb, allowed, state.kv[i], state.conv_ctx[i], pos,
+            x, state.kv[i], y = layer.step(
+                x, pos_emb, allowed, state.kv[i], state.conv_ctx[i], state.pos,
                 conv_chunk_size, frame_valid)
-        state.pos = pos + s
+            state.conv_ctx[i].copy_(y)
+        state.pos_dev += s
+        state.pos += s
         return x, state

@@ -8,8 +8,9 @@ mirror the flax tree so ``weights.py`` can carry JAX weights across by name.
 
 Unlike the JAX package, KV caches are updated in place: serving never reuses a
 cache's old state, so the port writes new keys into the preallocated buffers
-instead of copying them, and the valid length is a host integer (the MT
-self caches, ``StreamKVCache``, take one a row from their owner).
+instead of copying them. A ``KVCache``'s write position lives on the device,
+with a host mirror for the room check (the MT self caches, ``StreamKVCache``,
+take one a row from their owner).
 
 Training options follow flax: ``deterministic=False`` turns dropout on (its
 keep masks drawn from an explicit ``torch.Generator``, the counterpart of
@@ -135,11 +136,16 @@ class BatchNorm(nn.Module):
 
 
 class KVCache:
-    """Fixed-capacity KV buffer: k, v [B, T_max, H, Dh]; ``index`` = valid
-    positions (host int). ``append`` writes in place."""
+    """Fixed-capacity KV buffer: k, v [B, T_max, H, Dh]. The write position
+    lives on the device (``pos``, a 0-dim int64 tensor, JAX's traced
+    ``index``), so a captured CUDA graph that appends writes where the cache
+    stands at each replay; ``index`` is its host mirror, which the room check
+    reads. ``append`` writes in place."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, index: int = 0):
         self.k, self.v, self.index = k, v, int(index)
+        self.pos = torch.full((), self.index, dtype=torch.long, device=k.device)
+        self._positions = torch.arange(k.shape[1], device=k.device)
 
     @classmethod
     def create(cls, batch: int, max_len: int, num_heads: int, head_dim: int,
@@ -157,26 +163,29 @@ class KVCache:
         `agent/speech_to_speech.streamspeech.agent.py:554-574`); stale entries
         are overwritten by the next append."""
         self.index = min(self.index, int(new_len))
+        self.pos.fill_(self.index)
         return self
 
     def append(self, k_new: torch.Tensor, v_new: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Write S new positions at ``index`` (`layers.py:126` ``_append_kv``).
-        Returns (k_all, v_all, valid [T_max]). Raises where JAX's
-        dynamic_update_slice would silently clamp the write position."""
+        """Write S new positions at the device position ``pos``
+        (`layers.py:126` ``_append_kv``'s ``dynamic_update_slice``). Returns
+        (k_all, v_all, valid [T_max]). Raises, from the host mirror, where
+        JAX's dynamic_update_slice would silently clamp the write position."""
         s = k_new.shape[1]
         end = self.index + s
         if end > self.max_len:
             raise ValueError(f"KV cache overflow: {self.index} + {s} > "
                              f"capacity {self.max_len}")
-        self.k[:, self.index:end] = k_new.to(self.k.dtype)
-        self.v[:, self.index:end] = v_new.to(self.v.dtype)
+        rows = self.pos + self._positions[:s]
+        self.k.index_copy_(1, rows, k_new.to(self.k.dtype))
+        self.v.index_copy_(1, rows, v_new.to(self.v.dtype))
+        self.pos += s
         self.index = end
-        valid = torch.arange(self.max_len, device=self.k.device) < end
-        return self.k, self.v, valid
+        return self.k, self.v, self.valid()
 
     def valid(self) -> torch.Tensor:
-        return torch.arange(self.max_len, device=self.k.device) < self.index
+        return self._positions < self.pos
 
 
 class StreamKVCache:

@@ -87,6 +87,7 @@ class StreamSpeechModel(nn.Module):
             d.embed_dim, d.ffn_embed_dim, d.attention_heads,
             cfg.synthesizer_encoder_layers, d.dropout, dtype)
         self.unit_decoder = CTCTransformerUnitDecoder(cfg.unit_decoder, d.embed_dim, dtype)
+        self._stop_tokens: Dict[str, torch.Tensor] = {}
 
     def _check_generator(self, deterministic: bool,
                          generator: Optional[torch.Generator]) -> None:
@@ -201,10 +202,7 @@ class StreamSpeechModel(nn.Module):
         (offset + emitted) cut back."""
         b = first.shape[0]
         dev = first.device
-        stop_token = torch.zeros((self.mt_decoder.embed_tokens.shape[0],),
-                                 dtype=torch.bool, device=dev)
-        stop_token[EOS] = True
-        stop_token[PAD] = True                  # PAD is never emitted: it reads as EOS
+        stop_token = self._stop_token(dev)
         live = budget > 0
         emitted = torch.zeros((b,), dtype=torch.long, device=dev)
         hit_eos = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -224,6 +222,20 @@ class StreamSpeechModel(nn.Module):
         tokens = torch.stack(steps, dim=1)
         kept = torch.arange(max_steps, device=dev)[None] < emitted[:, None]
         return torch.where(kept, tokens, PAD), emitted, hit_eos
+
+    def _stop_token(self, device) -> torch.Tensor:
+        """[V] bool, True at EOS and PAD (PAD is never emitted: it reads as
+        EOS), made once a device, so that a decode allocates nothing for it
+        (nor inside a CUDA-graph capture)."""
+        key = str(torch.device(device))
+        table = self._stop_tokens.get(key)
+        if table is None:
+            table = torch.zeros((self.mt_decoder.embed_tokens.shape[0],),
+                                dtype=torch.bool, device=device)
+            table[EOS] = True
+            table[PAD] = True
+            self._stop_tokens[key] = table
+        return table
 
     def mt_fill_cross(self, enc_new, cross_caches):
         return self.mt_decoder.fill_cross_caches(enc_new, cross_caches)

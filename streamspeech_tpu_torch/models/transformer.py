@@ -251,6 +251,14 @@ def unit_decoder_positions(pos_table: torch.Tensor, batch: int, time: int
     return pe[:, None, :].expand(batch, time, pe.shape[-1])
 
 
+def _repeat_frames(x: torch.Tensor, up: int) -> torch.Tensor:
+    """``repeat_interleave(x, up, dim=1)`` as a broadcast copy: each frame of
+    x [B, T, ...] ``up`` times, [B, T*up, ...], with no read of the repeats
+    on the host (so a CUDA graph can capture it)."""
+    b, t = x.shape[:2]
+    return x[:, :, None].expand(b, t, up, *x.shape[2:]).reshape(b, t * up, *x.shape[2:])
+
+
 class CTCTransformerUnitDecoder(nn.Module):
     """NAR upsampling unit decoder (`transformer.py:613-705`): repeat each T2U
     state ×upsample, pre-norm layers with causal self-attention (the causal
@@ -287,13 +295,13 @@ class CTCTransformerUnitDecoder(nn.Module):
         [B, T_mt*up, V], features)."""
         b, t_mt, _ = enc.shape
         up = self.cfg.ctc_upsample_rate
-        x = torch.repeat_interleave(enc, up, dim=1)
+        x = _repeat_frames(enc, up)
         t_up = x.shape[1]
         x = x + unit_decoder_positions(self.pos_table, 1 if serving_positions else b,
                                        t_up).to(x.dtype)
         x = dropout(x, self.cfg.dropout, deterministic, generator)
         self_valid = (None if enc_valid is None
-                      else torch.repeat_interleave(enc_valid, up, dim=1))
+                      else _repeat_frames(enc_valid, up))
         if allowed_cross is None and src_step is not None:
             allowed_cross = waitk_allowed(t_up, t_mt, src_wait or 0, src_step,
                                           src_step * up, device=enc.device)

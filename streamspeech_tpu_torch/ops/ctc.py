@@ -136,10 +136,10 @@ def ctc_collapse_device(ids: torch.Tensor, blank: int
     t = ids.shape[-1]
     prev = torch.cat([torch.full_like(ids[..., :1], -1), ids[..., :-1]], dim=-1)
     keep = (ids != prev) & (ids != blank)
-    pos = torch.arange(t, device=ids.device)
-    order = torch.where(keep, pos, t + pos)
-    packed = torch.gather(ids, -1, torch.argsort(order, dim=-1))
-    count = keep.sum(dim=-1)
-    packed = torch.where(pos < count[..., None], packed,
-                         torch.full_like(packed, blank))
-    return packed, count
+    # each kept id goes to its rank among the kept; the others to a spare
+    # last column, cut off after (a scatter: no sort, nothing read on the host)
+    dest = torch.where(keep, torch.cumsum(keep, dim=-1) - 1, t)
+    packed = torch.full((*ids.shape[:-1], t + 1), blank, dtype=ids.dtype,
+                        device=ids.device)
+    packed.scatter_(-1, dest, ids)
+    return packed[..., :t], keep.sum(dim=-1)

@@ -18,15 +18,17 @@ length (the encoder masks the padding as attention keys and as conv taps,
 thrown away.
 
 Host reads: one a block (the CTC ids of the new frames), one a decode call
-(tokens, emitted, hit_eos of every stream), one an emission. The JAX session's
-``fused_tick`` and ``_shard_over_mesh`` are not ported (ROADMAP §A items 6
-and 10).
+(tokens, emitted, hit_eos of every stream), one an emission. ``fused_tick``
+runs a whole tick of every stream through the engine's fused tick
+(``StreamSpeechEngine.policy_step_batched``: CUDA graphs on a card), with a
+read after each of its parts that runs. JAX's ``_shard_over_mesh`` is not
+ported (ROADMAP §A item 10).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,6 +116,90 @@ class BatchedStreamingSession:
             self.asr_ids[i].extend(ids[0, i, :n].tolist())
             self.st_ids[i].extend(ids[1, i, :n].tolist())
             self.enc_len[i] += n
+
+    def fused_tick(self, chunk: int, conv_chunk: int, k1: int, n: int,
+                   whole_word: bool, max_len: int, starts_word, src_len, tgt_len,
+                   n_prev_units, active, finished,
+                   with_emission: bool = True) -> Optional[List[Dict]]:
+        """One lockstep policy tick of every stream through the engine's fused
+        tick (`batched.py:169-309`). Feed the frames with ``push_features``
+        first. Returns None where it does not apply, and the caller then runs
+        the host path (``encode_ready_blocks``, ``mt_decode``, ``emit_tail``):
+        an active unfinished stream holds other than one whole block, no
+        active stream holds a frame, or the MT or encoder caches lack room.
+        Else one dict a stream: the decisions, ``keep``, the CTC counts,
+        ``prev_tokens``, ``tail_ready`` (its whole tail is encoded by this
+        tick) and, where it emitted, ``units``, ``dur`` and ``tail``.
+
+        The bundle is read in one copy a part that runs; JAX's two-fetch
+        strategy for large waves (``split_fetch_bytes``, :257-284) paced a
+        remote link's round trips and has no counterpart on a local card."""
+        e = self.e
+        block_enc = math.lcm(max(chunk, 1), max(conv_chunk, 1))
+        block_frames = 4 * block_enc
+        steps = e.fused_steps
+        active = np.asarray(active, bool)
+        have = np.asarray([p.shape[0] for p in self.pending])
+        unfinished = ~self.finished_input
+        if (active & unfinished & ((have // block_frames) != 1)).any():
+            return None
+        if not (active & (have > 0)).any():
+            return None
+        lens = np.asarray([len(t) for t in self.mt_tokens], np.int64)
+        if (lens[active] + steps).max(initial=0) > e.max_mt_tokens:
+            return None
+        if self.enc_state.pos + block_enc > e.max_enc_frames:
+            return None
+
+        blocks = np.zeros((self.batch, block_frames, self.feat_dim), np.float32)
+        valid = np.zeros((self.batch,), np.int64)
+        # a finished stream's finish decode starts once its whole tail is
+        # encoded: this tick takes its last pending frames
+        tail_ready = self.finished_input & (have <= block_frames)
+        for i in range(self.batch):
+            if not active[i]:
+                self.pending[i] = self.pending[i][:0]
+                continue
+            nfr = min(int(have[i]), block_frames)
+            blocks[i, :nfr] = self.pending[i][:nfr]
+            self.pending[i] = self.pending[i][nfr:]
+            valid[i] = nfr
+
+        max_len = min(max_len, e.max_mt_tokens - 2, e.mt_buckets[-1] - 2)
+        mt_cap = _bucket(min(int(lens.max(initial=0)) + steps + 2, e.mt_buckets[-1]),
+                         e.mt_buckets)
+        u_cap = _bucket(min(mt_cap * e.model.cfg.unit_decoder.ctc_upsample_rate,
+                            e.unit_buckets[-1]), e.unit_buckets)
+        counts = [[len(ctc_collapse(np.asarray(ids), blank=0)[0]) for ids in heads]
+                  for heads in (self.asr_ids, self.st_ids)]
+        lasts = [[ids[-1] if ids else -1 for ids in heads]
+                 for heads in (self.asr_ids, self.st_ids)]
+        got = e.policy_step_batched(
+            self, blocks, valid, self.enc_len, self.mt_tokens, src_len, tgt_len,
+            counts[0], counts[1], lasts[0], lasts[1], n_prev_units, starts_word,
+            active, finished, tail_ready, chunk, conv_chunk, whole_word, k1, n,
+            max_len, mt_cap, u_cap, with_emission)
+
+        out: List[Dict] = []
+        out_valid = -(-valid // 4)
+        names = ("do_decode", "do_emit", "ok", "budget_over", "hit_eos", "grew")
+        for i in range(self.batch):
+            ov = int(out_valid[i])
+            self.asr_ids[i].extend(got["asr_ids"][i, :ov].tolist())
+            self.st_ids[i].extend(got["st_ids"][i, :ov].tolist())
+            self.enc_len[i] += ov
+            r = dict(zip(names, map(bool, got["flags"][i])))
+            r.update(keep=int(got["keep"][i]), asr_count=int(got["asr_count"][i]),
+                     st_count=int(got["st_count"][i]), count=int(got["count"][i]),
+                     prev_tokens=int(lens[i]), tail_ready=bool(tail_ready[i]))
+            if r["do_decode"]:
+                self.mt_tokens[i] = got["mt_buf"][i, :r["keep"]].tolist()
+            if r["do_emit"]:
+                r["units"] = got["units"][i, :r["count"]].tolist()
+                r["dur"] = got["dur"][i, :r["count"]]
+                r["tail"] = got["tail"][i, :int(got["cur_len"][i])]
+            out.append(r)
+        return out
 
     def ctc_hypotheses(self, stream: int) -> Dict[str, Tuple[List[int], List[int]]]:
         """Collapsed (tokens, frame indices) of one stream's ASR and ST CTC

@@ -13,16 +13,23 @@ T = bucket × upsample.
 B streams served in lockstep go through ``runtime/batched.py``
 (``BatchedStreamingSession``), on this engine's batched programs
 (``session_init(batch)``, ``mt_decode_greedy``, ``emit_batched``,
-``emit_tail_batched``), which the single stream runs at B = 1. The JAX engine's fused single-round-trip programs
-(``policy_step``, ``policy_step_pipelined``, ``policy_step_batched``,
-``StreamingSession.fused_policy`` and ``pipe_*``) are not ported yet: they
-are queued as the next serving item (ROADMAP §A item 6).
+``emit_tail_batched``), which the single stream runs at B = 1.
+
+The fused tick (``policy_step_batched``, ``policy_step`` at B = 1; JAX
+`session.py:360-840`) runs a whole policy chunk on the device: encode, the CTC
+growth gates, the greedy MT decode, the whole-word rollback, unit synthesis
+and the windowed vocode tail, with the host reading one small bundle after
+each of its three parts (``runtime/graphs.py``). On a card each part is a
+CUDA graph, captured at ``warmup`` (or at its first use) and replayed; on the
+CPU the same parts run eagerly. ``StreamingSession.fused_policy`` and
+``BatchedStreamingSession.fused_tick`` drive it. The pipelined programs
+(``policy_step_pipelined``, ``pipe_*``) are not ported (ROADMAP §A item 6).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from streamspeech_tpu_torch.models.layers import (
 from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.models.vocoder import SAMPLES_PER_FRAME, CodeGenerator
 from streamspeech_tpu_torch.ops.ctc import ctc_collapse, ctc_collapse_device
+from streamspeech_tpu_torch.runtime.graphs import Slot, TickGraphs
 
 EOS = 2
 PAD = 1
@@ -98,7 +106,13 @@ class StreamSpeechEngine:
                               - self.emit_ctx_frames) * SAMPLES_PER_FRAME
         # steps of one scan call at most (`session.py:151`)
         self.max_decode_per_call = 16
+        # the fused tick's scan length (`session.py:154`): larger budgets take
+        # the host path
+        self.fused_steps = 8
         self.unit_blank = model.cfg.unit_decoder.vocab_size - 1
+        self.graphs = TickGraphs(self)
+        self._mt_positions = torch.arange(max_mt_tokens, device=self.device)
+        self._enc_positions = torch.arange(max_enc_frames, device=self.device)
 
     def new_session(self) -> "StreamingSession":
         return StreamingSession(self)
@@ -210,10 +224,18 @@ class StreamSpeechEngine:
         only a window of ``emit_window_frames`` expanded frames ending at each
         sequence's end (receptive-field context included) and return only the
         new-wav tails [B, emit_tail_cap]. ``ok`` [B] is False where the window
-        or tail cap is exceeded; the caller then takes the full emission."""
-        units, count, codes = self._collapsed_units(
-            mt_tokens, enc_buf, *self._lengths(enc_len, n_tokens), unit_capacity)
-        n_prev = host_to_device(np.atleast_1d(n_prev_units), self.device)
+        or tail cap is exceeded; the caller then takes the full emission.
+        enc_len, n_tokens and n_prev_units [B] on the host."""
+        return self._emit_tail(mt_tokens, enc_buf, *self._lengths(enc_len, n_tokens),
+                               host_to_device(np.atleast_1d(n_prev_units), self.device),
+                               unit_capacity)
+
+    def _emit_tail(self, mt_tokens, enc_buf, enc_len, n_tokens, n_prev,
+                   unit_capacity: int):
+        """``emit_tail_batched`` on lengths already on the device [B]: what
+        the fused tick's emission part runs."""
+        units, count, codes = self._collapsed_units(mt_tokens, enc_buf, enc_len,
+                                                    n_tokens, unit_capacity)
         pos = torch.arange(unit_capacity, device=self.device)[None]
         dur = self.vocoder.predict_durations(codes) * (pos < count[:, None]).long()
         total = dur.sum(dim=1)
@@ -239,6 +261,271 @@ class StreamSpeechEngine:
         out = self.emit_tail_batched(mt_tokens, enc_buf, enc_len, n_tokens,
                                      n_prev_units, unit_capacity)
         return tuple(x[0] for x in out)
+
+    # ------------------------------------------------------------------
+    # the fused tick (`session.py:360-840`): encode + gates, decode +
+    # rollback, emission; a CUDA graph each on a card (runtime/graphs.py)
+    # ------------------------------------------------------------------
+
+    def policy_step_batched(self, session, blocks, valid, enc_len, mt_tokens, src_len,
+                            tgt_len, asr_count, st_count, last_asr, last_st, n_units,
+                            starts_word, active, finished, tail_ready, chunk: int,
+                            conv_chunk: int, whole_word: bool, k1: int, n: int,
+                            max_len: int, mt_cap: int, unit_capacity: int,
+                            with_emission: bool = True) -> Dict[str, np.ndarray]:
+        """One fused policy tick of the B streams of ``session`` (a
+        ``StreamingSession`` at B = 1 or a ``BatchedStreamingSession``), the
+        counterpart of JAX's ``policy_step_batched`` (`session.py:635-840`)
+        and, at B = 1 with nothing finished, of ``policy_step``'s
+        ``policy_core`` (:360-527). The host arrays [B] give each stream's
+        block valid frames, true encoder length, policy counters, the emitted
+        units so far, ``active``, ``finished`` and ``tail_ready`` (a finished
+        stream's finish decode starts only once its whole tail is encoded);
+        ``mt_tokens`` the hypotheses; blocks [B, block_frames, 80].
+
+        Everything JAX computes on the device stays there: the CTC growth
+        recurrences, the gates and budget clamps, ``room``, the decode of at
+        most ``fused_steps`` tokens, the rollback to the last word start
+        (``starts_word`` [V] bool), ``do_emit`` and the tail window's ``ok``.
+        The host reads after each part and runs the next only when a stream
+        needs it (JAX's ``lax.cond``s), so the decode and the emission cost
+        nothing on a tick that skips them. The session is bound to the slot
+        of its batch size first (``graphs.Slot.bind``).
+
+        Returns numpy arrays: ``flags`` [B, 6] (do_decode, do_emit, ok,
+        budget_over, hit_eos, grew), ``asr_ids``/``st_ids`` [B, s] of the new
+        frames, ``asr_count``, ``st_count``, ``keep``, ``mt_buf`` [B,
+        max_mt_tokens], and the emission: ``units``/``dur`` [B, unit_capacity],
+        ``count``, ``tail`` [B, emit_tail_cap], ``cur_len`` (JAX's no-emit
+        values where no stream emitted). ``hit_eos`` counts only an EOS that
+        a step within the budget predicted (``mt_decode_greedy``)."""
+        b = len(mt_tokens)
+        block_frames = blocks.shape[1]
+        slot = self.graphs.slot(b)
+        slot.bind(session)
+        slot.set_starts_word(starts_word)
+        inp, enc_out = slot.io(block_frames)
+        m = self.max_mt_tokens
+        n_tokens = np.asarray([len(t) for t in mt_tokens], np.int64)
+        mt_buf = inp.h["mt_buf"]
+        mt_buf.fill(PAD)
+        for i, t in enumerate(mt_tokens):
+            mt_buf[i, :len(t)] = t
+        per_row = dict(valid=valid, enc_len=enc_len, n_tokens=n_tokens, src_len=src_len,
+                       tgt_len=tgt_len, asr_count=asr_count, st_count=st_count,
+                       last_asr=last_asr, last_st=last_st, n_units=n_units,
+                       active=active, finished=finished, tail_ready=tail_ready,
+                       k1=k1, n=n, whole_word=int(whole_word), max_len=max_len,
+                       emission=int(with_emission))
+        ints = inp.h["ints"]
+        for row, name in enumerate(Slot.INPUTS):
+            ints[row] = np.asarray(per_row[name], np.int64)
+        inp.h["block"][...] = blocks
+        inp.upload()
+
+        dtype = str(self.model.dtype)
+        key = (b, block_frames, chunk, conv_chunk, dtype)
+        self.graphs.run(slot, ("encode",) + key,
+                        lambda: self._tick_encode(slot, block_frames, chunk, conv_chunk))
+        got = enc_out.download()
+        asr_count_d, st_count_d, do_decode, budget_over, grew = got["vals"].copy()
+        out = {"asr_ids": got["ids"][0].copy(), "st_ids": got["ids"][1].copy(),
+               "asr_count": asr_count_d, "st_count": st_count_d,
+               "keep": n_tokens.copy(), "mt_buf": mt_buf.copy(),
+               "units": np.full((b, unit_capacity), self.unit_blank, np.int64),
+               "count": np.zeros(b, np.int64),
+               "dur": np.zeros((b, unit_capacity), np.int64),
+               "tail": np.zeros((b, self.emit_tail_cap), np.float32),
+               "cur_len": np.zeros(b, np.int64)}
+        hit_eos = do_emit = np.zeros(b, np.int64)
+        ok = np.ones(b, np.int64)
+        if do_decode.any():
+            self.graphs.run(slot, ("decode",) + key,
+                            lambda: self._tick_decode(slot, block_frames))
+            got = slot.decoded.download()
+            out["keep"], hit_eos, do_emit = got["vals"].copy()
+            out["mt_buf"] = got["mt_buf"].copy()
+        if do_emit.any():
+            emitted = slot.emitted(unit_capacity)
+            self.graphs.run(slot, ("emit",) + key + (mt_cap, unit_capacity),
+                            lambda: self._tick_emit(slot, block_frames, mt_cap,
+                                                    unit_capacity))
+            got = emitted.download()
+            out["count"], out["cur_len"], ok = got["vals"].copy()
+            for name in ("units", "dur", "tail"):
+                out[name] = got[name].copy()
+        out["flags"] = np.stack([do_decode, do_emit, ok, budget_over, hit_eos, grew],
+                                axis=1).astype(bool)
+        return out
+
+    def policy_step(self, session, block, src_len: int, tgt_len: int, asr_count: int,
+                    st_count: int, last_asr: int, last_st: int, n_units: int,
+                    starts_word, chunk: int, conv_chunk: int, whole_word: bool,
+                    k1: int, n: int, max_len: int, mt_cap: int,
+                    unit_capacity: int) -> Dict[str, np.ndarray]:
+        """One stream's fused policy chunk (JAX ``policy_step``,
+        `session.py:536-562`): ``policy_step_batched`` at B = 1 over a whole
+        block of an unfinished stream. Returns its arrays, each stream's
+        axis kept."""
+        one = np.ones(1, np.int64)
+        return self.policy_step_batched(
+            session, block[None], one * block.shape[0], one * session.enc_len,
+            [session.mt_tokens], one * src_len, one * tgt_len, one * asr_count,
+            one * st_count, one * last_asr, one * last_st, one * n_units, starts_word,
+            one, one * 0, one * 0, chunk, conv_chunk, whole_word, k1, n, max_len,
+            mt_cap, unit_capacity)
+
+    def _inputs(self, slot: Slot, block_frames: int) -> Dict[str, torch.Tensor]:
+        inp = slot.io(block_frames)[0].d
+        return {**dict(zip(Slot.INPUTS, inp["ints"].unbind(0))),
+                "mt_buf": inp["mt_buf"], "block": inp["block"]}
+
+    @torch.no_grad()
+    def _tick_encode(self, slot: Slot, block_frames: int, chunk: int, conv_chunk: int):
+        """Encode + gates (`session.py:385-422`, :660-715): encode the block
+        against the slot's caches, write it into the encoder buffer and the
+        MT cross caches, grow each stream's deduplicated CTC counts over its
+        valid frames and decide which streams decode and how far."""
+        x = self._inputs(slot, block_frames)
+        enc_state, enc_buf, _, mt_cross = slot.state
+        valid = x["valid"]
+        enc, _, asr_ids, st_ids = self.model.encode_block_with_ctc(
+            x["block"], enc_state, chunk, conv_chunk, valid)
+        s = enc.shape[1]
+        enc_buf.index_copy_(1, enc_state.pos_dev - s + self._enc_positions[:s],
+                            enc.to(enc_buf.dtype))
+        self.model.mt_fill_cross(enc, mt_cross)
+        out_valid = -(-valid // 4)                      # real encoder frames a stream
+        valid_f = self._enc_positions[None, :s] < out_valid[:, None]
+
+        def grow(count, last, ids):
+            prev = torch.cat([last[:, None], ids[:, :-1]], dim=1)
+            fresh = (ids != prev) & (ids != 0) & valid_f
+            return count + fresh.sum(dim=1)
+
+        asr_count = grow(x["asr_count"], x["last_asr"], asr_ids)
+        st_count = grow(x["st_count"], x["last_st"], st_ids)
+        n_tokens, max_len, n, steps = x["n_tokens"], x["max_len"], x["n"], self.fused_steps
+        finished = x["finished"] > 0
+        grew = (asr_count >= x["src_len"] + n) & (st_count >= x["tgt_len"] + n)
+        subword = torch.div(st_count - x["k1"], n, rounding_mode="floor") * n \
+            + x["whole_word"]
+        # clamped at max_len as the host decode's loop guard clamps it
+        budget_stream = torch.minimum(subword - n_tokens, max_len - n_tokens)
+        budget_fin = max_len - n_tokens
+        budget = torch.where(finished, budget_fin.clamp(0, steps), budget_stream)
+        wanted = torch.where(finished, (budget_fin >= 1) & (x["tail_ready"] > 0),
+                             grew & (budget_stream >= 1))
+        budget_over = ~finished & (budget_stream > steps)
+        room = n_tokens + steps <= self.max_mt_tokens
+        do_decode = wanted & ~budget_over & room & (x["active"] > 0)
+        mid = slot.mid
+        mid["do_decode"].copy_(do_decode)
+        mid["budget"].copy_(budget)
+        mid["enc_len"].copy_(x["enc_len"] + out_valid)
+        out = slot.io(block_frames)[1].d
+        out["ids"].copy_(torch.stack([asr_ids, st_ids]))
+        out["vals"].copy_(torch.stack([asr_count, st_count, do_decode.long(),
+                                       budget_over.long(), grew.long()]))
+
+    @torch.no_grad()
+    def _tick_decode(self, slot: Slot, block_frames: int):
+        """Decode + rollback (`session.py:426-465`, :719-759): at most
+        ``fused_steps`` greedy tokens a decoding stream (budget 0 for the
+        others), the new tokens written after each hypothesis, the rollback
+        to the last word start of a streaming stream (none found: keep 0),
+        and ``do_emit``. The MT self caches need no truncation: their valid
+        length is the hypothesis the host keeps."""
+        x = self._inputs(slot, block_frames)
+        _, _, mt_self, mt_cross = slot.state
+        mid = slot.mid
+        n_tokens, mt_buf, steps = x["n_tokens"], x["mt_buf"], self.fused_steps
+        finished = x["finished"] > 0
+        do_decode = mid["do_decode"]
+        feed = torch.where(n_tokens > 0,
+                           mt_buf.gather(1, (n_tokens - 1).clamp(min=0)[:, None])[:, 0],
+                           EOS)
+        budgets = torch.where(do_decode, mid["budget"].clamp(0, steps), 0)
+        cross_valid = self._enc_positions[None] < mid["enc_len"][:, None]
+        toks, emitted, hit_eos = self.model.mt_decode_greedy(
+            feed, n_tokens, budgets, mt_self, mt_cross, steps, cross_valid)
+        pos = self._mt_positions[None]
+        n_total = n_tokens + emitted
+        new = (pos >= n_tokens[:, None]) & (pos < n_total[:, None])
+        rel = (pos - n_tokens[:, None]).clamp(0, steps - 1)
+        mt_out = torch.where(new, toks.gather(1, rel), mt_buf)
+        # the last word start before n_total, exclusive (`agent.py:542-559`)
+        starts = slot.starts_word[mt_out] & (pos < n_total[:, None])
+        keep_ww = torch.where(starts, pos, -1).amax(dim=1).clamp(min=0)
+        keep = torch.where((x["whole_word"] > 0) & ~finished, keep_ww, n_total)
+        keep = torch.where(do_decode, keep, n_tokens)
+        # a finished stream emits once, when it has drained (`session.py:761-767`)
+        do_emit = do_decode & (keep > n_tokens) & ~finished & (x["emission"] > 0)
+        mid["keep"].copy_(keep)
+        mid["mt_buf"].copy_(mt_out)
+        mid["do_emit"].copy_(do_emit)
+        out = slot.decoded.d
+        out["vals"].copy_(torch.stack([keep, (hit_eos & do_decode).long(),
+                                       do_emit.long()]))
+        out["mt_buf"].copy_(mt_out)
+
+    @torch.no_grad()
+    def _tick_emit(self, slot: Slot, block_frames: int, mt_cap: int,
+                   unit_capacity: int):
+        """Emission (`session.py:467-513`, :770-816): unit synthesis of every
+        stream's kept prefix in the ``mt_cap`` bucket against its encoder
+        length, CTC collapse, durations and the windowed vocode tail."""
+        x = self._inputs(slot, block_frames)
+        _, enc_buf, _, _ = slot.state
+        keep, mt_out = slot.mid["keep"], slot.mid["mt_buf"]
+        b = keep.shape[0]
+        eos = torch.full((b, 1), EOS, dtype=mt_out.dtype, device=self.device)
+        shifted = torch.cat([eos, mt_out], dim=1)[:, :mt_cap]
+        padded = torch.where(self._mt_positions[None, :mt_cap] <= keep[:, None],
+                             shifted, PAD)
+        units, count, dur, tail, cur_len, ok = self._emit_tail(
+            padded, enc_buf, slot.mid["enc_len"], keep + 1, x["n_units"], unit_capacity)
+        out = slot.emitted(unit_capacity).d
+        out["vals"].copy_(torch.stack([count, cur_len, ok.long()]))
+        out["units"].copy_(units)
+        out["dur"].copy_(dur)
+        out["tail"].copy_(tail)
+
+    def warmup(self, chunk: int = 8, conv_chunk: int = 8, batch_sizes=(1,)) -> dict:
+        """Capture every part of the fused tick for the given chunking, at
+        each batch size in ``batch_sizes``, for every MT bucket (the variants
+        JAX's ``warmup`` compiles, `session.py:878-1028`, there for B = 1);
+        a serving-startup cost, not a per-chunk one. Whether a stream
+        finished, whole_word, k1, n and max_len are inputs of the graphs, so
+        they need no variants. The slots' states are left as they were.
+        Returns ``graphs.stats()``. On the CPU, nothing is captured."""
+        block_frames = 4 * math.lcm(max(chunk, 1), max(conv_chunk, 1))
+        steps = self.fused_steps
+        up = self.model.cfg.unit_decoder.ctc_upsample_rate
+        for b in batch_sizes:
+            slot = self.graphs.slot(b)
+            inp, _ = slot.io(block_frames)
+            ints = dict(zip(Slot.INPUTS, inp.h["ints"]))
+            for name, value in (("valid", block_frames), ("active", 1), ("n", 1),
+                                ("max_len", self.max_mt_tokens - 2), ("emission", 1)):
+                ints[name][:] = value
+            inp.h["mt_buf"].fill(NSPECIAL)
+            key = (b, block_frames, chunk, conv_chunk, str(self.model.dtype))
+            for mt_cap in self.mt_buckets:
+                fill = max(min(mt_cap - steps - 2, self.max_mt_tokens - steps), 0)
+                ints["n_tokens"][:] = fill
+                inp.upload()
+                u_cap = _bucket(min(mt_cap * up, self.unit_buckets[-1]), self.unit_buckets)
+                slot.emitted(u_cap)
+                self.graphs.capture(slot, ("encode",) + key, lambda: self._tick_encode(
+                    slot, block_frames, chunk, conv_chunk))
+                self.graphs.capture(slot, ("decode",) + key,
+                                    lambda: self._tick_decode(slot, block_frames))
+                slot.mid["keep"].fill_(fill + steps)
+                self.graphs.capture(slot, ("emit",) + key + (mt_cap, u_cap),
+                                    lambda: self._tick_emit(slot, block_frames, mt_cap,
+                                                            u_cap))
+        return self.graphs.stats()
 
 
 class StreamingSession:
@@ -301,6 +588,58 @@ class StreamingSession:
         self.asr_ids.extend(asr_ids[0].tolist())
         self.st_ids.extend(st_ids[0].tolist())
         return s
+
+    def fused_policy(self, feats: np.ndarray, chunk: int, conv_chunk: int, k1: int,
+                     n: int, whole_word: bool, max_len: int, starts_word,
+                     src_len: int, tgt_len: int, n_prev_units: int) -> Optional[Dict]:
+        """One policy chunk through the engine's fused tick (`session.py:
+        1122-1219`). Returns None where it does not apply, and the caller
+        then pushes the pending frames through the host path: the input has
+        finished, or not exactly one whole block is pending, or the MT or
+        encoder caches lack room for it. Else a dict of the decisions
+        (``do_decode``, ``do_emit``, ``ok``, ``budget_over``, ``hit_eos``,
+        ``grew``), ``keep``, the CTC counts and, when it emitted, ``units``,
+        ``dur`` and the new wav ``tail``; the hypothesis follows ``keep``."""
+        self.pending_feats = np.concatenate([self.pending_feats, feats], axis=0)
+        block_enc = math.lcm(max(chunk, 1), max(conv_chunk, 1))
+        block_frames = 4 * block_enc
+        steps = self.e.fused_steps
+        if (self.finished_input
+                or self.pending_feats.shape[0] // block_frames != 1
+                or len(self.mt_tokens) + steps > self.e.max_mt_tokens
+                or self.enc_state.pos + block_enc > self.e.max_enc_frames):
+            return None
+        block = self.pending_feats[:block_frames]
+        self.pending_feats = self.pending_feats[block_frames:]
+        e = self.e
+        max_len = min(max_len, e.max_mt_tokens - 2, e.mt_buckets[-1] - 2)
+        mt_cap = _bucket(min(len(self.mt_tokens) + steps + 2, e.mt_buckets[-1]),
+                         e.mt_buckets)
+        u_cap = _bucket(min(mt_cap * e.model.cfg.unit_decoder.ctc_upsample_rate,
+                            e.unit_buckets[-1]), e.unit_buckets)
+        # the host side of the device growth recurrence
+        asr_count = len(ctc_collapse(np.asarray(self.asr_ids), blank=0)[0])
+        st_count = len(ctc_collapse(np.asarray(self.st_ids), blank=0)[0])
+        got = e.policy_step(
+            self, block, src_len, tgt_len, asr_count, st_count,
+            self.asr_ids[-1] if self.asr_ids else -1,
+            self.st_ids[-1] if self.st_ids else -1, n_prev_units, starts_word,
+            chunk, conv_chunk, whole_word, k1, n, max_len, mt_cap, u_cap)
+        flags = got["flags"][0]
+        out = dict(zip(("do_decode", "do_emit", "ok", "budget_over", "hit_eos", "grew"),
+                       map(bool, flags)))
+        out.update(keep=int(got["keep"][0]), asr_count=int(got["asr_count"][0]),
+                   st_count=int(got["st_count"][0]), count=int(got["count"][0]))
+        self.enc_len += block_enc
+        self.asr_ids.extend(got["asr_ids"][0].tolist())
+        self.st_ids.extend(got["st_ids"][0].tolist())
+        if out["do_decode"]:
+            self.mt_tokens = got["mt_buf"][0, :out["keep"]].tolist()
+        if out["do_emit"]:
+            out["units"] = got["units"][0, :out["count"]].tolist()
+            out["dur"] = got["dur"][0, :out["count"]]
+            out["tail"] = got["tail"][0, :int(got["cur_len"][0])]
+        return out
 
     def ctc_hypotheses(self):
         """Collapsed (tokens, frame indices) of the ASR and ST CTC heads

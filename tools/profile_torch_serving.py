@@ -2,6 +2,7 @@
 
     python3 tools/profile_torch_serving.py [--out chiprun_out/profile_serving.txt]
                                            [--dtype float32|bfloat16] [--batched]
+                                           [--paths host fused fused host]
 
 Builds the ``chip_smoke.py`` serving setup (``full_config``, seeded random
 weights doctored so the policy writes, full-width vocoder), runs a 3 s warm-up
@@ -18,10 +19,19 @@ the host clock around the lockstep session's ``encode_ready_blocks``,
 ``mt_decode`` and ``emit_tail``, the rest being the evaluator's own host work
 (fbank, policy), then the profiled wave.
 
+``--paths`` runs the serving path named by each entry in turn in one process
+(``host``: the host policy and tick; ``fused``: the fused tick, its CUDA
+graphs captured once by ``engine.warmup`` first, whose seconds and graph
+numbers are printed), so that the two compare on one card: ``host fused
+fused host``. The fused path's split adds its fused ticks (``fused_policy``,
+``fused_tick``).
+
 Prints one JSON line per run and the card's ``nvidia-smi`` name and power
-limit; the profiler's tables go to ``--out``. TF32 off; ``--dtype bfloat16``
-serves the model at that compute dtype (the vocoder stays fp32), its causal
-attention the bf16 form.
+limit; the profiler's tables go to ``--out`` (one file a run). TF32 off;
+``--dtype bfloat16`` serves the model at that compute dtype (the vocoder
+stays fp32), its causal attention the bf16 form. ``launches`` counts the
+CUDA API's launches by call (``cudaLaunchKernel``, ``cudaGraphLaunch``, ...;
+a graph replay is one).
 """
 
 from __future__ import annotations
@@ -44,8 +54,8 @@ from streamspeech_tpu_torch.config import full_config  # noqa: E402
 from streamspeech_tpu_torch.kernels.attention import masked_attention  # noqa: E402
 from streamspeech_tpu_torch.models.vocoder import DEFAULT_VOCODER_CFG  # noqa: E402
 
-PARTS = ("push_features", "mt_decode", "emit_tail")
-BATCHED_PARTS = ("encode_ready_blocks", "mt_decode", "emit_tail")
+PARTS = ("push_features", "mt_decode", "emit_tail", "fused_policy")
+BATCHED_PARTS = ("encode_ready_blocks", "mt_decode", "emit_tail", "fused_tick")
 
 
 def _timed(name, fn, split):
@@ -83,6 +93,12 @@ def _device_ms(events) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
+def _launches(events) -> dict:
+    """The CUDA API's launches by call, a graph replay one."""
+    return {e.key: e.count for e in events
+            if e.key.startswith("cu") and "Launch" in e.key}
+
+
 def _write_tables(events, path):
     out = Path(path)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -93,7 +109,7 @@ def _write_tables(events, path):
                        max_name_column_width=70))
 
 
-def profile_batched(agent, out):
+def profile_batched(agent, out, use_fused, tag):
     """The batched wave of ``chip_smoke.py`` with the lockstep session's parts
     timed, then profiled."""
     from torch.profiler import ProfilerActivity, profile
@@ -114,7 +130,7 @@ def profile_batched(agent, out):
     def wave():
         ev = batched_evaluator.BatchedS2STEvaluator(
             agent.engine, agent.cfg, agent.src_dict, agent.tgt_dict, agent.unit_dict,
-            batch=len(sources), quality_metrics=[])
+            batch=len(sources), use_fused=use_fused, quality_metrics=[])
         t0 = time.perf_counter()
         ev(sources, [None] * len(sources))
         torch.cuda.synchronize()
@@ -127,10 +143,11 @@ def profile_batched(agent, out):
         wall = wave()
     finally:
         batched_evaluator.BatchedStreamingSession = session_cls
-    parts = sum(split[n] for n in BATCHED_PARTS)
+    parts = sum(split.get(n, 0.0) for n in BATCHED_PARTS)
     audio = sum(cs.BATCHED_SECONDS)
-    print(json.dumps({"run": "batched_split", "streams": len(sources),
-                      "seconds_audio": audio, "wall_s": wall, "split_s": split,
+    print(json.dumps({"run": "batched_split", "path": tag, "streams": len(sources),
+                      "seconds_audio": audio, "wall_s": wall,
+                      "audio_s_per_wall_s": audio / wall, "split_s": split,
                       "rest_s": wall - parts,
                       "masked_attention_launches_by_batch":
                           masked_attention.launches_by_batch}), flush=True)
@@ -138,15 +155,53 @@ def profile_batched(agent, out):
         profiled_wall = wave()
     events = prof.key_averages()
     device_ms = _device_ms(events)
-    print(json.dumps({"run": "batched_profiled", "wall_s": profiled_wall,
+    launches = _launches(events)
+    print(json.dumps({"run": "batched_profiled", "path": tag, "wall_s": profiled_wall,
                       "device_self_ms": device_ms,
                       "device_busy_share": device_ms / 1e3 / profiled_wall,
                       "device_busy_share_of_unprofiled_wall": device_ms / 1e3 / wall,
-                      "cudaLaunchKernel_calls": sum(e.count for e in events
-                                                    if e.key == "cudaLaunchKernel"),
+                      "launches": launches, "launches_total": sum(launches.values()),
                       "masked_attention_device_ms": sum(
                           e.self_device_time_total for e in events
                           if "causal_attention_kernel" in e.key) / 1e3}), flush=True)
+    _write_tables(events, out)
+
+
+def profile_single(agent, samples, out, counter, kernel, tag):
+    """The 10 s utterance with the session's parts timed, then profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    split = {}
+    new_session = _timed_sessions(agent.engine, split)
+    setattr(masked_attention, counter, 0)
+    try:
+        stats, *_ = cs._run_utterance(agent, samples)
+    finally:
+        agent.engine.new_session = new_session
+    unprofiled_wall = stats["wall_s"]
+    parts = sum(split.get(n, 0.0) for n in PARTS)
+    print(json.dumps({"run": "split", "path": tag, "dtype": str(agent.engine.model.dtype),
+                      "utterance": stats, "split_s": split,
+                      "rest_s": stats["wall_s"] - parts,
+                      "masked_attention_launches": getattr(masked_attention, counter)}),
+          flush=True)
+    setattr(masked_attention, counter, 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        stats, *_ = cs._run_utterance(agent, samples)
+    events = prof.key_averages()
+    device_ms = _device_ms(events)
+    launches = _launches(events)
+    kernel_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3
+    print(json.dumps({"run": "profiled", "path": tag, "utterance": stats,
+                      "device_self_ms": device_ms,
+                      "device_busy_share": device_ms / 1e3 / stats["wall_s"],
+                      "device_busy_share_of_unprofiled_wall":
+                          device_ms / 1e3 / unprofiled_wall,
+                      "launches": launches, "launches_total": sum(launches.values()),
+                      "cudaLaunchKernel_calls": launches.get("cudaLaunchKernel", 0),
+                      "masked_attention_device_ms": kernel_ms,
+                      "masked_attention_launches": getattr(masked_attention, counter)}),
+          flush=True)
     _write_tables(events, out)
 
 
@@ -157,6 +212,8 @@ def main():
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--batched", action="store_true",
                     help="profile chip_smoke.py's batched wave of 8 (float32)")
+    ap.add_argument("--paths", nargs="+", choices=("host", "fused"), default=["host"],
+                    help="the serving paths to run, in turn")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serving: needs a CUDA device")
@@ -171,45 +228,26 @@ def main():
     kernel = "attention_bf16_kernel" if bf16 else "causal_attention_kernel"
     agent = cs._build_agent(full_config(), DEFAULT_VOCODER_CFG, "cuda", args.seed,
                             getattr(torch, args.dtype))
-    if args.batched:
-        profile_batched(agent, args.out)
-        print(smi, flush=True)
-        return
+    if "fused" in args.paths:
+        t0 = time.perf_counter()
+        batch = len(cs.BATCHED_SECONDS) if args.batched else 1
+        stats = agent.engine.warmup(agent.cfg.chunk_size, agent.cfg.conv_chunk_size,
+                                    batch_sizes=(batch,))
+        print(json.dumps({"run": "warmup", "batch": batch,
+                          "seconds": time.perf_counter() - t0, **stats}), flush=True)
     rng = np.random.RandomState(args.seed)
-    cs._run_utterance(agent, cs._babble(rng, 3.0))          # warm-up
+    warm_audio = cs._babble(rng, 3.0)
     samples = cs._babble(rng, 10.0)
-
-    split = {}
-    new_session = _timed_sessions(agent.engine, split)
-    setattr(masked_attention, counter, 0)
-    stats, *_ = cs._run_utterance(agent, samples)
-    unprofiled_wall = stats["wall_s"]
-    parts = sum(split[n] for n in PARTS)
-    print(json.dumps({"run": "split", "dtype": args.dtype, "utterance": stats,
-                      "split_s": split, "rest_s": stats["wall_s"] - parts,
-                      "masked_attention_launches": getattr(masked_attention, counter)}),
-          flush=True)
-    agent.engine.new_session = new_session
-
-    from torch.profiler import ProfilerActivity, profile
-
-    setattr(masked_attention, counter, 0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stats, *_ = cs._run_utterance(agent, samples)
-    events = prof.key_averages()
-    device_ms = _device_ms(events)
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    kernel_ms = sum(e.self_device_time_total for e in events if kernel in e.key) / 1e3
-    print(json.dumps({"run": "profiled", "dtype": args.dtype, "utterance": stats,
-                      "device_self_ms": device_ms,
-                      "device_busy_share": device_ms / 1e3 / stats["wall_s"],
-                      "device_busy_share_of_unprofiled_wall":
-                          device_ms / 1e3 / unprofiled_wall,
-                      "cudaLaunchKernel_calls": launches,
-                      "masked_attention_device_ms": kernel_ms,
-                      "masked_attention_launches": getattr(masked_attention, counter)}),
-          flush=True)
-    _write_tables(events, args.out)
+    stem = Path(args.out)
+    for n, path in enumerate(args.paths):
+        out = stem.with_name(f"{stem.stem}_{n}_{path}{stem.suffix}")
+        agent.use_fused = path == "fused"
+        if args.batched:
+            profile_batched(agent, out, path == "fused", path)
+            continue
+        cs._run_utterance(agent, warm_audio)                   # warm-up
+        profile_single(agent, samples, out, counter, kernel, path)
+    print(json.dumps({"run": "graphs", **agent.engine.graphs.stats()}), flush=True)
     print(smi, flush=True)
 
 
