@@ -40,7 +40,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
             graph holds times its replays). Graphs captured, capture s, pool
             bytes, replays, wall; the 10 s utterance again under
             ``torch.profiler``: device busy ms and share, the CUDA API
-            launches by call (a graph replay one).
+            launches by call (a graph replay one). Its host decodes (the
+            finish, the budget-over continuations) replay the decode graphs.
+4c. serving_pipelined  phase 4's agent and utterances on the overlapped
+            loop (``StreamSpeechAgentConfig.pipelined``) after
+            ``engine.warmup(pipelined=True)`` (a graph a MT bucket, its two
+            conds IF nodes): at ``pipe_max_lag`` 8 with the age rule off and
+            at the defaults, each utterance's delays, MT tokens and units equal
+            to phase 4b's, its wav within ``REFERENCE_WAV_ATOL``; wall,
+            dispatches, fetches that waited, the deepest count in flight, B3
+            launches (counted from the fetched flags), graphs captured, capture
+            s, pool bytes; the 10 s utterance under ``torch.profiler``: CUDA
+            API launches, busy share, and the blocking CUDA API calls by where
+            they fell, none inside a dispatch or between two consecutive
+            dispatches outside a fetch (``_pipe_waits``).
 5. reference ``full_config`` widths with a 2-layer encoder, run on the card
             and on the CPU over the same audio: the same MT tokens and units,
             the wav within tolerance.
@@ -211,8 +224,9 @@ The bias route pads its keys to the 128 tile as JAX does
 (``models/layers.py`` ``_bias_kernel``), so every bias-attention row runs at
 TK = 128 with the valid keys beside (``tk_valid``).
 Every phase line gives ``at_s``, the script's seconds so far.
-Then the ``kernels`` summary line (fifteen entries, the ten kernels and the
-bf16 forms of B3-B7, launches by path; the bf16 B3 and B5 entries carry their
+Then the ``kernels`` summary line (sixteen entries, the ten kernels, the
+bf16 forms of B3-B7 and the set-conditional kernel of the overlapped tick's
+IF nodes (``_check_graph_cond``, after phase 13), launches by path; the bf16 B3 and B5 entries carry their
 training form, the B3 entry its batched shape (``batched_shape``); the mask's
 own kernel runs on no path, so its entry carries the draws by path), the card's
 name and power limit, and last the ``ok`` line.
@@ -1486,17 +1500,21 @@ def _babble(rng, seconds: float) -> np.ndarray:
 def _run_utterance(agent, samples):
     from streamspeech_tpu_torch.agents.base import stream_utterance
 
-    wav, turns, write_turns = [], 0, []
+    wav, turns, write_turns, delays = [], 0, [], []
     t0 = time.perf_counter()
     for out in stream_utterance(agent, samples):
         turns += 1
         if not out.is_empty:
             write_turns.append(turns)
+            # the evaluator's delay: the write's decision position, else the
+            # source sent so far (``eval/instance.py`` ``_decision_ms``)
+            delays.append(out.decision_ms if out.decision_ms is not None
+                          else len(agent.states.source) / 16.0)
             wav.extend(out.content)
     if agent.engine.device.type == "cuda":
         torch.cuda.synchronize()
     return {"segments": turns, "writes": len(write_turns), "write_turns": write_turns,
-            "text_tokens": len(agent.session.mt_tokens),
+            "delays": delays, "text_tokens": len(agent.session.mt_tokens),
             "units": len(agent.units), "wav_samples": len(wav),
             "wall_s": time.perf_counter() - t0}, np.asarray(wav, np.float32), \
         list(agent.session.mt_tokens), list(agent.units)
@@ -1506,6 +1524,7 @@ def _kernel_counters() -> dict:
     """Each kernel's (wrapper, counter attribute): a bf16 form is counted on
     its wrapper apart from the fp32 one."""
     from streamspeech_tpu_torch.kernels import attention, ctc, policy
+    from streamspeech_tpu_torch.runtime import graphs
 
     return {"masked_attention": (attention.masked_attention, "launches"),
             "relpos_attention": (attention.relpos_attention, "launches"),
@@ -1522,7 +1541,8 @@ def _kernel_counters() -> dict:
             "not_blank_probs_bf16": (policy.not_blank_probs, "bf16_launches"),
             "masked_attention_bwd_bf16": (attention.masked_attention_backward,
                                           "bf16_launches"),
-            "bias_attention_bwd_bf16": (attention.bias_attention_backward, "bf16_launches")}
+            "bias_attention_bwd_bf16": (attention.bias_attention_backward, "bf16_launches"),
+            "graph_cond": (graphs.cond, "launches")}
 
 
 def _zero_counts():
@@ -1592,6 +1612,15 @@ def phase_serving(dtype=torch.float32, fp32_runs=None):
     return launches, runs, agent, outputs
 
 
+def _trace_events(prof) -> list:
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        return json.loads(path.read_text())["traceEvents"]
+
+
 def _trace_summary(prof):
     """The card's busy ms in a profiled run: the summed duration of its
     kernels, copies and sets, read from the exported trace (one stream, so
@@ -1599,12 +1628,7 @@ def _trace_summary(prof):
     ``cudaGraphLaunch``, ...: a graph replay is one). ``key_averages`` would
     take about a minute over the wave's ~400,000 events; the export and a
     JSON parse take seconds."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        events = json.loads(path.read_text())["traceEvents"]
+    events = _trace_events(prof)
     busy = sum(e.get("dur", 0) for e in events
                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
     launches = {}
@@ -1730,7 +1754,8 @@ def phase_serving_fused(agent, outputs):
     ``REFERENCE_WAV_ATOL``; B3 launched inside the replayed graphs (a count
     is the launches a graph holds times its replays). Then the 10 s
     utterance again under ``torch.profiler``: device ms, busy share and the
-    CUDA API launches (a graph replay one). Returns the launches."""
+    CUDA API launches (a graph replay one). Returns the launches and each
+    utterance's (delays, MT tokens, units, wav)."""
     engine, cfg = agent.engine, agent.cfg
     t0 = time.perf_counter()
     warm = engine.warmup(cfg.chunk_size, cfg.conv_chunk_size, batch_sizes=(1,))
@@ -1740,10 +1765,11 @@ def phase_serving_fused(agent, outputs):
     rng = np.random.RandomState(SEED)
     _zero_counts()
     replays0 = engine.graphs.replays
-    bad, wall, last = [], 0.0, None
+    bad, wall, last, fused_outputs = [], 0.0, None, []
     for n, seconds in enumerate(UTTERANCE_SECONDS):
         last = _babble(rng, seconds)
         stats, wav, tokens, units = _run_utterance(agent, last)
+        fused_outputs.append((stats["delays"], tokens, units, wav))
         turns, tokens0, units0, wav0 = outputs[n]
         same_shape = wav.shape == wav0.shape
         err = (float(np.abs(wav - wav0).max()) if wav.size else 0.0) if same_shape else None
@@ -1773,6 +1799,219 @@ def phase_serving_fused(agent, outputs):
         raise AssertionError(f"fused utterances {bad} differ from the host path's")
     if launches["masked_attention"] < 1 or replays < 1:
         raise AssertionError("the fused path replayed no graph or never launched B3")
+    return launches, fused_outputs
+
+
+def _check_graph_cond() -> dict:
+    """The set-conditional kernel (``csrc/graph_cond.cu``) at the overlapped
+    tick's predicate, one bool on the card: a graph of one ``cond`` whose
+    body (a tanh of 4096 floats) must equal the eager body where the
+    predicate holds and leave the skip value where it does not. ms: a
+    replay with the predicate false (the setter kernel and the IF node);
+    plain: the eager ``cond`` (the host reads the predicate); bound: the
+    one byte read."""
+    from streamspeech_tpu_torch.runtime import graphs
+
+    dev = torch.device("cuda")
+    x = torch.randn(4096, device=dev)
+    out = torch.zeros_like(x)
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def part():
+        graphs.cond(pred, lambda: out.copy_(torch.tanh(x) * 2))
+
+    for value in (True, False):
+        pred.fill_(value)
+        part()                           # warm, eagerly
+    torch.cuda.synchronize()
+    with graphs._Capture(torch.cuda.graph_pool_handle(), torch.cuda.Stream(dev)) as cap:
+        part()
+    composed = graphs._Composed(cap.segments, dev)
+    err = 0.0
+    for value in (True, False, True):
+        out.fill_(-1.0)
+        pred.fill_(value)
+        composed.replay()
+        want = torch.tanh(x) * 2 if value else torch.full_like(x, -1.0)
+        torch.cuda.synchronize()
+        err = max(err, float((out - want).abs().max()))
+    pred.fill_(False)
+    row = {"pred": "[] bool", "body_elements": x.numel(), "max_abs_err": err,
+           "ms": _time_ms(composed.replay), "plain_ms": _time_ms(part),
+           **_bound(0.0, 1.0), "library_ms": None, "if_nodes": composed.if_nodes}
+    emit({"phase": "kernel", "kernel": "graph_cond", **row})
+    if err != 0.0 or composed.if_nodes != 1:
+        raise AssertionError(f"graph_cond: {row}")
+    return row
+
+
+# the CUDA API calls after which the host has waited for the card
+BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+                  "cudaMemcpy")
+
+
+def _ranged(obj, name: str, label: str) -> None:
+    """Wrap ``obj.name`` (an instance attribute shadowing the method, removed
+    with ``delattr``) in a ``torch.profiler.record_function`` range."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    setattr(obj, name, wrapped)
+
+
+def _pipe_waits(events) -> dict:
+    """The host's blocking CUDA API calls in a profiled overlapped run, by
+    where they fell: anywhere; inside any fetch (``pipe_fetch``: the fetched
+    chunk's copy had not landed; the finish's drain included); inside a
+    dispatch (``pipe_dispatch`` ranges); between two consecutive dispatches
+    with no host-path chunk between them, inside a fetch or elsewhere; and in
+    gaps that hold a host-path chunk (a fallback, a drain). Each call counted
+    by name."""
+    def spans(label):
+        return sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                      if e.get("cat") == "user_annotation" and e.get("name") == label)
+
+    dispatches, fetches, host = spans("pipe_dispatch"), spans("pipe_fetch"), spans("host_path")
+    calls = [(e["ts"], e["name"]) for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("name") in BLOCKING_CALLS]
+
+    def inside(ts, ranges):
+        return any(a <= ts <= b for a, b in ranges)
+
+    out = {"dispatches": len(dispatches), "fetches": len(fetches), "anywhere": {},
+           "in_any_fetch": {}, "in_dispatch": {}, "between_in_fetch": {},
+           "between_elsewhere": {}, "host_path_gaps": 0, "in_host_path_gaps": {}}
+
+    def add(where, name):
+        out[where][name] = out[where].get(name, 0) + 1
+
+    for ts, name in calls:
+        add("anywhere", name)
+        if inside(ts, fetches):
+            add("in_any_fetch", name)
+        if inside(ts, dispatches):
+            add("in_dispatch", name)
+    for (_, end), (start, _) in zip(dispatches, dispatches[1:]):
+        gap = [(ts, name) for ts, name in calls if end < ts < start]
+        if any(end < a < start for a, _ in host):
+            out["host_path_gaps"] += 1
+            for _, name in gap:
+                add("in_host_path_gaps", name)
+            continue
+        for ts, name in gap:
+            add("between_in_fetch" if inside(ts, fetches) else "between_elsewhere", name)
+    return out
+
+
+def phase_serving_pipelined(agent, reference):
+    """Phase 4's agent and utterances on the overlapped loop
+    (``StreamSpeechAgentConfig.pipelined``) after ``engine.warmup(pipelined=
+    True)`` captured its graphs (one a chunk a MT bucket, its two conds IF
+    nodes; the host decode), at ``pipe_max_lag`` 8 with the age rule off
+    (``pipe_ready_s`` 3600: the deepest pipeline) and at the defaults: each
+    utterance's delays, MT tokens and units equal to phase 4b's, its wav
+    within ``REFERENCE_WAV_ATOL``. Per utterance: wall, dispatches, fetches,
+    fetches that waited, the deepest count in flight. B3 is counted from the
+    fetched flags (the emission's IF body ran). Then the 10 s utterance at
+    the deepest setting under ``torch.profiler`` (host and card): CUDA API
+    launches, device busy share, and the blocking CUDA API calls by where they
+    fell (``_pipe_waits``): none may fall inside a dispatch or between two
+    consecutive dispatches outside a fetch. Returns the deepest setting's
+    launches."""
+    import dataclasses
+
+    engine, cfg0 = agent.engine, agent.cfg
+    captured0 = engine.graphs.captured
+    t0 = time.perf_counter()
+    warm = engine.warmup(cfg0.chunk_size, cfg0.conv_chunk_size, pipelined=True)
+    emit({"phase": "serving_pipelined_warmup", "seconds": time.perf_counter() - t0,
+          "graphs_captured_here": engine.graphs.captured - captured0, **warm})
+    if warm["if_nodes"] < 2 * len(engine.mt_buckets):
+        raise AssertionError(f"the overlapped graphs hold {warm['if_nodes']} IF nodes")
+    rng = np.random.RandomState(SEED)
+    audio = [_babble(rng, seconds) for seconds in UTTERANCE_SECONDS]
+    settings = {"deepest": dict(pipe_max_lag=8, pipe_ready_s=3600.0), "defaults": {}}
+    bad, launches = [], None
+    for name, knobs in settings.items():
+        agent.cfg = dataclasses.replace(cfg0, pipelined=True, **knobs)
+        _zero_counts()
+        replays0 = dict(engine.graphs.replays_by_part)
+        wall, deepest, dispatched = 0.0, 0, 0
+        for n, seconds in enumerate(UTTERANCE_SECONDS):
+            stats, wav, tokens, units = _run_utterance(agent, audio[n])
+            pipe = dict(agent.session.pipe_stats)
+            delays0, tokens0, units0, wav0 = reference[n]
+            same_shape = wav.shape == wav0.shape
+            err = (float(np.abs(wav - wav0).max()) if wav.size else 0.0) if same_shape else None
+            same = {"same_delays": stats["delays"] == delays0, "same_tokens": tokens == tokens0,
+                    "same_units": units == units0,
+                    "same_wav": same_shape and err <= REFERENCE_WAV_ATOL}
+            wall += stats["wall_s"]
+            deepest, dispatched = max(deepest, pipe["deepest"]), dispatched + pipe["dispatches"]
+            emit({"phase": "serving_pipelined", "setting": name,
+                  "pipe_max_lag": agent.cfg.pipe_max_lag, "pipe_ready_s": agent.cfg.pipe_ready_s,
+                  "seconds_audio": seconds, **stats, "rtf": stats["wall_s"] / seconds,
+                  "pipe": pipe, "waited_fetches_per_chunk": pipe["waited_fetches"]
+                  / max(pipe["fetches"], 1), **same, "wav_max_abs_err": err,
+                  "atol": REFERENCE_WAV_ATOL})
+            if not all(same.values()):
+                bad.append((name, seconds))
+        counts = _read_counts()
+        replays = {k: v - replays0.get(k, 0) for k, v in engine.graphs.replays_by_part.items()
+                   if v != replays0.get(k, 0)}
+        emit({"phase": "serving_pipelined_total", "setting": name, "wall_s": wall,
+              "launches": counts, "graph_replays_by_part": replays, "deepest_in_flight": deepest,
+              "dispatches": dispatched})
+        if launches is None:
+            launches = counts
+            if dispatched < 1 or deepest < 2:
+                raise AssertionError(f"the deepest setting overlapped nothing: {dispatched} "
+                                     f"dispatches, {deepest} in flight at most")
+            if counts["masked_attention"] < 1:
+                raise AssertionError("serving_pipelined never launched B3")
+    agent.cfg = dataclasses.replace(cfg0, pipelined=True, **settings["deepest"])
+    _ranged(engine, "policy_step_pipelined", "pipe_dispatch")
+    _ranged(engine, "pipe_fetch", "pipe_fetch")
+    for method in ("_host_policy", "_decode_and_emit", "_emit_from_host"):
+        _ranged(agent, method, "host_path")
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            stats, *_ = _run_utterance(agent, audio[-1])
+        pipe = dict(agent.session.pipe_stats)
+    finally:
+        for obj, method in ((engine, "policy_step_pipelined"), (engine, "pipe_fetch"),
+                            (agent, "_host_policy"), (agent, "_decode_and_emit"),
+                            (agent, "_emit_from_host")):
+            delattr(obj, method)
+        agent.cfg = cfg0
+    events = _trace_events(prof)
+    busy_ms = sum(e.get("dur", 0) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+    api = {}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "Launch" in e.get("name", ""):
+            api[e["name"]] = api.get(e["name"], 0) + 1
+    waits = _pipe_waits(events)
+    emit({"phase": "serving_pipelined_profiled", "seconds_audio": UTTERANCE_SECONDS[-1],
+          "wall_s": stats["wall_s"], "device_busy_ms": busy_ms,
+          "busy_share_of_wall": busy_ms / 1e3 / stats["wall_s"], "cuda_api_launches": api,
+          "cuda_api_launches_total": sum(api.values()), "pipe": pipe,
+          "blocking_waits": waits,
+          "blocking_waits_per_chunk": {k: sum(waits[k].values()) / max(pipe["dispatches"], 1)
+                                       for k in ("in_dispatch", "between_in_fetch",
+                                                 "between_elsewhere")},
+          **engine.graphs.stats(), "utterances_differing": bad})
+    if bad:
+        raise AssertionError(f"pipelined utterances {bad} differ from the fused path's")
+    if waits["in_dispatch"] or waits["between_elsewhere"]:
+        raise AssertionError(f"the host waited for the card between two dispatches: {waits}")
+    if waits["dispatches"] != pipe["dispatches"]:
+        raise AssertionError(f"the trace holds {waits['dispatches']} dispatch ranges of "
+                             f"{pipe['dispatches']}")
     return launches
 
 
@@ -1879,11 +2118,12 @@ def phase_reference():
         raise AssertionError(f"card and CPU runs disagree: {row}")
 
 
+# no backward, no bf16 form and no IF node of the overlapped serving tick
 _NO_BACKWARD = {"relpos_attention_bwd": 0, "masked_attention_bwd": 0,
                 "bias_attention_bwd": 0, "dropout_keep": 0, "mask_draws": 0,
                 "masked_attention_bf16": 0, "bias_attention_bf16": 0,
                 "not_blank_probs_bf16": 0, "masked_attention_bwd_bf16": 0,
-                "bias_attention_bwd_bf16": 0}
+                "bias_attention_bwd_bf16": 0, "graph_cond": 0}
 FORWARD_LAUNCHES = {"relpos_attention": 12, "bias_attention": 2,
                     "not_blank_probs": 2, "masked_attention": 2, "ctc_alpha": 0,
                     "ctc_beta": 0, **_NO_BACKWARD}
@@ -2367,8 +2607,10 @@ def main():
     phase_build()
     rows = phase_kernel()
     rows.update(phase_kernel_bf16())
+    rows["graph_cond"] = [_check_graph_cond()]
     serving_launches, fp32_runs, agent, outputs = phase_serving()
-    serving_fused_launches = phase_serving_fused(agent, outputs)
+    serving_fused_launches, fused_outputs = phase_serving_fused(agent, outputs)
+    serving_pipelined_launches = phase_serving_pipelined(agent, fused_outputs)
     serving_bf16_launches, _, agent_bf16, _ = phase_serving(torch.bfloat16, fp32_runs)
     bf16_fused_launches = phase_serving_batched_fused(agent_bf16)
     del agent_bf16
@@ -2428,6 +2670,10 @@ def main():
                                       "masked_attention_bwd_bf16.cu", train_shape),
         "bias_attention_bwd_bf16": ("pallas_attention.py:712", "bias_attention_bwd_bf16.cu",
                                     train_shape),
+        # no TPU kernel: the set-conditional kernel of the overlapped tick's
+        # IF nodes, in place of the decode's lax.cond (and the emission's, :515)
+        "graph_cond": ("streamspeech_tpu/runtime/session.py:457", "graph_cond.cu",
+                       lambda r: True),
     }
     # sources a kernel is built from beside the one named in its entry
     also = {"masked_attention": ["tc_mma.cuh", "dropout.cuh"],
@@ -2449,6 +2695,7 @@ def main():
                                         "wgmma.cuh", "tc_mma.cuh", "dropout.cuh"]}
     paths = {"serving": serving_launches, "serving_batched": serving_batched_launches,
              "serving_fused": serving_fused_launches,
+             "serving_pipelined": serving_pipelined_launches,
              "serving_batched_fused": batched_fused_launches,
              "serving_bf16_batched_fused": bf16_fused_launches,
              "forward": forward_launches,
@@ -2464,7 +2711,8 @@ def main():
             "source": f"streamspeech_tpu_torch/csrc/{source}",
             "also_built_from": [f"streamspeech_tpu_torch/csrc/{s}"
                                 for s in also.get(name, [])],
-            "replaces": f"streamspeech_tpu/ops/{replaces}",
+            "replaces": (replaces if replaces.startswith("streamspeech_tpu/")
+                         else f"streamspeech_tpu/ops/{replaces}"),
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             # B10 runs inside the six attention kernels: the launches of theirs
             # that drew the mask. Its own kernel, which writes the mask out

@@ -18,6 +18,11 @@ class Segment:
     finished: bool = False
     is_empty: bool = False
     data_type: str = ""
+    # the source position (ms) at which the write was decided: the overlapped
+    # (pipelined) agent sees a chunk's write a few calls after it was
+    # decided, so its delays name the decision, as the synchronous path's
+    # do; None = the evaluator's current position
+    decision_ms: Any = None
 
 
 @dataclass

@@ -219,7 +219,6 @@ class BatchedStreamingSession:
         stopped or held stream's steps land past its valid length and are
         overwritten by its next call. Returns the hypotheses."""
         e = self.e
-        dev = e.device
         max_len = min(max_len, e.max_mt_tokens - 2, e.mt_buckets[-1] - 2)
         lens = np.asarray([len(t) for t in self.mt_tokens], np.int64)
         budgets = np.asarray(budgets, np.int64)
@@ -227,12 +226,11 @@ class BatchedStreamingSession:
         # EOS is not sticky across calls: as the single session, the next call
         # predicts again against the (perhaps grown) encoder context
         budgets = np.clip(budgets, 0, max_len - lens)
-        cross_valid = (torch.arange(e.max_enc_frames, device=dev)[None]
-                       < host_to_device(self.enc_len, dev)[:, None])
+        cross_valid = np.arange(e.max_enc_frames)[None] < np.asarray(self.enc_len)[:, None]
         while (budgets > 0).any():
             new, hit_eos = e.mt_decode_greedy(
                 self.mt_self, self.mt_cross, self.mt_tokens,
-                np.minimum(budgets, e.max_decode_per_call), cross_valid)
+                np.minimum(budgets, e.max_decode_per_call), cross_valid, session=self)
             for hyp, toks in zip(self.mt_tokens, new):
                 hyp.extend(toks)
             emitted = np.asarray([len(t) for t in new], np.int64)

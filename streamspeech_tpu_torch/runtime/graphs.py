@@ -1,46 +1,63 @@
-"""CUDA graphs of the fused serving tick: the counterpart of the JAX engine's
-one compiled program per static-argument set (``jax.jit`` / ``aot_jit`` with
+"""CUDA graphs of the serving loop: the counterpart of the JAX engine's one
+compiled program per static-argument set (``jax.jit`` / ``aot_jit`` with
 static arguments, ``streamspeech_tpu/runtime/session.py``).
 
 The JAX engine runs a policy tick as one program with two ``lax.cond``s
-(decode or skip, emit or not). A CUDA graph has no branch, so the port cuts
-the tick at the conds into three parts, each its own graph: encode + gates,
-decode + rollback, emission (``StreamSpeechEngine.policy_step_batched``).
-The host reads a small bundle after each part and replays the next part only
-when some stream needs it: at most three reads a tick, the last one the
+(decode or skip, emit or not). The synchronous fused tick cuts it at the
+conds into three parts, each its own graph: encode + gates, decode +
+rollback, emission (``StreamSpeechEngine.policy_step_batched``). The host
+reads a small bundle after each part and replays the next part only when
+some stream needs it: at most three reads a tick, the last one the
 emission's bundle.
+
+The overlapped loop's tick (``StreamSpeechEngine.policy_step_pipelined``) is
+one graph whose conds are conditional (IF) nodes (``cond``): the host reads
+nothing between two chunks. The capture is cut into segments at each cond,
+each an ordinary capture into the shared pool, and ``csrc/graph_cond.cu``
+assembles them into one graph with the IF bodies under conditional nodes,
+each set on the card by a one-thread kernel that reads the predicate.
+Each chunk in flight has its own pinned host copy of the bundle (``Ring``).
+
+The host MT decode (``StreamSpeechEngine.mt_decode_greedy``) is a graph a
+batch size and step count, its inputs filled by one upload, its results read
+back in one copy.
 
 A graph replays fixed addresses, so every tensor a tick reads or writes is a
 fixed buffer of a ``Slot``, one a batch size B:
 - the device state of the session being served (encoder caches and stream
   position, encoder buffer, MT caches). A session is *bound* to the slot at
-  its first fused tick: its state is copied in and its attributes then name
-  the slot's tensors; a session bound before it gets clones of them, so it
-  stays whole (``Slot.bind``);
+  its first fused tick or decode: its state is copied in and its attributes
+  then name the slot's tensors; a session bound before it gets clones of
+  them, so it stays whole (``Slot.bind``);
 - the inputs, one byte buffer a block size that the host fills with one copy
   (``Packed``), in place of ``host_to_device``;
 - what one part hands the next (the decode flags and budgets, the kept
-  lengths, the new hypotheses), and each part's bundle for the host.
+  lengths, the new hypotheses), each part's bundle for the host, and the
+  overlapped loop's device-resident policy counters (``pol``).
 
 ``TickGraphs`` keeps the graphs, keyed by the static arguments of the part
-(B, the block's frames, the chunks, the MT and unit buckets, the dtype), and
-one graph memory pool that all of them share (they replay in turn, on one
-stream). Whether a stream has finished, whole-word rollback, k1, n, max_len
-and whether to emit are data in the inputs, so one graph serves all of their
-values. ``StreamSpeechEngine.warmup`` captures every part for the engine's
-buckets; a part ``warmup`` missed is captured at its first use. A capture
-that fails raises.
+(B, the block's frames, the chunks, the MT and unit buckets, the dtype, a
+decode's steps), and one graph memory pool that all of them share (they
+replay in turn, on one stream). Whether a stream has finished, whole-word
+rollback, k1, n, max_len and whether to emit are data in the inputs, so one
+graph serves all of their values. ``StreamSpeechEngine.warmup`` captures
+every part for the engine's buckets; a part ``warmup`` missed is captured at
+its first use. A capture that fails raises.
 
 Capture runs the part once eagerly on a side stream first (lazy
-initialisation: cuBLAS, cuDNN, the kernels' build), puts the state back from a
-snapshot, and then captures; it also notes how the part moves the host
-mirrors of the device positions (an encode adds the block's frames), which a
-replay then applies, as it adds each kernel's launches inside the graph to
-the kernel's launch count (``launches``, ``bf16_launches``, ``mask_draws``,
+initialisation: cuBLAS, cuDNN, the kernels' build; every cond body runs
+then, taken or not), puts the state back from a snapshot, and then captures;
+it also notes how the part moves the host mirrors of the device positions
+(an encode adds the block's frames), which a replay then applies, as it adds
+each kernel's launches inside the graph to the kernel's launch count
+(``launches``, ``bf16_launches``, ``mask_draws``,
 ``masked_attention.launches_by_batch``): a count is the launches a graph
-holds times its replays.
+holds times its replays. The launches inside an IF body count only where
+the body ran: ``run`` returns them, and the caller adds them
+(``count_branches``) once it has read the flags that say which ran.
 
-On the CPU there are no graphs: ``run`` calls the part.
+On the CPU there are no graphs: ``run`` calls the part, and ``cond`` reads
+its predicate and calls the body where it holds.
 """
 
 from __future__ import annotations
@@ -66,19 +83,24 @@ class Packed:
     def __init__(self, fields: Sequence[Tuple[str, Tuple[int, ...], torch.dtype]],
                  device: torch.device):
         self.device = device
-        layout, total = [], 0
+        self.layout, total = [], 0
         for name, shape, dtype in fields:
             nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
-            layout.append((name, shape, dtype, total, nbytes))
+            self.layout.append((name, shape, dtype, total, nbytes))
             total += -(-nbytes // 8) * 8
         self.dev = torch.zeros(total, dtype=torch.uint8, device=device)
-        self.host = torch.zeros(total, dtype=torch.uint8,
-                                pin_memory=device.type == "cuda")
-        host = self.host.numpy()
-        self.d, self.h = {}, {}
-        for name, shape, dtype, off, nbytes in layout:
-            self.d[name] = self.dev[off:off + nbytes].view(dtype).view(shape)
-            self.h[name] = host[off:off + nbytes].view(_NP[dtype]).reshape(shape)
+        self.d = {name: self.dev[off:off + nbytes].view(dtype).view(shape)
+                  for name, shape, dtype, off, nbytes in self.layout}
+        self.host, self.h = self.twin()
+
+    def twin(self) -> Tuple[torch.Tensor, Dict[str, np.ndarray]]:
+        """Another host buffer of this layout (pinned on a card) and its
+        numpy views."""
+        host = torch.zeros(self.dev.numel(), dtype=torch.uint8,
+                           pin_memory=self.device.type == "cuda")
+        raw = host.numpy()
+        return host, {name: raw[off:off + nbytes].view(_NP[dtype]).reshape(shape)
+                      for name, shape, dtype, off, nbytes in self.layout}
 
     def upload(self) -> None:
         self.dev.copy_(self.host, non_blocking=True)
@@ -90,6 +112,152 @@ class Packed:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
         return self.h
+
+
+class Ring:
+    """Pinned host twins of an input ``Packed`` and an output one, an entry a
+    chunk in flight: the next replay overwrites the graph's fixed buffers, so
+    each chunk uploads from and downloads into its own entry. An entry goes
+    back to the ring once its chunk is fetched; the ring grows to the deepest
+    pipeline its caller keeps (``pipe_max_lag`` + 1 entries)."""
+
+    def __init__(self, inp: Packed, out: Packed):
+        self.inp, self.out = inp, out
+        self.free: List[dict] = []
+
+    def take(self) -> dict:
+        if self.free:
+            return self.free.pop()
+        host_in, h_in = self.inp.twin()
+        host_out, h_out = self.out.twin()
+        cuda = self.inp.device.type == "cuda"
+        return {"host_in": host_in, "in": h_in, "host_out": host_out, "out": h_out,
+                "event": torch.cuda.Event() if cuda else None}
+
+    def give(self, entry: dict) -> None:
+        self.free.append(entry)
+
+
+# ---------------------------------------------------------------------------
+# the device-side cond
+# ---------------------------------------------------------------------------
+
+_captures: List["_Capture"] = []     # the capture in progress, innermost last
+
+
+def cond(pred: torch.Tensor, body: Callable[[], None]) -> None:
+    """JAX's ``lax.cond`` without an else branch: run ``body`` where the 0-d
+    bool ``pred`` on the part's device is true. The caller writes the skip
+    branch's values before the cond, for the body to overwrite. Inside a
+    ``TickGraphs`` capture the body becomes an IF node of the graph (never a
+    host read and never both branches selected after); eagerly, on a card or
+    the CPU, the host reads ``pred``. A capture that ``TickGraphs`` did not
+    start raises: its IF body's launches could not be counted."""
+    if _captures:
+        _captures[-1].branch(pred, body)
+        return
+    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("cond inside a CUDA-graph capture that TickGraphs did not start")
+    if bool(pred):
+        body()
+
+
+# the set-conditional kernel's launches (``csrc/graph_cond.cu``): one an IF
+# node a replay of an assembled graph
+cond.launches = 0
+
+
+class _Capture:
+    """One part's capture: its graph segments (a segment ends at each cond;
+    the cond's body is a segment of its own), the launch counts each IF body
+    holds, in order. ``warming``: the eager pass before a capture, where
+    every body runs."""
+
+    def __init__(self, pool, stream, warming: bool = False):
+        self.pool, self.stream, self.warming = pool, stream, warming
+        self.segments: List[Tuple[int, torch.cuda.CUDAGraph, Optional[torch.Tensor]]] = []
+        self.branches: List[tuple] = []
+        self._open = None
+
+    def __enter__(self) -> "_Capture":
+        _captures.append(self)
+        if not self.warming:
+            self._begin()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        try:
+            if self._open is not None:
+                self._end(0, None, exc)
+        finally:
+            _captures.pop()
+
+    def _begin(self) -> None:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        ctx = torch.cuda.graph(graph, pool=self.pool, stream=self.stream)
+        ctx.__enter__()
+        self._open = (graph, ctx)
+
+    def _end(self, kind: int, pred: Optional[torch.Tensor], exc=(None, None, None)) -> None:
+        graph, ctx = self._open
+        self._open = None
+        ctx.__exit__(*exc)
+        self.segments.append((kind, graph, pred))
+
+    def branch(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
+        if self.warming:
+            body()
+            return
+        before = read_counts()
+        self._end(0, None)
+        self._begin()
+        body()
+        self._end(1, pred)
+        self._begin()
+        self.branches.append(_diff(read_counts(), before))
+        _write_counts(before)
+
+
+class _Composed:
+    """Captured segments assembled into one graph with IF nodes
+    (``csrc/graph_cond.cu``); holds the segments, whose memory the graph
+    reads, and its predicates, for the graph's life."""
+
+    def __init__(self, segments, device: torch.device):
+        import ctypes
+
+        from streamspeech_tpu_torch.kernels import build
+
+        self.segments, self.device = segments, device
+        n = len(segments)
+        kinds = (ctypes.c_int * n)(*[k for k, _, _ in segments])
+        raw = (ctypes.c_void_p * n)(*[g.raw_cuda_graph() for _, g, _ in segments])
+        preds = (ctypes.c_void_p * n)(*[p.data_ptr() if p is not None else 0
+                                        for _, _, p in segments])
+        self.graph, self.exec = ctypes.c_void_p(), ctypes.c_void_p()
+        if_nodes = ctypes.c_int(0)
+        vp = ctypes.c_void_p
+        compose = build.bind("graph_cond", "graph_cond_compose",
+                             (ctypes.c_int, vp, vp, vp, vp, vp, vp))
+        err = compose(n, kinds, raw, preds, ctypes.byref(self.graph), ctypes.byref(self.exec),
+                      ctypes.byref(if_nodes))
+        if err != 0:
+            raise RuntimeError(f"assembling a graph with IF nodes failed: CUDA error {err}")
+        # the IF nodes the graph holds, each with its setter kernel: a body
+        # that captured nothing gets neither
+        self.if_nodes = if_nodes.value
+        self._launch = ("graph_cond", "graph_cond_launch", (vp, vp))
+        self._destroy = build.bind("graph_cond", "graph_cond_destroy", (vp, vp))
+
+    def replay(self) -> None:
+        from streamspeech_tpu_torch.kernels import build
+
+        build.launch(self._launch, self.device, self.exec)
+        cond.launches += self.if_nodes
+
+    def __del__(self):
+        if self.exec:
+            self._destroy(self.graph, self.exec)
 
 
 # ---------------------------------------------------------------------------
@@ -212,13 +380,23 @@ def _add(counts, held):
 
 
 class Slot:
-    """The fixed buffers of the fused tick at batch ``batch``: a session
+    """The fixed buffers of the serving graphs at batch ``batch``: a session
     state (``engine.session_init``), the inputs and bundles of each block
-    size and unit bucket, what the parts hand on, and the starts-word table."""
+    size and unit bucket, what the parts hand on, the starts-word table, the
+    overlapped loop's policy counters (``pol``) and bundle, and the host
+    decode's inputs and results."""
 
     INPUTS = ("valid", "enc_len", "n_tokens", "src_len", "tgt_len", "asr_count",
               "st_count", "last_asr", "last_st", "n_units", "active", "finished",
               "tail_ready", "k1", "n", "whole_word", "max_len", "emission")
+    # the overlapped loop's device-resident counters (JAX's ``pol`` beside
+    # its hypothesis buffer, `session.py:586-587`), rows of ``INPUTS``
+    POL = ("n_tokens", "src_len", "tgt_len", "asr_count", "st_count", "last_asr",
+           "last_st", "n_units")
+    # the overlapped bundle's scalars a stream: JAX's flags, then keep, the
+    # two counts, count and cur_len (`session.py:610-611`)
+    PIPE_VALS = ("do_decode", "do_emit", "ok", "budget_over", "hit_eos", "grew",
+                 "keep", "asr_count", "st_count", "count", "cur_len", "no_room")
 
     def __init__(self, engine, batch: int):
         self.engine, self.batch = engine, batch
@@ -237,8 +415,17 @@ class Slot:
         self._starts_word_src = None
         self.decoded = Packed([("vals", (3, batch), torch.long),
                                ("mt_buf", (batch, m), torch.long)], dev)
+        self.pol = Packed([("ints", (len(self.POL), batch), torch.long),
+                           ("mt_buf", (batch, m), torch.long)], dev)
+        self.pol_rows = torch.tensor([self.INPUTS.index(n) for n in self.POL], device=dev)
+        self.decode_in = Packed([("ints", (3, batch), torch.long),
+                                 ("cross_valid", (batch, engine.max_enc_frames), torch.bool)],
+                                dev)
+        self.decode_out = Packed([("toks", (batch, engine.max_decode_per_call), torch.long),
+                                  ("vals", (2, batch), torch.long)], dev)
         self._io: Dict[int, Tuple[Packed, Packed]] = {}
         self._emitted: Dict[int, Packed] = {}
+        self._pipe: Dict[int, Tuple[Packed, Ring]] = {}
 
     def io(self, block_frames: int) -> Tuple[Packed, Packed]:
         """(inputs, encode bundle) for blocks of ``block_frames`` fbank frames."""
@@ -265,6 +452,22 @@ class Slot:
                  ("tail", (b, e.emit_tail_cap), torch.float32)], e.device)
         return self._emitted[unit_capacity]
 
+    def pipe(self, block_frames: int) -> Tuple[Packed, Ring]:
+        """The overlapped tick's bundle for blocks of ``block_frames`` frames
+        (units and durations at the largest unit bucket, whatever the
+        graph's), and its ring of host twins beside the inputs'."""
+        if block_frames not in self._pipe:
+            b, e = self.batch, self.engine
+            u, s = e.unit_buckets[-1], block_frames // 4
+            out = Packed([("vals", (len(self.PIPE_VALS), b), torch.long),
+                          ("ids", (2, b, s), torch.long),
+                          ("units", (b, u), torch.long),
+                          ("dur", (b, u), torch.long),
+                          ("tail", (b, e.emit_tail_cap), torch.float32),
+                          ("mt_buf", (b, e.max_mt_tokens), torch.long)], e.device)
+            self._pipe[block_frames] = (out, Ring(self.io(block_frames)[0], out))
+        return self._pipe[block_frames]
+
     def set_starts_word(self, table) -> None:
         """The whole-word table [V] bool, copied in when the caller's differs."""
         if table is not self._starts_word_src:
@@ -287,65 +490,96 @@ class Slot:
 
 class TickGraphs:
     """The engine's captured parts, keyed by their static arguments, sharing
-    one memory pool; and the slots, one a batch size."""
+    one memory pool and one capture stream; and the slots, one a batch
+    size."""
 
     def __init__(self, engine):
         self.engine = engine
         self.cuda = engine.device.type == "cuda"
         self.slots: Dict[int, Slot] = {}
-        self.graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, List[int], tuple]] = {}
+        # key -> (replay, mirror moves, launches held outside any cond,
+        #         launches held by each cond's body)
+        self.graphs: Dict[Hashable, Tuple[Callable[[], None], List[int], tuple,
+                                          List[tuple]]] = {}
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self.stream = torch.cuda.Stream(engine.device) if self.cuda else None
         self.captured = 0
         self.capture_s = 0.0
         self.replays = 0
+        self.replays_by_part: Dict[str, int] = {}     # by the key's first field
+        self.if_nodes = 0
 
     def slot(self, batch: int) -> Slot:
         if batch not in self.slots:
             self.slots[batch] = Slot(self.engine, batch)
         return self.slots[batch]
 
-    def run(self, slot: Slot, key: Hashable, part: Callable[[], None]) -> None:
+    def run(self, slot: Slot, key: Hashable, part: Callable[[], None],
+            keep: Sequence[torch.Tensor] = ()) -> List[tuple]:
         """Run ``part`` on ``slot``: on the card, replay its graph (capturing
-        it first if no graph has ``key``); on the CPU, call it."""
+        it first if no graph has ``key``; ``keep``: tensors beside the slot's
+        state that the capture puts back); on the CPU, call it. Returns the
+        launches each cond body of the graph holds, for ``count_branches``
+        (none on the CPU, where a body's launches count as it runs)."""
         if not self.cuda:
             part()
-            return
+            return []
         if key not in self.graphs:
-            self.capture(slot, key, part)
-        graph, delta, held = self.graphs[key]
-        graph.replay()
+            self.capture(slot, key, part, keep)
+        replay, delta, held, branches = self.graphs[key]
+        replay()
         self.replays += 1
+        self.replays_by_part[key[0]] = self.replays_by_part.get(key[0], 0) + 1
         set_mirrors(slot.state, [m + d for m, d in zip(mirrors(slot.state), delta)])
         _write_counts(_add(read_counts(), held))
+        return branches
 
-    def capture(self, slot: Slot, key: Hashable, part: Callable[[], None]) -> None:
-        """Capture ``part`` as the graph of ``key``; the slot's state is as
-        before. On the CPU, nothing."""
+    @staticmethod
+    def count_branches(branches: List[tuple], taken: Sequence[bool]) -> None:
+        """Add the launches of each cond body that ran (``taken``, read from
+        the bundle) to the kernels' counts; ``branches`` is empty on the CPU."""
+        for held, ran in zip(branches, taken):
+            if ran:
+                _write_counts(_add(read_counts(), held))
+
+    def capture(self, slot: Slot, key: Hashable, part: Callable[[], None],
+                keep: Sequence[torch.Tensor] = ()) -> None:
+        """Capture ``part`` as the graph of ``key``; the slot's state and the
+        tensors of ``keep`` are as before. On the CPU, nothing."""
         if not self.cuda or key in self.graphs:
             return
         t0 = time.perf_counter()
         dev = self.engine.device
-        saved = [t.clone() for t in state_tensors(slot.state)]
+        tensors = state_tensors(slot.state) + list(keep)
+        saved = [t.clone() for t in tensors]
         before = mirrors(slot.state)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            part()      # lazy initialisation, outside the capture
+        with torch.cuda.stream(side), _Capture(self.pool, self.stream, warming=True):
+            part()      # lazy initialisation, every cond body, outside the capture
         torch.cuda.current_stream(dev).wait_stream(side)
         delta = [a - b for a, b in zip(mirrors(slot.state), before)]
-        for t, s in zip(state_tensors(slot.state), saved):
+        for t, s in zip(tensors, saved):
             t.copy_(s)
         counts = read_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with _Capture(self.pool, self.stream) as cap:
             part()
         held = _diff(read_counts(), counts)
         _write_counts(counts)           # capturing launches nothing
         set_mirrors(slot.state, before)
         del saved
+        if_nodes = 0
+        if len(cap.segments) == 1:
+            graph = cap.segments[0][1]
+            graph.instantiate()
+            replay = graph.replay
+        else:
+            composed = _Composed(cap.segments, dev)
+            replay, if_nodes = composed.replay, composed.if_nodes
         torch.cuda.synchronize(dev)
-        self.graphs[key] = (graph, delta, held)
+        self.graphs[key] = (replay, delta, held, cap.branches)
         self.captured += 1
+        self.if_nodes += if_nodes
         self.capture_s += time.perf_counter() - t0
 
     def pool_bytes(self) -> Optional[int]:
@@ -360,4 +594,6 @@ class TickGraphs:
 
     def stats(self) -> dict:
         return {"graphs_captured": self.captured, "capture_s": self.capture_s,
-                "graph_replays": self.replays, "pool_bytes": self.pool_bytes()}
+                "graph_replays": self.replays,
+                "graph_replays_by_part": dict(self.replays_by_part),
+                "if_nodes": self.if_nodes, "pool_bytes": self.pool_bytes()}

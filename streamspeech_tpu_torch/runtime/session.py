@@ -22,13 +22,20 @@ and the windowed vocode tail, with the host reading one small bundle after
 each of its three parts (``runtime/graphs.py``). On a card each part is a
 CUDA graph, captured at ``warmup`` (or at its first use) and replayed; on the
 CPU the same parts run eagerly. ``StreamingSession.fused_policy`` and
-``BatchedStreamingSession.fused_tick`` drive it. The pipelined programs
-(``policy_step_pipelined``, ``pipe_*``) are not ported (ROADMAP §A item 6).
+``BatchedStreamingSession.fused_tick`` drive it.
+
+The overlapped tick (``policy_step_pipelined``, JAX :564-626) keeps one
+stream's policy counters on the device and runs a whole chunk as one graph
+whose two conds are IF nodes, so the host dispatches chunk N + 1 before it
+reads chunk N's bundle (``StreamingSession.pipe_*``). The host MT decode
+(``mt_decode_greedy``: a finish, a fallback, the host tick, the batched
+session's drains) is a graph a batch size and step count on a card.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -42,7 +49,7 @@ from streamspeech_tpu_torch.models.layers import (
 from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.models.vocoder import SAMPLES_PER_FRAME, CodeGenerator
 from streamspeech_tpu_torch.ops.ctc import ctc_collapse, ctc_collapse_device
-from streamspeech_tpu_torch.runtime.graphs import Slot, TickGraphs
+from streamspeech_tpu_torch.runtime.graphs import Slot, TickGraphs, cond
 
 EOS = 2
 PAD = 1
@@ -143,29 +150,65 @@ class StreamSpeechEngine:
 
     @torch.no_grad()
     def mt_decode_greedy(self, mt_self, mt_cross, hyps: List[List[int]], budgets,
-                         cross_valid: Optional[torch.Tensor] = None):
+                         cross_valid: Optional[np.ndarray] = None, session=None):
         """One call of the scanned greedy MT decode for B streams
-        (`session.py:1366-1421`, `batched.py:318-360`). hyps [B]: each
-        stream's hypothesis, whose length is its self caches' valid length
-        (they hold the feeds [EOS] + hyp[:-1]; the newest token is unfed);
-        budgets [B] on the host, at most ``max_decode_per_call``. The room is
-        checked on the host; the inputs go up in one copy and the results
-        come back in one. Returns (new tokens a stream, hit_eos [B])."""
+        (`session.py:1366-1421`, `batched.py:318-360`) of ``session``, whose
+        caches ``mt_self`` and ``mt_cross`` must be (anything else raises).
+        hyps [B]: each stream's hypothesis, whose length is its self caches'
+        valid length (they hold the feeds [EOS] + hyp[:-1]; the newest token
+        is unfed); budgets [B] on the host, at most ``max_decode_per_call``;
+        ``cross_valid`` [B, max_enc_frames] bool on the host, the encoder
+        frames each stream's cross-attention may read (None: the cross
+        caches' whole valid length). The room is checked on the host first.
+
+        The decode runs on the slot of the batch size, binding the session to
+        it (``graphs.Slot.bind``): on a card the graph of (B, steps, dtype) is
+        replayed, its inputs filled by one upload and its results read back
+        in one copy; on the CPU the same part runs eagerly. Returns (new
+        tokens a stream, hit_eos [B])."""
         lens = np.asarray([len(t) for t in hyps], np.int64)
         budgets = np.asarray(budgets, np.int64)
         steps = int(budgets.max())
         if int(lens.max()) + steps > mt_self[0].capacity:
             raise ValueError(f"KV cache overflow: {int(lens.max())} + {steps} > "
                              f"capacity {mt_self[0].capacity}")
+        if session is None or mt_self is not session.mt_self \
+                or mt_cross is not session.mt_cross:
+            raise ValueError("mt_decode_greedy decodes a session's own caches: pass "
+                             "them with session=")
         first = [t[-1] if t else EOS for t in hyps]
-        first, offset, budget = host_to_device(np.stack([first, lens, budgets]),
-                                               self.device)
+        b = len(hyps)
+        slot = self.graphs.slot(b)
+        slot.bind(session)
+        h = slot.decode_in.h
+        h["ints"][:] = np.stack([first, lens, budgets])
+        if cross_valid is None:
+            cross_valid = self.enc_frames_valid(slot.state[3][0].index)[None]
+        h["cross_valid"][:] = cross_valid
+        slot.decode_in.upload()
+        self.graphs.run(slot, ("mt_decode", b, steps, str(self.model.dtype)),
+                        lambda: self._decode_part(slot, steps))
+        got = slot.decode_out.download()
+        toks, (emitted, hit_eos) = got["toks"], got["vals"]
+        return [toks[i, :emitted[i]].tolist() for i in range(b)], hit_eos > 0
+
+    def enc_frames_valid(self, n: int) -> np.ndarray:
+        """[max_enc_frames] bool: the first ``n`` encoder frames."""
+        return np.arange(self.max_enc_frames) < n
+
+    @torch.no_grad()
+    def _decode_part(self, slot: Slot, steps: int):
+        """The host decode's part: ``steps`` greedy steps from the slot's
+        decode inputs (first token, offset, budget [B]; the cross-attention's
+        frames [B, T]) into its results (tokens, emitted, hit_eos)."""
+        x = slot.decode_in.d
+        first, offset, budget = x["ints"].unbind(0)
+        _, _, mt_self, mt_cross = slot.state
         toks, emitted, hit_eos = self.model.mt_decode_greedy(
-            first, offset, budget, mt_self, mt_cross, steps, cross_valid)
-        read = torch.cat([toks, emitted[:, None], hit_eos[:, None].long()],
-                         dim=1).cpu().numpy()
-        return ([read[i, : read[i, steps]].tolist() for i in range(len(hyps))],
-                read[:, steps + 1] > 0)
+            first, offset, budget, mt_self, mt_cross, steps, x["cross_valid"])
+        out = slot.decode_out.d
+        out["toks"][:, :steps].copy_(toks)
+        out["vals"].copy_(torch.stack([emitted, hit_eos.long()]))
 
     def _collapsed_units(self, mt_tokens, enc_buf, enc_len, n_tokens, capacity: int):
         """Unit synthesis → CTC collapse on the device → vocoder codes: the
@@ -375,6 +418,153 @@ class StreamSpeechEngine:
             one, one * 0, one * 0, chunk, conv_chunk, whole_word, k1, n, max_len,
             mt_cap, unit_capacity)
 
+    # ------------------------------------------------------------------
+    # the overlapped tick (`session.py:564-626`): one graph a chunk, its
+    # conds IF nodes, the policy counters resident on the device
+    # ------------------------------------------------------------------
+
+    def pipe_pack(self, session, mt_tokens: List[int], src_len: int, tgt_len: int,
+                  asr_count: int, st_count: int, last_asr: int, last_st: int,
+                  n_units: int) -> None:
+        """(Re)write the device-resident policy counters of ``session``'s slot
+        (B = 1) from host values, in one copy (JAX ``pipe_pack``): at the
+        overlapped loop's entry and after each host interlude, when the host
+        mirror is authoritative."""
+        slot = self.graphs.slot(1)
+        slot.bind(session)
+        h = slot.pol.h
+        h["mt_buf"].fill(PAD)
+        h["mt_buf"][0, :len(mt_tokens)] = mt_tokens
+        h["ints"][:, 0] = [len(mt_tokens), src_len, tgt_len, asr_count, st_count,
+                           last_asr, last_st, n_units]
+        slot.pol.upload()
+
+    def policy_step_pipelined(self, session, block: np.ndarray, enc_len: int,
+                              starts_word, chunk: int, conv_chunk: int, whole_word: bool,
+                              k1: int, n: int, max_len: int, mt_cap: int,
+                              unit_capacity: int) -> dict:
+        """Dispatch one policy chunk of ``session`` (B = 1) against the
+        device-resident counters (JAX ``policy_step_pipelined``): the block
+        and the host-known inputs (``enc_len``, the dispatched encoder
+        frames; k1, n, whole_word, max_len) go up from a ring entry in one
+        copy, the chunk's graph replays, and its bundle comes back into the
+        same entry, a copy enqueued behind it with an event recorded. Never
+        waits for the card. Returns the in-flight record for
+        ``pipe_fetch``."""
+        block_frames = block.shape[0]
+        slot = self.graphs.slot(1)
+        slot.bind(session)
+        slot.set_starts_word(starts_word)
+        inp, _ = slot.io(block_frames)
+        out, ring = slot.pipe(block_frames)
+        entry = ring.take()
+        ints = dict(zip(Slot.INPUTS, entry["in"]["ints"]))
+        for name, value in (("valid", block_frames), ("enc_len", enc_len), ("active", 1),
+                            ("finished", 0), ("tail_ready", 0), ("k1", k1), ("n", n),
+                            ("whole_word", int(whole_word)), ("max_len", max_len),
+                            ("emission", 1)):
+            ints[name][:] = value
+        entry["in"]["block"][0] = block
+        inp.dev.copy_(entry["host_in"], non_blocking=True)
+        key = ("pipelined", 1, block_frames, chunk, conv_chunk, str(self.model.dtype),
+               mt_cap, unit_capacity)
+        branches = self.graphs.run(
+            slot, key, lambda: self._tick_pipelined(slot, block_frames, chunk, conv_chunk,
+                                                    mt_cap, unit_capacity),
+            keep=(slot.pol.dev,))
+        entry["host_out"].copy_(out.dev, non_blocking=True)
+        if entry["event"] is not None:
+            entry["event"].record()
+        return {"entry": entry, "ring": ring, "branches": branches,
+                "unit_capacity": unit_capacity}
+
+    def pipe_fetch(self, rec: dict) -> Tuple[Dict[str, np.ndarray], float]:
+        """The bundle of a dispatched chunk (``policy_step_pipelined``):
+        waits on its copy's event only, where the copy has not landed yet.
+        Adds the launches of the cond bodies its flags say ran. Returns
+        (the bundle's arrays of stream 0, the seconds the host waited, 0.0
+        where the copy had landed)."""
+        entry, ev = rec["entry"], rec["entry"]["event"]
+        waited = 0.0
+        if ev is not None and not ev.query():
+            t0 = time.perf_counter()
+            ev.synchronize()
+            waited = time.perf_counter() - t0
+        got = entry["out"]
+        vals = dict(zip(Slot.PIPE_VALS, got["vals"][:, 0].tolist()))
+        u = rec["unit_capacity"]
+        bundle = {**vals, "asr_ids": got["ids"][0, 0].copy(), "st_ids": got["ids"][1, 0].copy(),
+                  "units": got["units"][0, :u].copy(), "dur": got["dur"][0, :u].copy(),
+                  "tail": got["tail"][0].copy(), "mt_buf": got["mt_buf"][0].copy()}
+        rec["ring"].give(entry)
+        TickGraphs.count_branches(rec["branches"], (vals["do_decode"] > 0,
+                                                    vals["do_emit"] > 0))
+        return bundle, waited
+
+    @torch.no_grad()
+    def _tick_pipelined(self, slot: Slot, block_frames: int, chunk: int, conv_chunk: int,
+                        mt_cap: int, unit_capacity: int):
+        """The overlapped tick (`session.py:564-611`): the fused tick's three
+        parts with the counters read from ``pol`` instead of the upload, the
+        decode and the emission each under a ``cond`` (their skip values
+        written first), then the agent's counter recurrences written back
+        into ``pol`` (:598-609), and the bundle in JAX's order (:610-611).
+        ``no_room``: the decode lacked the MT caches' room, where the
+        synchronous tick would not have applied and the host takes the
+        chunk (``StreamingSession.fused_policy``)."""
+        inp, enc_out = slot.io(block_frames)
+        pol, mid, dec = slot.pol.d, slot.mid, slot.decoded.d
+        inp.d["ints"].index_copy_(0, slot.pol_rows, pol["ints"])
+        inp.d["mt_buf"].copy_(pol["mt_buf"])
+        self._tick_encode(slot, block_frames, chunk, conv_chunk)
+        x = self._inputs(slot, block_frames)
+        n_tokens = x["n_tokens"]
+        # JAX's skip branch (`session.py:453-455`)
+        mid["keep"].copy_(n_tokens)
+        mid["mt_buf"].copy_(x["mt_buf"])
+        mid["do_emit"].zero_()
+        dec["vals"].zero_()
+        dec["vals"][0].copy_(n_tokens)
+        cond(mid["do_decode"].any(), lambda: self._tick_decode(slot, block_frames))
+        # JAX's no-emit bundle (:508-513)
+        em = slot.emitted(unit_capacity).d
+        em["vals"].zero_()
+        em["vals"][2].fill_(1)
+        em["units"].fill_(self.unit_blank)
+        em["dur"].zero_()
+        em["tail"].zero_()
+        cond(mid["do_emit"].any(), lambda: self._tick_emit(slot, block_frames, mt_cap,
+                                                           unit_capacity))
+        asr_count, st_count, do_decode, budget_over, grew = enc_out.d["vals"].unbind(0)
+        keep, hit_eos, do_emit = dec["vals"].unbind(0)
+        count, cur_len, ok = em["vals"].unbind(0)
+        ids = enc_out.d["ids"]
+        out_valid = -(-x["valid"] // 4)
+        last = (out_valid - 1).clamp(min=0)[None, :, None].expand(2, -1, 1)
+        last_ids = torch.where(out_valid > 0, ids.gather(2, last)[..., 0],
+                               torch.stack([x["last_asr"], x["last_st"]]))
+        grown = grew > 0
+        n_units = x["n_units"]
+        pol["ints"].copy_(torch.stack([
+            keep,
+            torch.where(grown, torch.maximum(asr_count, x["src_len"]), x["src_len"]),
+            torch.where(grown, torch.maximum(st_count, x["tgt_len"]), x["tgt_len"]),
+            asr_count, st_count, last_ids[0], last_ids[1],
+            torch.where((do_emit > 0) & (ok > 0) & (count > n_units), count, n_units)]))
+        pol["mt_buf"].copy_(mid["mt_buf"])
+        no_room = n_tokens + self.fused_steps > self.max_mt_tokens
+        out = slot.pipe(block_frames)[0].d
+        out["vals"].copy_(torch.stack([do_decode, do_emit, ok, budget_over, hit_eos, grew,
+                                       keep, asr_count, st_count, count, cur_len,
+                                       no_room.long()]))
+        out["ids"].copy_(ids)
+        out["units"].fill_(self.unit_blank)
+        out["units"][:, :unit_capacity].copy_(em["units"])
+        out["dur"].zero_()
+        out["dur"][:, :unit_capacity].copy_(em["dur"])
+        out["tail"].copy_(em["tail"])
+        out["mt_buf"].copy_(mid["mt_buf"])
+
     def _inputs(self, slot: Slot, block_frames: int) -> Dict[str, torch.Tensor]:
         inp = slot.io(block_frames)[0].d
         return {**dict(zip(Slot.INPUTS, inp["ints"].unbind(0))),
@@ -491,18 +681,27 @@ class StreamSpeechEngine:
         out["dur"].copy_(dur)
         out["tail"].copy_(tail)
 
-    def warmup(self, chunk: int = 8, conv_chunk: int = 8, batch_sizes=(1,)) -> dict:
-        """Capture every part of the fused tick for the given chunking, at
-        each batch size in ``batch_sizes``, for every MT bucket (the variants
-        JAX's ``warmup`` compiles, `session.py:878-1028`, there for B = 1);
-        a serving-startup cost, not a per-chunk one. Whether a stream
-        finished, whole_word, k1, n and max_len are inputs of the graphs, so
-        they need no variants. The slots' states are left as they were.
-        Returns ``graphs.stats()``. On the CPU, nothing is captured."""
+    def warmup(self, chunk: int = 8, conv_chunk: int = 8, batch_sizes=(1,),
+               pipelined: bool = False) -> dict:
+        """Capture the serving graphs for the given chunking (the variants
+        JAX's ``warmup`` compiles, `session.py:878-1028`); a serving-startup
+        cost, not a per-chunk one. Whether a stream finished, whole_word, k1,
+        n and max_len are inputs of the graphs, so they need no variants.
+
+        At each batch size in ``batch_sizes``: every part of the fused tick
+        for every MT bucket, and the host decode at every step count up to
+        ``max_decode_per_call``. With ``pipelined``: the overlapped tick of
+        one stream for every MT bucket and the host decode at B = 1 (its
+        fallbacks and finish decode; JAX's ``pipe_dispatch[mt{cap}]``,
+        ``pipe_fallback_decode``), and not the fused tick it never runs
+        (JAX's ``sync=not pipelined``, :890-895). The slots' states are left
+        as they were. Returns ``graphs.stats()``. On the CPU, nothing is
+        captured."""
         block_frames = 4 * math.lcm(max(chunk, 1), max(conv_chunk, 1))
         steps = self.fused_steps
         up = self.model.cfg.unit_decoder.ctc_upsample_rate
-        for b in batch_sizes:
+        dtype = str(self.model.dtype)
+        for b in ((1,) if pipelined else batch_sizes):
             slot = self.graphs.slot(b)
             inp, _ = slot.io(block_frames)
             ints = dict(zip(Slot.INPUTS, inp.h["ints"]))
@@ -510,13 +709,24 @@ class StreamSpeechEngine:
                                 ("max_len", self.max_mt_tokens - 2), ("emission", 1)):
                 ints[name][:] = value
             inp.h["mt_buf"].fill(NSPECIAL)
-            key = (b, block_frames, chunk, conv_chunk, str(self.model.dtype))
+            key = (b, block_frames, chunk, conv_chunk, dtype)
             for mt_cap in self.mt_buckets:
                 fill = max(min(mt_cap - steps - 2, self.max_mt_tokens - steps), 0)
                 ints["n_tokens"][:] = fill
                 inp.upload()
                 u_cap = _bucket(min(mt_cap * up, self.unit_buckets[-1]), self.unit_buckets)
                 slot.emitted(u_cap)
+                if pipelined:
+                    slot.pol.h["ints"].fill(0)
+                    slot.pol.h["ints"][Slot.POL.index("n_tokens")] = fill
+                    slot.pol.h["mt_buf"].fill(NSPECIAL)
+                    slot.pol.upload()
+                    slot.pipe(block_frames)
+                    self.graphs.capture(
+                        slot, ("pipelined",) + key + (mt_cap, u_cap),
+                        lambda: self._tick_pipelined(slot, block_frames, chunk, conv_chunk,
+                                                     mt_cap, u_cap), keep=(slot.pol.dev,))
+                    continue
                 self.graphs.capture(slot, ("encode",) + key, lambda: self._tick_encode(
                     slot, block_frames, chunk, conv_chunk))
                 self.graphs.capture(slot, ("decode",) + key,
@@ -525,6 +735,14 @@ class StreamSpeechEngine:
                 self.graphs.capture(slot, ("emit",) + key + (mt_cap, u_cap),
                                     lambda: self._tick_emit(slot, block_frames, mt_cap,
                                                             u_cap))
+            h = slot.decode_in.h
+            h["ints"][0], h["ints"][1] = NSPECIAL, 0
+            h["cross_valid"][:] = self.enc_frames_valid(block_frames // 4)
+            for n_steps in range(1, self.max_decode_per_call + 1):
+                h["ints"][2] = n_steps
+                slot.decode_in.upload()
+                self.graphs.capture(slot, ("mt_decode", b, n_steps, dtype),
+                                    lambda: self._decode_part(slot, n_steps))
         return self.graphs.stats()
 
 
@@ -544,6 +762,22 @@ class StreamingSession:
         self.pending_feats = np.zeros(
             (0, engine.model.cfg.encoder.input_feat_per_channel), np.float32)
         self.finished_input = False
+        # a list to which ``fused_policy`` appends each call's inputs, when set
+        # (JAX's ``record``: a benchmark replays them, ``replay_recorded``)
+        self.record: Optional[List[Dict]] = None
+        # the overlapped loop (`session.py:1053-1067`): while chunks are in
+        # flight the fields above are a lagged mirror, advanced as each
+        # chunk's bundle is fetched; the device's positions (``enc_state.pos``,
+        # the caches' ``index``) advance at dispatch, and
+        # ``enc_len_dispatched`` counts the encoder frames dispatched
+        self.pipe_state: Optional[str] = None
+        self.pipe_inflight: List[Dict] = []
+        self.enc_len_dispatched = 0
+        self._pipe_src_len = 0
+        self._pipe_tgt_len = 0
+        self._pipe_n_units = 0
+        self.pipe_stats = {"dispatches": 0, "fetches": 0, "waited_fetches": 0,
+                           "wait_s": 0.0, "deepest": 0}
 
     # ------------------------------------------------------------------
     # encoder side
@@ -584,6 +818,7 @@ class StreamingSession:
         pos = self.enc_state.pos  # the KV append above raised if pos > capacity
         self.enc_buf[:, pos - s:pos] = enc
         self.enc_len += s
+        self.enc_len_dispatched = max(self.enc_len_dispatched, self.enc_len)
         self.mt_cross = self.e.model.mt_fill_cross(enc, self.mt_cross)
         self.asr_ids.extend(asr_ids[0].tolist())
         self.st_ids.extend(st_ids[0].tolist())
@@ -620,11 +855,16 @@ class StreamingSession:
         # the host side of the device growth recurrence
         asr_count = len(ctc_collapse(np.asarray(self.asr_ids), blank=0)[0])
         st_count = len(ctc_collapse(np.asarray(self.st_ids), blank=0)[0])
-        got = e.policy_step(
-            self, block, src_len, tgt_len, asr_count, st_count,
-            self.asr_ids[-1] if self.asr_ids else -1,
-            self.st_ids[-1] if self.st_ids else -1, n_prev_units, starts_word,
-            chunk, conv_chunk, whole_word, k1, n, max_len, mt_cap, u_cap)
+        args = dict(block=block, src_len=src_len, tgt_len=tgt_len, asr_count=asr_count,
+                    st_count=st_count, last_asr=self.asr_ids[-1] if self.asr_ids else -1,
+                    last_st=self.st_ids[-1] if self.st_ids else -1,
+                    n_units=n_prev_units, starts_word=starts_word, chunk=chunk,
+                    conv_chunk=conv_chunk, whole_word=whole_word, k1=k1, n=n,
+                    max_len=max_len, mt_cap=mt_cap, unit_capacity=u_cap)
+        if self.record is not None:
+            self.record.append(dict(args, block=block.copy(), enc_len=self.enc_len,
+                                    mt_tokens=list(self.mt_tokens)))
+        got = e.policy_step(self, **args)
         flags = got["flags"][0]
         out = dict(zip(("do_decode", "do_emit", "ok", "budget_over", "hit_eos", "grew"),
                        map(bool, flags)))
@@ -640,6 +880,127 @@ class StreamingSession:
             out["dur"] = got["dur"][0, :out["count"]]
             out["tail"] = got["tail"][0, :int(got["cur_len"][0])]
         return out
+
+    def replay_recorded(self, rec: Dict) -> Dict[str, np.ndarray]:
+        """Replay one call ``fused_policy`` recorded (``record``) on this
+        session: its hypothesis and encoder length as they were then, the
+        same inputs. Returns the engine's bundle; the encoder length and
+        the hypothesis follow it, as ``fused_policy`` moves them."""
+        self.mt_tokens, self.enc_len = list(rec["mt_tokens"]), rec["enc_len"]
+        got = self.e.policy_step(self, **{k: v for k, v in rec.items()
+                                          if k not in ("mt_tokens", "enc_len")})
+        self.enc_len += rec["block"].shape[0] // 4
+        if got["flags"][0, 0]:
+            self.mt_tokens = got["mt_buf"][0, :int(got["keep"][0])].tolist()
+        return got
+
+    # ------------------------------------------------------------------
+    # the overlapped loop (`session.py:1228-1352`): dispatch chunk N + 1
+    # before fetching chunk N; the fields above are a mirror, lagged
+    # ------------------------------------------------------------------
+
+    def pipe_resync(self) -> None:
+        """(Re)write the device counters from the host mirror, which is
+        authoritative here: at the loop's entry and after a host interlude
+        (a fallback, a drain). Nothing may be in flight."""
+        if self.pipe_inflight:
+            raise RuntimeError("pipe_resync with chunks in flight")
+        self.e.pipe_pack(
+            self, self.mt_tokens, self._pipe_src_len,
+            self._pipe_tgt_len, len(ctc_collapse(np.asarray(self.asr_ids), blank=0)[0]),
+            len(ctc_collapse(np.asarray(self.st_ids), blank=0)[0]),
+            self.asr_ids[-1] if self.asr_ids else -1,
+            self.st_ids[-1] if self.st_ids else -1, self._pipe_n_units)
+        self.enc_len_dispatched = self.enc_len
+        self.pipe_state = "synced"
+
+    def pipe_set_counters(self, src_len: int, tgt_len: int, n_units: int) -> None:
+        """The agent's policy counters (prefix lengths, emitted units), which
+        the next resync writes to the device."""
+        self._pipe_src_len, self._pipe_tgt_len, self._pipe_n_units = (src_len, tgt_len,
+                                                                      n_units)
+
+    def _pipe_max_len(self) -> int:
+        return min(self.e.max_mt_tokens - 2, self.e.mt_buckets[-1] - 2)
+
+    def pipe_applicable(self, n_blocks_pending: int, block_enc: int) -> bool:
+        """Whether the next chunk can be dispatched: one whole block pending,
+        the encoder caches' room at the dispatched position, and the MT
+        caches' room at the mirror's hypothesis, the synchronous tick's
+        conditions (``fused_policy``). A hypothesis that outgrows the room
+        while chunks are in flight is caught on the device (the bundle's
+        ``no_room``), and the host takes that chunk as the synchronous path
+        would. (JAX asks for room for a hypothesis at ``max_len`` instead,
+        which the engine's default sizes never give: its overlapped agent
+        then takes the host path for every chunk.)"""
+        return (not self.finished_input
+                and n_blocks_pending == 1
+                and len(self.mt_tokens) + self.e.fused_steps <= self.e.max_mt_tokens
+                and self.enc_len_dispatched + block_enc <= self.e.max_enc_frames)
+
+    def pipe_dispatch(self, block: np.ndarray, chunk: int, conv_chunk: int, k1: int,
+                      n: int, whole_word: bool, max_len: int, starts_word,
+                      decision_ms: float, block_enc: int) -> None:
+        """Dispatch one policy chunk against the device counters and enqueue
+        the copy of its bundle (``StreamSpeechEngine.policy_step_pipelined``).
+        Never waits for the card: no read between two dispatches. The MT
+        bucket bounds the hypothesis by the lagged mirror plus ``steps`` for
+        each chunk in flight (JAX :1280-1287); a larger bucket than the
+        synchronous tick's costs compute and changes no result."""
+        e = self.e
+        steps = e.fused_steps
+        max_len = min(max_len, self._pipe_max_len())
+        bound = min(len(self.mt_tokens) + (len(self.pipe_inflight) + 1) * steps, max_len)
+        mt_cap = _bucket(min(bound + 2, e.mt_buckets[-1]), e.mt_buckets)
+        u_cap = _bucket(min(mt_cap * e.model.cfg.unit_decoder.ctc_upsample_rate,
+                            e.unit_buckets[-1]), e.unit_buckets)
+        rec = e.policy_step_pipelined(self, block, self.enc_len_dispatched, starts_word,
+                                      chunk, conv_chunk, whole_word, k1, n, max_len,
+                                      mt_cap, u_cap)
+        self.enc_len_dispatched += block_enc
+        self.pipe_inflight.append(dict(rec, t=time.perf_counter(), block_enc=block_enc,
+                                       decision_ms=decision_ms))
+        self.pipe_stats["dispatches"] += 1
+        self.pipe_stats["deepest"] = max(self.pipe_stats["deepest"], len(self.pipe_inflight))
+
+    def pipe_fetch_oldest(self, encoder_only: bool = False) -> Dict:
+        """Fetch the oldest chunk in flight and fold it into the mirror: its
+        encoder frames and CTC ids, and (unless ``encoder_only``: a fallback
+        replays the chunk's policy on the host) its hypothesis. Returns the
+        decisions as ``fused_policy`` does, with ``decision_ms``,
+        ``no_room`` and, where it emitted, the units, durations and tail."""
+        rec = self.pipe_inflight.pop(0)
+        got, waited = self.e.pipe_fetch(rec)
+        self.pipe_stats["fetches"] += 1
+        self.pipe_stats["waited_fetches"] += waited > 0
+        self.pipe_stats["wait_s"] += waited
+        self.enc_len += rec["block_enc"]
+        self.asr_ids.extend(got["asr_ids"].tolist())
+        self.st_ids.extend(got["st_ids"].tolist())
+        out = {name: bool(got[name]) for name in ("do_decode", "do_emit", "ok",
+                                                    "budget_over", "hit_eos", "grew",
+                                                    "no_room")}
+        out.update(keep=got["keep"], asr_count=got["asr_count"],
+                   st_count=got["st_count"], count=got["count"],
+                   decision_ms=rec["decision_ms"], encoder_only=encoder_only)
+        if encoder_only:
+            return out
+        if out["do_decode"]:
+            self.mt_tokens = got["mt_buf"][:out["keep"]].tolist()
+        if out["do_emit"]:
+            out["units"] = got["units"][:out["count"]].tolist()
+            out["dur"] = got["dur"][:out["count"]]
+            out["tail"] = got["tail"][:got["cur_len"]]
+        return out
+
+    def mirror_cross_valid(self) -> Optional[np.ndarray]:
+        """[1, max_enc_frames] bool: the frames a host decode may attend while
+        the device encoder is ahead of the mirror (a fallback or a replay
+        with chunks in flight): the mirror's ``enc_len``, what the
+        synchronous path saw at this chunk. None when they agree."""
+        if self.enc_len_dispatched <= self.enc_len:
+            return None
+        return self.e.enc_frames_valid(self.enc_len)[None]
 
     def ctc_hypotheses(self):
         """Collapsed (tokens, frame indices) of the ASR and ST CTC heads
@@ -657,14 +1018,19 @@ class StreamingSession:
         EOS when it is negative (`session.py:1366-1421`), in scan calls of at
         most ``max_decode_per_call`` steps, one host read each. At entry and
         exit the caches hold [eos] + tokens[:-1]; the feed that predicted EOS
-        is rolled back. Returns the hypothesis."""
+        is rolled back. Each call replays the engine's decode graph on a card
+        (``StreamSpeechEngine.mt_decode_greedy``); while the device encoder is
+        ahead of the mirror (the overlapped loop's fallbacks) the
+        cross-attention reads the mirror's frames (``mirror_cross_valid``).
+        Returns the hypothesis."""
         max_len = min(max_len, self.e.max_mt_tokens - 2, self.e.mt_buckets[-1] - 2)
         budget = max_new_tokens if max_new_tokens >= 0 else max_len
         budget = min(budget, max_len - len(self.mt_tokens))
+        cross_valid = self.mirror_cross_valid()
         while budget > 0:
             (toks,), hit_eos = self.e.mt_decode_greedy(
                 self.mt_self, self.mt_cross, [self.mt_tokens],
-                [min(budget, self.e.max_decode_per_call)])
+                [min(budget, self.e.max_decode_per_call)], cross_valid, session=self)
             self.mt_tokens.extend(toks)
             budget -= len(toks)
             if hit_eos[0] or not toks:
