@@ -220,6 +220,24 @@ Phases 16-19 run after phase 12:
             ``BF16_DRIFT``, each gradient tensor within ``BF16_TENSOR_DRIFT``,
             each loss within ``BF16_LOSS_RTOL`` of itself; the CPU bf16
             step's ReLU ties reported.
+Phase 19 runs after phase 5c:
+19. simuleval_cli  the port's streaming evaluation CLI
+            (``streamspeech_tpu_torch.cli.simuleval.main``) in process on the
+            card over files the port writes itself: four ``_babble`` wavs of
+            3-6 s (``CLI_SECONDS``), a target file, a ``word count``
+            dictionary, a fairseq ``.pt`` of a seeded, doctored
+            ``full_config`` model (``weights.flax_variables``,
+            ``train.checkpoint.export_fairseq_streamspeech``; its inferred
+            config must equal ``full_config``) and a weight-normed CodeHiFiGAN
+            ``.pt`` of the full-width vocoder (``export_hifigan_vocoder``) with
+            its ``config.json``. Runs ``s2st`` (with the vocoder) and ``s2tt``
+            at ``--batch 1`` and ``--batch 4`` and ``asr`` at ``--batch 1``:
+            one ``instances.log`` line a wav and a ``scores.tsv`` each; each
+            ``--batch 4`` run equal to its ``--batch 1`` run instance by
+            instance (delays, durations and intervals; the text, or the
+            written 16-bit wav within 2 LSB); B3 launched on the ``s2st``
+            runs. A line a run: wall s, seconds of audio, launches, scores
+            (ASR_BLEU is NaN: no ASR backend), the ``nvidia-smi`` line.
 The bias route pads its keys to the 128 tile as JAX does
 (``models/layers.py`` ``_bias_kernel``), so every bias-attention row runs at
 TK = 128 with the valid keys beside (``tk_valid``).
@@ -297,6 +315,9 @@ BATCHED_SECONDS = UTTERANCE_SECONDS + (2.0, 4.0, 5.0, 7.0, 8.0)
 # (B, T_pad, valid keys of each row): causal attention as the unit decoder
 # runs it for B streams served together, each row at its own length
 MASKED_BATCHED_SHAPE = (8, 1664, (400, 575, 750, 925, 1100, 1275, 1450, 1664))
+CLI_SECONDS = (3.0, 4.5, 6.0, 3.7)      # the simuleval_cli phase's wavs
+CLI_RUNS = (("s2st", 1), ("s2st", 4), ("s2tt", 1), ("s2tt", 4), ("asr", 1))
+CLI_WAV_ATOL = 2 / 32768                # the written 16-bit wavs: 2 LSB
 SEED = 0
 FP32_FLOPS = 67e12          # H100 SXM fp32 (non-tensor-core) peak, FLOP/s
 # Integer instructions a second on each of an SM's two integer pipes, which
@@ -2088,6 +2109,142 @@ def phase_serving_batched_fused(agent, reference=None):
     return launches
 
 
+def _write_cli_inputs(root: Path) -> dict:
+    """The simuleval_cli phase's files, written by the port alone: wavs,
+    targets, a dictionary, the model and vocoder checkpoints in the
+    reference's formats. Returns the CLI arguments common to every run."""
+    import dataclasses
+
+    from streamspeech_tpu_torch.config import full_config
+    from streamspeech_tpu_torch.eval.instance import write_wav
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+    from streamspeech_tpu_torch.models.vocoder import DEFAULT_VOCODER_CFG, CodeGenerator
+    from streamspeech_tpu_torch.train import checkpoint
+    from streamspeech_tpu_torch.weights import doctor_params, flax_variables, random_init_
+
+    def save(path, key, sd):
+        torch.save({key: {k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                    **({"cfg": {}} if key == "model" else {})}, path)
+
+    cfg = full_config()
+    tree = flax_variables(doctor_params(random_init_(StreamSpeechModel(cfg), SEED)))
+    save(root / "model.pt", "model",
+         checkpoint.export_fairseq_streamspeech(tree["params"], tree["batch_stats"]))
+    inferred = checkpoint.infer_config_from_params(
+        *checkpoint.import_fairseq_streamspeech(str(root / "model.pt"))[:2])
+    if dataclasses.asdict(inferred) != dataclasses.asdict(cfg):
+        raise AssertionError("the exported .pt does not infer back to full_config")
+    vocoder = random_init_(CodeGenerator(DEFAULT_VOCODER_CFG), SEED + 1)
+    save(root / "vocoder.pt", "generator",
+         checkpoint.export_hifigan_vocoder(flax_variables(vocoder), DEFAULT_VOCODER_CFG))
+    (root / "config.json").write_text(json.dumps(DEFAULT_VOCODER_CFG))
+    text, _ = _dicts(cfg.mt_decoder.vocab_size, DEFAULT_VOCODER_CFG["num_embeddings"])
+    text.save(str(root / "dict.txt"))
+    rng = np.random.RandomState(SEED + 7)
+    for n, seconds in enumerate(CLI_SECONDS):
+        write_wav(root / f"utt{n}.wav", _babble(rng, seconds), 16000)
+    (root / "wav_list.txt").write_text("".join(f"utt{n}.wav\n" for n in range(len(CLI_SECONDS))))
+    (root / "target.txt").write_text("".join(f"w{n} w{n + 1} w{n + 2}\n"
+                                             for n in range(len(CLI_SECONDS))))
+    return {"common": ["--source", str(root / "wav_list.txt"), "--target",
+                       str(root / "target.txt"), "--fairseq-checkpoint",
+                       str(root / "model.pt"), "--src-dict", str(root / "dict.txt"),
+                       "--target-code-size", str(DEFAULT_VOCODER_CFG["num_embeddings"])],
+            "vocoder": ["--vocoder", str(root / "vocoder.pt"), "--vocoder-cfg",
+                        str(root / "config.json")]}
+
+
+def _cli_log(out: Path) -> list:
+    return [json.loads(line) for line in (out / "instances.log").read_text().splitlines()]
+
+
+def _cli_same(got: list, want: list, speech: bool) -> dict:
+    """Instance by instance: the same delays (and for speech durations and
+    intervals, the written wav within ``CLI_WAV_ATOL``; for text the text)."""
+    from streamspeech_tpu_torch.data.dataset import load_audio_or_features
+
+    differing, wav_err = [], 0.0
+    for g, w in zip(got, want):
+        same = all(g[k] == w[k] for k in ("index", "delays", "source_length"))
+        if speech:
+            same = same and g["durations"] == w["durations"] and g["intervals"] == w["intervals"]
+            if same and w["durations"]:
+                a, b = (load_audio_or_features(x["prediction"]) for x in (g, w))
+                err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+                wav_err = max(wav_err, err)
+                same = err <= CLI_WAV_ATOL
+        else:
+            same = same and g["prediction"] == w["prediction"]
+        if not same:
+            differing.append(g["index"])
+    return {"differing": differing, "wav_max_abs_err": wav_err if speech else None}
+
+
+def phase_simuleval_cli(smi: str):
+    """The streaming evaluation CLI on the card (phase 19 of the docstring).
+    Returns the launches of the path: the counts set to 0 before the first
+    run and read after the last."""
+    import contextlib
+    import io
+    import tempfile
+
+    from streamspeech_tpu_torch.cli import simuleval
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        args = _write_cli_inputs(root)
+        emit({"phase": "simuleval_cli_inputs", "seconds": time.perf_counter() - t0,
+              "wavs_s": list(CLI_SECONDS),
+              "model_pt_bytes": (root / "model.pt").stat().st_size,
+              "vocoder_pt_bytes": (root / "vocoder.pt").stat().st_size})
+        logs, failures = {}, []
+        _zero_counts()
+        before = _read_counts()
+        for agent, batch in CLI_RUNS:
+            out = root / f"{agent}_{batch}"
+            argv = args["common"] + ["--agent", agent, "--batch", str(batch),
+                                     "--output", str(out)]
+            if agent == "s2st":
+                argv += args["vocoder"]
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                scores = simuleval.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+            launches = {k: counts[k] - before[k] for k in counts if counts[k] != before[k]}
+            before = counts
+            logs[agent, batch] = log = _cli_log(out)
+            row = {"phase": "simuleval_cli", "agent": agent, "batch": batch, "wall_s": wall,
+                   "seconds_audio": sum(CLI_SECONDS),
+                   "audio_s_per_wall_s": sum(CLI_SECONDS) / wall,
+                   "instances": len(log), "writes": sum(len(x["delays"]) for x in log),
+                   "scores_tsv": (out / "scores.tsv").exists(),
+                   "scores": {k: (v if v == v else None) for k, v in scores.items()},
+                   "printed_lines": len(printed.getvalue().splitlines()),
+                   "launches": launches, "nvidia_smi": smi}
+            if batch > 1:
+                row.update(_cli_same(log, logs[agent, 1], agent == "s2st"))
+                if row["differing"]:
+                    failures.append(f"{agent} --batch {batch} differs from --batch 1 on "
+                                    f"instances {row['differing']}")
+            emit(row)
+            if len(log) != len(CLI_SECONDS) or not row["scores_tsv"]:
+                failures.append(f"{agent} --batch {batch}: {len(log)} log lines, "
+                                f"scores.tsv {row['scores_tsv']}")
+            if agent == "s2st" and launches.get("masked_attention", 0) < 1:
+                failures.append(f"s2st --batch {batch} never launched B3")
+            torch.cuda.empty_cache()
+        total = _read_counts()
+    emit({"phase": "simuleval_cli_total", "runs": [f"{a} --batch {b}" for a, b in CLI_RUNS],
+          "launches": total, "nvidia_smi": smi, "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
+
+
 def phase_reference():
     """The same model on the card (kernel route: T = 16*25 or 32*25, H=8,
     D=64) and on the CPU (plain version) over the same audio: ``full_config``
@@ -2620,6 +2777,7 @@ def main():
     batched_fused_launches = phase_serving_batched_fused(agent, singles)
     del agent
     torch.cuda.empty_cache()
+    simuleval_cli_launches = phase_simuleval_cli(smi)
     forward_launches, times32, model32, ref32, card32 = phase_forward()
     forward_bf16_launches = phase_forward_bf16(model32, ref32, card32, times32)
     del model32, ref32, card32
@@ -2698,6 +2856,7 @@ def main():
              "serving_pipelined": serving_pipelined_launches,
              "serving_batched_fused": batched_fused_launches,
              "serving_bf16_batched_fused": bf16_fused_launches,
+             "simuleval_cli": simuleval_cli_launches,
              "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches,
              "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches,

@@ -6,6 +6,7 @@ the JAX package."""
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
@@ -23,6 +24,26 @@ class Segment:
     # decided, so its delays name the decision, as the synchronous path's
     # do; None = the evaluator's current position
     decision_ms: Any = None
+
+    def json(self) -> str:
+        """The segment as JSON, the wire form of ``eval/service.py`` (numpy
+        samples as floats). Unlike JAX's (`agents/base.py:37-42`) it carries
+        ``decision_ms``, so a remote overlapped agent's delays name its
+        decisions."""
+        return json.dumps({
+            "index": self.index, "content": self.content,
+            "sample_rate": self.sample_rate, "finished": self.finished,
+            "is_empty": self.is_empty, "data_type": self.data_type,
+            "decision_ms": self.decision_ms,
+        }, default=float)
+
+    @classmethod
+    def from_json(cls, s: str) -> "Segment":
+        d = json.loads(s)
+        klass = {"text": TextSegment, "speech": SpeechSegment}.get(d.get("data_type", ""), cls)
+        if d.get("is_empty"):
+            klass = EmptySegment
+        return klass(**{k: v for k, v in d.items() if k in klass.__dataclass_fields__})
 
 
 @dataclass
@@ -133,6 +154,11 @@ class GenericAgent:
 class SpeechToSpeechAgent(GenericAgent):
     source_type = "speech"
     target_type = "speech"
+
+
+class SpeechToTextAgent(GenericAgent):
+    source_type = "speech"
+    target_type = "text"
 
 
 def stream_utterance(agent: GenericAgent, samples, segment_size_ms: int = 320,

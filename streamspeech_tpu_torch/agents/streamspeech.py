@@ -1,12 +1,20 @@
-"""Simultaneous speech-to-speech agent over the port's engine, the host path of
-``streamspeech_tpu/agents/streamspeech.py`` (reference
-`agent/speech_to_speech.streamspeech.agent.py:422-770`).
-
-READ/WRITE follows the growth of the deduplicated ASR and ST CTC hypotheses;
-the allowed MT length is ((tgt_ctc_len − k1)//n)·n; whole-word truncation rolls
-the KV caches back; each write carries only the new waveform tail
-(dur[−len(new units):].sum() × 320 samples). The agent is not registered in
-any registry: the JAX package owns the name "streamspeech_s2st".
+"""The StreamSpeech streaming agents over the port's engine
+(``streamspeech_tpu/agents/streamspeech.py``), registered in the port's
+``AGENTS`` under the JAX package's names:
+- ``streamspeech_s2st``, simultaneous speech-to-speech (reference
+  `agent/speech_to_speech.streamspeech.agent.py:422-770`): READ/WRITE follows
+  the growth of the deduplicated ASR and ST CTC hypotheses; the allowed MT
+  length is ((tgt_ctc_len − k1)//n)·n; whole-word truncation rolls the KV
+  caches back; each write carries only the new waveform tail
+  (dur[−len(new units):].sum() × 320 samples);
+- ``streamspeech_s2tt``, simultaneous speech-to-text translation
+  (`agent/speech_to_text.s2tt.streamspeech.agent.py:381-545`): the same CTC
+  gate and stride / ``lagging_k1`` budget, no whole-word rollback, and each
+  write the new text of the MT hypothesis;
+- ``streamspeech_asr``, streaming ASR (`agent/speech_to_text.asr.
+  streamspeech.agent.py:385-433`): the new text of the ASR CTC hypothesis
+  each chunk. The two text agents launch no kernel of their own: they read
+  CTC argmaxes.
 
 With ``use_fused`` it takes the engine's fused tick, as the JAX agent does
 whenever its engine has one (`agents/streamspeech.py:126-181`): a streaming
@@ -39,10 +47,13 @@ from streamspeech_tpu_torch.agents.base import (
     ReadAction,
     SpeechSegment,
     SpeechToSpeechAgent,
+    SpeechToTextAgent,
+    TextSegment,
     WriteAction,
 )
 from streamspeech_tpu_torch.ops.cmvn import GlobalCMVN
 from streamspeech_tpu_torch.ops.fbank import OnlineFbank
+from streamspeech_tpu_torch.registry import AGENTS
 from streamspeech_tpu_torch.runtime.session import StreamSpeechEngine
 
 SAMPLE_RATE = 16000
@@ -79,6 +90,12 @@ class StreamSpeechAgentConfig:
 
 def spm_text(dictionary, ids: List[int]) -> str:
     return dictionary.string(ids, spm_to_text=True)
+
+
+def text_diff(full_text: str, emitted: str) -> str:
+    """The text of ``full_text`` after ``emitted`` where it extends it, else
+    all of it (the text agents' write)."""
+    return full_text[len(emitted):].strip() if full_text.startswith(emitted) else full_text
 
 
 class _StreamSpeechAgentBase:
@@ -129,6 +146,7 @@ def starts_word_table(engine: StreamSpeechEngine, tgt_dict) -> np.ndarray:
     return table
 
 
+@AGENTS.register("streamspeech_s2st")
 class StreamSpeechS2STAgent(_StreamSpeechAgentBase, SpeechToSpeechAgent):
     """Flagship simultaneous speech-to-speech agent. ``use_fused`` sends its
     streaming chunks through the engine's fused tick (an engine without a
@@ -433,3 +451,83 @@ class StreamSpeechS2STAgent(_StreamSpeechAgentBase, SpeechToSpeechAgent):
                                          sample_rate=SAMPLE_RATE, finished=finished,
                                          decision_ms=self._decision_ms),
                            finished=target_finished)
+
+
+@AGENTS.register("streamspeech_s2tt")
+class StreamSpeechS2TTAgent(_StreamSpeechAgentBase, SpeechToTextAgent):
+    """Simultaneous speech-to-text translation: encoder, CTC policy and MT
+    decoder (JAX `agents/streamspeech.py:498-558`)."""
+
+    def __init__(self, engine, cfg, src_dict, tgt_dict, gcmvn=None):
+        _StreamSpeechAgentBase.__init__(self, engine, cfg, src_dict, tgt_dict, gcmvn)
+        SpeechToTextAgent.__init__(self)
+
+    def reset(self):
+        super().reset()
+        self.reset_stream()
+        self.emitted_text = ""
+
+    def policy(self):
+        cfg = self.cfg
+        finished = self.states.source_finished
+        if self.ingest(self.states) == 0:
+            if finished:
+                self.states.target_finished = True
+                return WriteAction(TextSegment(content="", finished=True), finished=True)
+            return ReadAction()
+        hyps = self.session.ctc_hypotheses()
+        asr_tokens, _ = hyps["asr"]
+        st_tokens, _ = hyps["st"]
+        if not finished:
+            # READ while the dedup'd CTC hypotheses have not grown by stride_n
+            if (len(asr_tokens) < self.src_ctc_prefix_length + cfg.stride_n or
+                    len(st_tokens) < self.tgt_ctc_prefix_length + cfg.stride_n):
+                return ReadAction()
+            self.src_ctc_prefix_length = max(len(asr_tokens), self.src_ctc_prefix_length)
+            self.tgt_ctc_prefix_length = max(len(st_tokens), self.tgt_ctc_prefix_length)
+            subword_tokens = ((len(st_tokens) - cfg.lagging_k1) // cfg.stride_n) * cfg.stride_n
+            new_subword_tokens = subword_tokens - len(self.session.mt_tokens)
+            if new_subword_tokens < 1:
+                return ReadAction()
+        else:
+            new_subword_tokens = -1
+        prev = list(self.session.mt_tokens)
+        self.session.mt_decode(new_subword_tokens, max_len=cfg.max_len)
+        if self.session.mt_tokens == prev and not finished:
+            return ReadAction()
+        full_text = spm_text(self.tgt_dict, self.session.mt_tokens)
+        new_text = text_diff(full_text, self.emitted_text)
+        self.emitted_text = full_text
+        if not new_text and not finished:
+            return ReadAction()
+        if finished:
+            self.states.target_finished = True
+        return WriteAction(TextSegment(content=new_text, finished=finished), finished=finished)
+
+
+@AGENTS.register("streamspeech_asr")
+class StreamSpeechASRAgent(_StreamSpeechAgentBase, SpeechToTextAgent):
+    """Streaming ASR: the new text of the ASR CTC hypothesis each chunk (JAX
+    `agents/streamspeech.py:560-588`)."""
+
+    def __init__(self, engine, cfg, src_dict, gcmvn=None):
+        _StreamSpeechAgentBase.__init__(self, engine, cfg, src_dict, src_dict, gcmvn)
+        SpeechToTextAgent.__init__(self)
+
+    def reset(self):
+        super().reset()
+        self.reset_stream()
+        self.emitted_text = ""
+
+    def policy(self):
+        finished = self.states.source_finished
+        self.ingest(self.states)
+        asr_tokens, _ = self.session.ctc_hypotheses()["asr"]
+        full_text = spm_text(self.src_dict, asr_tokens)
+        new_text = text_diff(full_text, self.emitted_text)
+        if not new_text and not finished:
+            return ReadAction()
+        self.emitted_text = full_text
+        if finished:
+            self.states.target_finished = True
+        return WriteAction(TextSegment(content=new_text, finished=finished), finished=finished)

@@ -2,7 +2,8 @@
 ``</s>``(2) ``<unk>``(3), then the file symbols in order; a CTC ``<blank>`` is
 appended last (`researches/ctc_unity/tasks/speech_to_speech_ctc.py:14-19`).
 The same layout as ``streamspeech_tpu/dictionary.py``, kept here so the port
-imports nothing of the JAX package."""
+imports nothing of the JAX package. Dict files are ``"<symbol> <count>"``
+lines (``load`` / ``save``)."""
 
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Dict, Iterable, List, Optional
 class Dictionary:
     def __init__(self):
         self.symbols: List[str] = []
+        self.count: List[int] = []
         self.indices: Dict[str, int] = {}
         self.bos_index = self.add_symbol("<s>")
         self.pad_index = self.add_symbol("<pad>")
@@ -29,10 +31,13 @@ class Dictionary:
             return self.symbols[idx]
         return self.unk_word
 
-    def add_symbol(self, word: str) -> int:
-        if word not in self.indices:
+    def add_symbol(self, word: str, n: int = 1) -> int:
+        if word in self.indices:
+            self.count[self.indices[word]] += n
+        else:
             self.indices[word] = len(self.symbols)
             self.symbols.append(word)
+            self.count.append(n)
         return self.indices[word]
 
     def add_blank(self, symbol: str = "<blank>") -> int:
@@ -51,6 +56,30 @@ class Dictionary:
         if spm_to_text:
             s = s.replace(" ", "").replace("▁", " ").strip()
         return s
+
+    @classmethod
+    def load(cls, path: str) -> "Dictionary":
+        """A fairseq dict file (`dictionary.py:121`): one ``symbol count`` a
+        line, the count optional (1); blank lines skipped."""
+        d = cls()
+        with open(path, "r", encoding="utf-8") as f:
+            for line in f:
+                line = line.rstrip("\n")
+                if not line:
+                    continue
+                try:
+                    word, cnt = line.rsplit(" ", 1)
+                    n = int(cnt)
+                except ValueError:
+                    word, n = line, 1
+                d.add_symbol(word, n)
+        return d
+
+    def save(self, path: str) -> None:
+        """The symbols after the specials, one ``symbol count`` a line."""
+        with open(path, "w", encoding="utf-8") as f:
+            for sym, cnt in zip(self.symbols[self.nspecial:], self.count[self.nspecial:]):
+                f.write(f"{sym} {cnt}\n")
 
     @classmethod
     def units(cls, code_size: int) -> "Dictionary":

@@ -1,22 +1,26 @@
 """Batched corpus evaluation: B instances a wave through one lockstep session
-(``streamspeech_tpu/eval/batched_evaluator.py``, its host tick).
+(``streamspeech_tpu/eval/batched_evaluator.py``), for S2ST
+(``BatchedS2STEvaluator``), S2TT (``BatchedS2TTEvaluator``) and streaming ASR
+(``BatchedASREvaluator``).
 
 The reference evaluates a corpus one utterance at a time (one SimulEval agent
 process). Here the same sentence-level protocol runs B instances together on
 one card: every 320 ms tick, each live instance's segment is ingested, ONE
 batched encoder call advances every stream, the READ/WRITE decisions of each
 stream (the logic of the sequential agent, ``agents/streamspeech.py``) become a
-budget vector for ONE scanned MT decode, and the writers share ONE emission.
+budget vector for ONE scanned MT decode, and (S2ST) the writers share ONE
+emission.
 
-Each instance's delays, MT tokens, units and wav equal those of the sequential
-``SentenceLevelEvaluator`` over the port's S2ST agent; only the wall clock
-(``elapsed``, the _CA latency twins) differs. Three points make that hold where
-the JAX host tick (`batched_evaluator.py:356-425`) does otherwise:
+Each instance's delays, MT tokens, units, wav and text equal those of the
+sequential ``SentenceLevelEvaluator`` over the port's agent of the same task;
+only the wall clock (``elapsed``, the _CA latency twins) differs. Three points
+make that hold where the JAX host ticks (`batched_evaluator.py:356-425`,
+:548-570, :585-599) do otherwise:
 - a finished stream whose tail is still pending behind the lockstep clock
-  waits for it before its finish decode, as the sequential agent encodes the
-  tail before deciding;
-- a finished stream whose finish decode adds no token writes its final empty
-  segment without an emission, as the sequential agent does (`agents/
+  waits for it before its finish decode (or, for ASR, its last write), as the
+  sequential agent encodes the tail before deciding;
+- (S2ST) a finished stream whose finish decode adds no token writes its final
+  empty segment without an emission, as the sequential agent does (`agents/
   streamspeech.py` ``_decode_and_emit``);
 - every instance is summarized, with or without ``output_dir``: the summary
   sets the intervals and silences that EndOffset, RTF and the Discontinuity
@@ -47,11 +51,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from streamspeech_tpu_torch.agents.base import SpeechSegment
+from streamspeech_tpu_torch.agents.base import SpeechSegment, TextSegment
 from streamspeech_tpu_torch.agents.streamspeech import (
     SAMPLE_RATE,
     StreamSpeechAgentConfig,
+    spm_text,
     starts_word_table,
+    text_diff,
 )
 from streamspeech_tpu_torch.dictionary import Dictionary
 from streamspeech_tpu_torch.eval.evaluator import SentenceLevelEvaluator
@@ -71,6 +77,7 @@ class _StreamState:
         self.src_ctc_prefix_length = 0
         self.tgt_ctc_prefix_length = 0
         self.units: List[int] = []
+        self.emitted_text = ""
         self.pushed_finished = False
         self.done = False
         self.turns = 0
@@ -152,6 +159,13 @@ class _BatchedStreamingEvaluator(SentenceLevelEvaluator):
 
     def _tick(self, bs, st, instances, live) -> None:
         raise NotImplementedError
+
+    @staticmethod
+    def _tail_pending(bs, instances, i) -> bool:
+        """A finished stream whose tail still waits for the lockstep clock: the
+        sequential agent encodes its tail before it decides, so the stream
+        decides nothing until it is encoded."""
+        return instances[i].source_finished_reading and bs.pending[i].shape[0] > 0
 
     def _decode_budget(self, bs, st_i, i, finished, whole_word: bool):
         """The READ/WRITE gate of the sequential agent (`batched_evaluator.py:
@@ -317,8 +331,8 @@ class BatchedS2STEvaluator(_BatchedStreamingEvaluator):
         wants = {}   # stream -> (finished, new_subword_tokens, prev_tokens)
         for i in live:
             finished = instances[i].source_finished_reading
-            if finished and bs.pending[i].shape[0] > 0:
-                continue  # its tail waits for the lockstep clock
+            if self._tail_pending(bs, instances, i):
+                continue
             if int(bs.enc_len[i]) == 0:
                 if finished:
                     self._final_write(instances[i], st[i])
@@ -376,3 +390,168 @@ class BatchedS2STEvaluator(_BatchedStreamingEvaluator):
             content=np.asarray(wav).tolist(), sample_rate=SAMPLE_RATE, finished=finished))
         if target_finished or instance.finish_prediction:
             state.done = True
+
+
+class BatchedS2TTEvaluator(_BatchedStreamingEvaluator):
+    """A ``SentenceLevelEvaluator`` for simultaneous speech-to-text translation
+    whose device work is batched over waves of ``batch`` instances (JAX
+    `batched_evaluator.py:436-576`), each instance equal to the sequential
+    ``StreamSpeechS2TTAgent``'s. ``use_fused`` (the default) runs each
+    lockstep tick through the engine's fused tick without its emission
+    (``fused_tick(..., with_emission=False)``, CUDA graphs on a card; no
+    vocoder needed, where JAX takes it only with one); a tick it does not
+    apply to takes the host tick, a stream whose budget exceeds the fused
+    scan the host continuation. A finished stream decodes in tranches once
+    its whole tail is encoded and, when it stops growing, one host decode to
+    EOS and its final write finish it.
+
+    JAX's host tick decodes a finished stream whose tail still waits behind
+    the lockstep clock, from the frames before it, and so departs from its
+    own sequential agent there; this one waits for the tail, as the
+    sequential agent encodes it before deciding."""
+
+    target_type = "text"
+
+    def __init__(self, engine, agent_cfg, src_dict, tgt_dict, gcmvn=None,
+                 batch: int = 8, use_fused: bool = True, **evaluator_kwargs):
+        super().__init__(engine, agent_cfg, src_dict, tgt_dict, gcmvn, batch,
+                         **evaluator_kwargs)
+        self.use_fused = use_fused
+        # whole_word is off for S2TT; the fused tick still takes the table
+        self._starts_word = np.zeros((engine.model.cfg.mt_decoder.vocab_size,), bool)
+
+    def _tick(self, bs, st, instances, live) -> None:
+        if self.use_fused:
+            if self._tick_fused(bs, st, instances, live):
+                return
+            bs.encode_ready_blocks(self.agent_cfg.chunk_size,
+                                   self.agent_cfg.conv_chunk_size)
+        self._tick_host(bs, st, instances, live)
+
+    def _tick_fused(self, bs, st, instances, live) -> bool:
+        """One fused tick of the wave without the emission (`batched_evaluator.
+        py:476-519`); False where it did not apply."""
+        cfg = self.agent_cfg
+        b = bs.batch
+        live_set = set(live)
+        active = np.asarray([i in live_set and not st[i].done for i in range(b)])
+        finished = np.asarray([instances[i].source_finished_reading for i in range(b)])
+        out = bs.fused_tick(
+            cfg.chunk_size, cfg.conv_chunk_size, cfg.lagging_k1, cfg.stride_n, False,
+            cfg.max_len, self._starts_word,
+            [s.src_ctc_prefix_length for s in st], [s.tgt_ctc_prefix_length for s in st],
+            np.zeros((b,), np.int64), active, finished, with_emission=False)
+        if out is None:
+            return False
+        drained = []
+        for i in live:
+            r = out[i]
+            if r["grew"]:
+                st[i].src_ctc_prefix_length = max(r["asr_count"],
+                                                  st[i].src_ctc_prefix_length)
+                st[i].tgt_ctc_prefix_length = max(r["st_count"],
+                                                  st[i].tgt_ctc_prefix_length)
+            if finished[i]:
+                if int(bs.enc_len[i]) == 0:
+                    self._write_text(instances[i], st[i], "", True)
+                elif r["tail_ready"] and (r["hit_eos"] or not r["do_decode"]
+                                          or r["keep"] <= r["prev_tokens"]):
+                    drained.append(i)
+                continue
+            if not r["do_decode"]:
+                if r["grew"] and r["budget_over"]:
+                    self._host_continue(bs, st, instances, i)
+                continue
+            if r["keep"] > r["prev_tokens"]:
+                self._emit_text_diff(st, instances, i, bs.mt_tokens[i], finished=False)
+        if drained:
+            budgets = np.zeros((b,), np.int64)
+            budgets[drained] = -1
+            bs.mt_decode(budgets, max_len=cfg.max_len)
+            for i in drained:
+                self._emit_text_diff(st, instances, i, bs.mt_tokens[i], finished=True)
+        return True
+
+    def _host_continue(self, bs, st, instances, i) -> None:
+        """The host decode of one streaming stream whose budget exceeded the
+        fused scan (`batched_evaluator.py:530-546`)."""
+        cfg = self.agent_cfg
+        st_tokens, _ = bs.ctc_hypotheses(i)["st"]
+        new_sub = ((len(st_tokens) - cfg.lagging_k1) // cfg.stride_n) * cfg.stride_n \
+            - len(bs.mt_tokens[i])
+        if new_sub < 1:
+            return
+        budgets = np.zeros((bs.batch,), np.int64)
+        budgets[i] = new_sub
+        prev = list(bs.mt_tokens[i])
+        bs.mt_decode(budgets, max_len=cfg.max_len)
+        if bs.mt_tokens[i] != prev:
+            self._emit_text_diff(st, instances, i, bs.mt_tokens[i], finished=False)
+
+    def _tick_host(self, bs, st, instances, live) -> None:
+        """The host tick (`batched_evaluator.py:548-570`) in the sequential
+        agent's order: decisions → one decode → each stream's text diff."""
+        cfg = self.agent_cfg
+        budgets = np.zeros((bs.batch,), np.int64)
+        wants = {}
+        for i in live:
+            finished = instances[i].source_finished_reading
+            if self._tail_pending(bs, instances, i):
+                continue
+            if int(bs.enc_len[i]) == 0:
+                if finished:
+                    self._write_text(instances[i], st[i], "", True)
+                continue
+            new_sub = self._decode_budget(bs, st[i], i, finished, whole_word=False)
+            if new_sub is None:
+                continue  # READ
+            budgets[i] = new_sub
+            wants[i] = (finished, list(bs.mt_tokens[i]))
+        if wants:
+            bs.mt_decode(budgets, max_len=cfg.max_len)
+        for i, (finished, prev) in wants.items():
+            if bs.mt_tokens[i] == prev and not finished:
+                continue  # READ
+            self._emit_text_diff(st, instances, i, bs.mt_tokens[i], finished)
+
+    def _emit_text_diff(self, st, instances, i, tokens, finished: bool) -> None:
+        """The sequential agent's write: the hypothesis's new text, none (READ)
+        where there is none before the finish."""
+        full_text = spm_text(self.tgt_dict, tokens)
+        new_text = text_diff(full_text, st[i].emitted_text)
+        st[i].emitted_text = full_text
+        if new_text or finished:
+            self._write_text(instances[i], st[i], new_text, finished)
+
+    def _write_text(self, instance: Instance, state: _StreamState, text: str,
+                    finished: bool) -> None:
+        instance.receive_prediction(TextSegment(content=text, finished=finished))
+        if finished or instance.finish_prediction:
+            state.done = True
+
+
+class BatchedASREvaluator(BatchedS2TTEvaluator):
+    """Wave-batched streaming ASR (JAX `batched_evaluator.py:578-599`), each
+    instance equal to the sequential ``StreamSpeechASRAgent``'s: the batched
+    encoder alone runs on the device, then each stream writes the new text of
+    its ASR CTC hypothesis. As in the S2TT evaluator, a finished stream
+    writes its last text only once its tail is encoded (JAX's writes it from
+    the frames before)."""
+
+    def __init__(self, engine, agent_cfg, src_dict, tgt_dict, gcmvn=None,
+                 batch: int = 8, **evaluator_kwargs):
+        super().__init__(engine, agent_cfg, src_dict, tgt_dict, gcmvn, batch,
+                         use_fused=False, **evaluator_kwargs)
+
+    def _tick(self, bs, st, instances, live) -> None:
+        for i in live:
+            finished = instances[i].source_finished_reading
+            if self._tail_pending(bs, instances, i):
+                continue
+            asr_tokens, _ = bs.ctc_hypotheses(i)["asr"]
+            full_text = spm_text(self.src_dict, asr_tokens)
+            new_text = text_diff(full_text, st[i].emitted_text)
+            if not new_text and not finished:
+                continue
+            st[i].emitted_text = full_text
+            self._write_text(instances[i], st[i], new_text, finished)

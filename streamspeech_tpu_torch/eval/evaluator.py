@@ -4,9 +4,10 @@ instance, send_source(segment_size) → agent.pushpop → receive_prediction unt
 the target finishes; write ``instances.log`` (JSONL) and ``scores.tsv``; resume
 by skipping the indices already in the log (``continue_unfinished``).
 
-The port has no quality scorer yet (BLEU, ASR_BLEU, WER: ROADMAP §A item 7):
-naming one raises a ``ValueError``, and ``quality_metrics=[]`` scores latency
-alone. Text-source agents (``TextToTextInstance``) come with the text agents.
+Quality is scored by ``eval/quality.py``'s scorers (BLEU, ASR_BLEU, WER),
+by default ASR_BLEU for a speech-output agent and BLEU for a text one, as in
+JAX; ``quality_metrics=[]`` scores latency alone. Text-source agents
+(``TextToTextInstance``) come with the text agents.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from streamspeech_tpu_torch.eval.instance import (
     SpeechOutputInstance,
     TextOutputInstance,
 )
+from streamspeech_tpu_torch.eval import quality as _quality  # noqa: F401 (registers the scorers)
 from streamspeech_tpu_torch.eval.latency import build_scorers
 from streamspeech_tpu_torch.registry import QUALITY_SCORERS
 
@@ -30,18 +32,16 @@ SPEECH_ONLY = ["DiscontinuitySum", "DiscontinuityAve", "DiscontinuityNum"]
 
 
 def build_quality_scorers(names: List[str]) -> dict:
-    """{name: scorer} of the port's quality scorers; a name it lacks raises."""
-    missing = [n for n in names if n not in QUALITY_SCORERS]
-    if missing:
-        raise ValueError(f"quality scorer(s) {missing} are not ported yet "
-                         "(ROADMAP §A item 7); pass quality_metrics=[] to score "
-                         "latency alone")
+    """{name: scorer} of the named quality scorers (an ASR_BLEU without an ASR
+    backend scores NaN; set ``quality_scorers["ASR_BLEU"]`` to an
+    ``ASRBLEUScorer(asr_fn)`` to score it); an unknown name raises KeyError."""
     return {n: QUALITY_SCORERS.get(n)() for n in names}
 
 
 class SentenceLevelEvaluator:
-    """Scores every latency metric of ``DEFAULT_LATENCY`` (and ``SPEECH_ONLY``
-    for a speech-output agent) and the named quality metrics."""
+    """Scores the named latency metrics (default: ``DEFAULT_LATENCY``, and
+    ``SPEECH_ONLY`` for a speech-output agent) and the named quality metrics
+    (default: ASR_BLEU for a speech-output agent, BLEU for a text one)."""
 
     MAX_TURNS = 10000       # segments an instance at most
 
@@ -49,6 +49,7 @@ class SentenceLevelEvaluator:
         self,
         agent: GenericAgent,
         source_segment_size: int = 320,     # ms
+        latency_metrics: Optional[List[str]] = None,
         quality_metrics: Optional[List[str]] = None,
         output_dir: Optional[str] = None,
     ):
@@ -59,8 +60,9 @@ class SentenceLevelEvaluator:
         self.source_segment_size = source_segment_size
         self.output_dir = output_dir
         self.speech_output = agent.target_type == "speech"
-        self.latency_scorers = build_scorers(
-            DEFAULT_LATENCY + (SPEECH_ONLY if self.speech_output else []))
+        if latency_metrics is None:
+            latency_metrics = DEFAULT_LATENCY + (SPEECH_ONLY if self.speech_output else [])
+        self.latency_scorers = build_scorers(list(latency_metrics))
         qnames = quality_metrics if quality_metrics is not None else (
             ["ASR_BLEU"] if self.speech_output else ["BLEU"])
         self.quality_scorers = build_quality_scorers(qnames)

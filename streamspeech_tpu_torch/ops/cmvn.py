@@ -12,5 +12,12 @@ class GlobalCMVN:
         self.mean = np.asarray(mean, dtype=np.float32)
         self.std = np.asarray(std, dtype=np.float32)
 
+    @classmethod
+    def from_npz(cls, path: str) -> "GlobalCMVN":
+        """The statistics of a ``gcmvn.npz`` (keys ``mean`` and ``std``,
+        `ops/cmvn.py:24`)."""
+        stats = np.load(path)
+        return cls(stats["mean"], stats["std"])
+
     def __call__(self, x) -> np.ndarray:
         return (np.asarray(x) - self.mean) / self.std

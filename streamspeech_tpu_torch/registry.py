@@ -1,8 +1,7 @@
-"""Registries of the evaluation scorers, by name (the counterpart of
-``streamspeech_tpu/registry.py:17`` ``Registry``, kept here so that the port
-imports nothing of the JAX package). The port registers its latency scorers;
-it has no quality scorer yet (BLEU, ASR_BLEU, WER: ROADMAP §A item 7), so
-``QUALITY_SCORERS`` is empty."""
+"""Registries of the streaming agents and the evaluation scorers, by name (the
+counterpart of ``streamspeech_tpu/registry.py:17`` ``Registry``, kept here so
+that the port imports nothing of the JAX package). The port's agents,
+latency scorers and quality scorers register under the JAX package's names."""
 
 from __future__ import annotations
 
@@ -37,5 +36,6 @@ class Registry(Generic[T]):
         return sorted(self._items)
 
 
+AGENTS: Registry = Registry("agent")
 LATENCY_SCORERS: Registry = Registry("latency_scorer")
 QUALITY_SCORERS: Registry = Registry("quality_scorer")

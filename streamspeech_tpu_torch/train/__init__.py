@@ -1,2 +1,3 @@
 """Training: the criterion, LR schedules, the optimizer with optax's semantics,
-the train step and synthetic batches (``streamspeech_tpu/train/``)."""
+the train step, synthetic batches and the fairseq checkpoint import and
+export (``streamspeech_tpu/train/``)."""

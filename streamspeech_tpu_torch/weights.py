@@ -16,7 +16,9 @@ by name, with these layout changes:
   ``ups_*_w [K, Cin, Cout]`` → ``[Cin, Cout, K]`` with no flip.
 
 Loading is strict: a flax leaf with no home, a torch parameter or buffer left
-unset, or a shape mismatch raises ``ValueError``.
+unset, or a shape mismatch raises ``ValueError``. ``flax_variables`` is the
+inverse: the module's tree in the flax layout, which the fairseq exporters of
+``train/checkpoint.py`` take.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from streamspeech_tpu_torch.models.layers import BatchNorm
+from streamspeech_tpu_torch.models.layers import BatchNorm, ChunkCausalConv
 
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
@@ -92,6 +94,50 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
 # The vocoder's conversions (``*_w``, ``ups_*_w``, ``dict.embedding``) are
 # handled by the same name rules.
 load_flax_vocoder = load_flax_variables
+
+
+def _to_flax(module: nn.Module, leaf: str, x: np.ndarray) -> Tuple[str, np.ndarray]:
+    """The flax leaf name and layout of parameter ``leaf`` of ``module``: the
+    inverse of ``_convert``, decided by the module's type."""
+    if isinstance(module, nn.Linear) and leaf == "weight":
+        return "kernel", x.T
+    if isinstance(module, (nn.LayerNorm, BatchNorm)) and leaf == "weight":
+        return "scale", x
+    if isinstance(module, nn.Embedding):
+        return "embedding", x
+    if isinstance(module, ChunkCausalConv) and leaf == "weight":
+        return leaf, x[:, 0, :].T if module.depthwise else x.transpose(2, 1, 0)
+    if leaf.endswith("_w") and x.ndim == 3:
+        return leaf, x.transpose((2, 0, 1) if leaf.startswith("ups_") else (2, 1, 0))
+    return leaf, x
+
+
+def flax_variables(module: nn.Module) -> Dict[str, Dict]:
+    """The module's weights as a flax variables tree of float32 NumPy arrays
+    ({"params": ..., "batch_stats": ...}), the inverse of
+    ``load_flax_variables``: loading the tree back gives the same tensors."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    modules = dict(module.named_modules())
+
+    def put(collection: str, path: str, leaf: str, x: np.ndarray):
+        node = out[collection]
+        for part in path.split(".") if path else []:
+            node = node.setdefault(part, {})
+        node[leaf] = x
+
+    with torch.no_grad():
+        for name, t in module.named_parameters():
+            path, _, leaf = name.rpartition(".")
+            x = t.detach().float().cpu().numpy().copy()
+            put("params", path, *_to_flax(modules[path], leaf, x))
+        for name, t in module.named_buffers():
+            path, _, leaf = name.rpartition(".")
+            stat = {v: k for k, v in _STAT_NAMES.items()}.get(leaf)
+            if stat is not None:
+                put("batch_stats", path, stat, t.detach().float().cpu().numpy().copy())
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
 
 
 _RESIDUAL_OUTPUTS = ("out_proj", "w_2", "fc2", "pointwise_conv2")

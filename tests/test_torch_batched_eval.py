@@ -201,10 +201,15 @@ def test_bf16_wave_matches_bf16_singles(stack):
 
 @pytest.mark.parametrize("names,missing", [(None, "ASR_BLEU"), (["WER"], "WER")])
 def test_quality_scorer_not_ported_raises_by_name(stack, names, missing):
+    """The quality scorers are ported: the batched evaluator builds the named
+    one (by default ASR_BLEU); WHISPER_ASR_BLEU, left unported, raises."""
     ptext, punits = stack["pdicts"]
-    with pytest.raises(ValueError, match=missing):
+    ev = BatchedS2STEvaluator(stack["port"], StreamSpeechAgentConfig(), ptext, ptext,
+                              punits, quality_metrics=names)
+    assert list(ev.quality_scorers) == [missing]
+    with pytest.raises(NotImplementedError, match="WHISPER_ASR_BLEU"):
         BatchedS2STEvaluator(stack["port"], StreamSpeechAgentConfig(), ptext, ptext,
-                             punits, quality_metrics=names)
+                             punits, quality_metrics=[missing, "WHISPER_ASR_BLEU"])
 
 
 def test_evaluator_defaults_to_the_card():

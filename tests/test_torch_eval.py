@@ -206,6 +206,13 @@ def test_sentence_level_evaluator_matches_jax_and_resumes(tmp_path):
 
 @pytest.mark.parametrize("names", [None, ["BLEU"], ["WER", "ASR_BLEU"]])
 def test_quality_scorers_not_ported_raise_by_name(names):
+    """The quality scorers are ported: the named ones (by default ASR_BLEU for
+    a speech agent, as in JAX) are built; the one scorer left unported,
+    WHISPER_ASR_BLEU, raises by name, and an unknown name raises."""
     agent = _scripted(SpeechToSpeechAgent, ReadAction, WriteAction, SpeechSegment)([0])
-    with pytest.raises(ValueError, match="ASR_BLEU" if names is None else names[0]):
-        SentenceLevelEvaluator(agent, quality_metrics=names)
+    ev = SentenceLevelEvaluator(agent, quality_metrics=names)
+    assert list(ev.quality_scorers) == (["ASR_BLEU"] if names is None else names)
+    with pytest.raises(NotImplementedError, match="WHISPER_ASR_BLEU"):
+        SentenceLevelEvaluator(agent, quality_metrics=(names or []) + ["WHISPER_ASR_BLEU"])
+    with pytest.raises(KeyError, match="NO_SUCH"):
+        SentenceLevelEvaluator(agent, quality_metrics=(names or []) + ["NO_SUCH"])

@@ -119,6 +119,37 @@ def test_port_trains_bf16_without_jax_or_the_jax_package():
     _run_alone(_TRAIN_STEP_BF16)
 
 
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import streamspeech_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(streamspeech_tpu_torch.__path__,
+                                                     "streamspeech_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+print("MODULES", len(names))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "streamspeech_tpu"))
+print("FOREIGN", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    """Every module of the port (the CLI, the scorers, the checkpoint import,
+    the service, the data helpers among them) imports, and together they
+    import nothing of JAX."""
+    expected = {p.relative_to(REPO / "streamspeech_tpu_torch").with_suffix("")
+                for p in (REPO / "streamspeech_tpu_torch").rglob("*.py")
+                if p.name != "__init__.py"}
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "FOREIGN []" in proc.stdout
+    n = int(proc.stdout.split("MODULES")[1].split()[0])
+    assert n >= len(expected), (n, sorted(map(str, expected)))
+
+
 def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|streamspeech_tpu)\b",
                          re.M)

@@ -18,7 +18,6 @@ import torch
 from streamspeech_tpu.config import OptimizationConfig as JaxOptimizationConfig
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
 from streamspeech_tpu.models.streamspeech import init_params
-from streamspeech_tpu.train.criterion import streamspeech_loss as jax_loss
 from streamspeech_tpu.train.synthetic import synthetic_batch as jax_batch
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
 from streamspeech_tpu.train.trainer import TrainState as JaxTrainState
@@ -154,25 +153,20 @@ def test_batch_stats_of_a_port_step_load_back_beside_jaxs(jax_setup, jax_steps):
         assert not torch.allclose(pstate.batch_stats[name], before[name])
 
 
-def test_step_one_gradients_match_jax(jax_setup):
-    """Per-tensor gradients of the first step: jax.grad of the JAX step's loss
-    (`trainer.py:114-130`) against the guarded ``.grad`` the port's step
-    leaves, within 1e-4·max|g| + 1e-7."""
+def test_step_one_gradients_match_jax(jax_setup, jax_steps):
+    """Per-tensor gradients of the first step: the gradient of the JAX step's
+    loss (``jax.value_and_grad`` of `trainer.py:114-130`) against the guarded
+    ``.grad`` the port's step leaves, within 1e-4·max|g| + 1e-7. The JAX
+    gradient is read from the file's shared update_freq-2 step, whose
+    ``optax.MultiSteps`` state holds its first micro-step's gradient as it
+    is, so no third JAX program is compiled."""
     jcfg, jmodel, variables, jbatch = jax_setup
     unit_blank = jcfg.unit_decoder.vocab_size - 1
-
-    def loss(params):
-        out, _ = jmodel.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]},
-            jbatch["src_tokens"], jbatch["src_lengths"], jbatch["prev_output_tokens_mt"],
-            chunk_size=CHUNK, conv_chunk_size=CONV_CHUNK, k1=0, n1=1, k2=0,
-            n2=jbatch["n2"], streaming=True, deterministic=False,
-            use_running_stats=False, rngs={"dropout": jax.random.PRNGKey(0)},
-            mutable=["batch_stats"])
-        m = jax_loss(out, jbatch, unit_blank)
-        return m["loss"] / m["sample_size"].astype(jnp.float32)
-
-    jgrads = _np(jax.jit(jax.grad(loss))(jax.tree.map(jnp.asarray, variables["params"])))
+    jtx, jstep = jax_steps(2)
+    jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, variables), jtx)
+    jstate, _ = jstep(jstate, jbatch, jax.random.PRNGKey(0), chunk_size=CHUNK,
+                      conv_chunk_size=CONV_CHUNK)
+    jgrads = _np(jstate.opt_state.acc_grads)
     want = dict(_port_model({"params": jgrads,
                           "batch_stats": variables["batch_stats"]}).named_parameters())
     pmodel = _port_model(variables)
