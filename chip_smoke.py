@@ -238,6 +238,29 @@ Phase 19 runs after phase 5c:
             written 16-bit wav within 2 LSB); B3 launched on the ``s2st``
             runs. A line a run: wall s, seconds of audio, launches, scores
             (ASR_BLEU is NaN: no ASR backend), the ``nvidia-smi`` line.
+Phase 20 runs after phase 18:
+20. train_cli  the port's training CLI (``streamspeech_tpu_torch.cli.train.main``)
+            in process on the card, on a toy task the port writes
+            (``data/toy_task.py``, ``TRAIN_CLI_TOY``: 8 train and 4 dev
+            utterances of 22 words, 1002 fbank frames and 23 MT tokens each,
+            512 text symbols, so every kernel gate of the path opens), at
+            ``simul_s2st`` widths with the 12-layer encoder, units of
+            ``--target-code-size 1000``, dropout 0.1 and
+            ``STREAMSPEECH_PALLAS_TRAIN=1`` (``TRAIN_CLI_FLAGS``: update_freq 2,
+            2 steps a call, validation and saves every 2 updates, one best
+            kept, the last 2 kept), to update 4 and again to update 6, which
+            resumes: every logged loss finite, the save directory's names those
+            ``_expected_names`` computes from the saves made, the second run's
+            first update 5 from ``checkpoint_4``; the last checkpoint loaded
+            and restored on the card equal to the run's final state bit for
+            bit (parameters, statistics, Adam's moments, the accumulator, the
+            counters); B1-B9 each launched on the path and the mask drawn.
+            Then the first update again at dropout 0, with the switch and
+            without, from the same weights on the same batch: every metric
+            of the kernel route's step within TRAIN_RTOL of the plain
+            route's. Then ``cli.simuleval --agent s2tt --checkpoint <last> --batch 4``
+            on the dev wavs: one ``instances.log`` line a wav. Wall s,
+            updates a second, peak memory and the ``nvidia-smi`` line.
 The bias route pads its keys to the 128 tile as JAX does
 (``models/layers.py`` ``_bias_kernel``), so every bias-attention row runs at
 TK = 128 with the valid keys beside (``tk_valid``).
@@ -2245,6 +2268,231 @@ def phase_simuleval_cli(smi: str):
     return total
 
 
+# phase 20's toy task: 22 words of 7300 samples an utterance (1002 fbank
+# frames, padded to 1024: T_enc 256, the rel-pos gate; 23 MT tokens: unit T
+# 575, the causal and bias gates) and 508 words (512 text symbols: the
+# not-blank gate), every utterance one shape
+TRAIN_CLI_TOY = dict(n_train=8, n_dev=4, n_words=508, samples_per_word=7300,
+                     words_per_utterance=(22, 22), seed=SEED)
+TRAIN_CLI_FLAGS = ["--target-code-size", "1000", "--encoder-layers", "12",
+                   "--dropout", str(ATTN_DROPOUT), "--update-freq", "2",
+                   "--steps-per-call", "2", "--max-sentences", "4", "--max-tokens", "0",
+                   "--save-interval-updates", "2", "--validate-interval-updates", "2",
+                   "--keep-best-checkpoints", "1", "--keep-last", "2", "--log-interval", "1",
+                   "--warmup-updates", "10", "--seed", str(SEED + 1)]
+TRAIN_CLI_KERNELS = ("relpos_attention", "relpos_attention_bwd", "masked_attention",
+                     "masked_attention_bwd", "bias_attention", "bias_attention_bwd",
+                     "not_blank_probs", "ctc_alpha", "ctc_beta")
+
+
+def _expected_names(saves, keep_last: int, keep_best: int) -> list:
+    """The save directory's names after ``saves`` [(step, metric or None)],
+    by the rotation's rules restated: the newest ``keep_last`` steps, and a
+    finite metric admitted to the best set when fewer than ``keep_best`` are
+    kept or it is no worse than the worst kept, the set cut back to the
+    ``keep_best`` lowest (ties: the newer step)."""
+    steps, best = [], []
+    for step, val in saves:
+        if step not in steps:
+            steps.append(step)
+        if keep_best and val is not None and np.isfinite(val) and (
+                len(best) < keep_best or val <= max(v for v, _ in best)):
+            if (val, step) not in best:
+                best.append((val, step))
+            best = sorted(best, key=lambda t: (t[0], -t[1]))[:keep_best]
+    return sorted([f"checkpoint_{s}" for s in sorted(steps)[-keep_last:]]
+                  + [f"checkpoint.best_{v!r}_{s}" for v, s in best])
+
+
+def _train_cli_routes(train, task, root: Path) -> list:
+    """The first update again at dropout 0, from the same weights on the same
+    batch, with ``STREAMSPEECH_PALLAS_TRAIN=1`` and without: the kernels at
+    this path's shapes (the toy's rows, its unit lengths, the bias keys padded
+    to 128, the backward passes) held to their plain versions through the
+    step's metrics, each within TRAIN_RTOL·max(1, |plain|). Run after the
+    path's counts are read. Returns the failures."""
+    import contextlib
+    import io
+    import os
+
+    flags = list(TRAIN_CLI_FLAGS)
+    flags[flags.index("--dropout") + 1] = "0"
+    metrics = {}
+    real_step = train.make_train_step
+
+    def recording_step(*args, **kwargs):
+        step = real_step(*args, **kwargs)
+
+        def run(*a, **kw):
+            state, m = step(*a, **kw)
+            metrics.setdefault(route, []).append({k: float(v) for k, v in m.items()})
+            return state, m
+        return run
+
+    train.make_train_step = recording_step
+    try:
+        for route in ("kernel", "plain"):
+            if route == "kernel":
+                os.environ["STREAMSPEECH_PALLAS_TRAIN"] = "1"
+            else:
+                os.environ.pop("STREAMSPEECH_PALLAS_TRAIN", None)
+            with contextlib.redirect_stdout(io.StringIO()):
+                train.main(["--data", task["data"], "--config-yaml", task["config_yaml"],
+                            "--multitask-config-yaml", task["multitask_config_yaml"],
+                            "--save-dir", str(root / f"first_update_{route}"), *flags,
+                            "--max-update", "1"])
+    finally:
+        train.make_train_step = real_step
+        os.environ.pop("STREAMSPEECH_PALLAS_TRAIN", None)
+    got, want = metrics.get("kernel", [{}])[0], metrics.get("plain", [{}])[0]
+    err = {k: [abs(got.get(k, np.nan) - v), TRAIN_RTOL * max(1.0, abs(v))]
+           for k, v in want.items()}
+    emit({"phase": "train_cli_routes", "calls": {k: len(v) for k, v in metrics.items()},
+          "kernel": got, "plain": want, "err": err, "rtol": TRAIN_RTOL})
+    if not want or sorted(got) != sorted(want) or not all(e <= t for e, t in err.values()):
+        return [f"first update at dropout 0: kernel route {got} != plain {want}"]
+    return []
+
+
+def phase_train_cli(smi: str):
+    """The training CLI on the card (phase 20 of the docstring). Returns the
+    launches of its path: the counts set to 0 before the first run and read
+    after the second."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from streamspeech_tpu_torch.cli import simuleval, train
+    from streamspeech_tpu_torch.data.toy_task import generate_toy_dataset
+    from streamspeech_tpu_torch.train import checkpoint as ckpt
+    from streamspeech_tpu_torch.train.trainer import TrainState, make_optimizer
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        task = generate_toy_dataset(str(root / "data"), **TRAIN_CLI_TOY)
+        emit({"phase": "train_cli_inputs", "seconds": time.perf_counter() - t0,
+              "toy": TRAIN_CLI_TOY})
+        save = root / "ckpt"
+        argv = ["--data", task["data"], "--config-yaml", task["config_yaml"],
+                "--multitask-config-yaml", task["multitask_config_yaml"],
+                "--save-dir", str(save), *TRAIN_CLI_FLAGS]
+        saves = []
+        real_save = train.save_checkpoint
+
+        def recording_save(save_dir, step, state, **kw):
+            saves.append((step, kw.get("val_metric")))
+            return real_save(save_dir, step, state, **kw)
+
+        train.save_checkpoint = recording_save
+        os.environ["STREAMSPEECH_PALLAS_TRAIN"] = "1"
+        runs = []
+        try:
+            _zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            for max_update in (4, 6):
+                run_argv = argv + ["--max-update", str(max_update)]
+                printed = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    state = train.main(run_argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                lines = [json.loads(x) for x in printed.getvalue().splitlines()
+                         if x.startswith("{")]
+                losses = {d["step"]: d["loss"] for d in lines
+                          if d["tag"] == "train" and "loss" in d}
+                valid = {d["step"]: d["valid_loss"] for d in lines if d["tag"] == "valid"}
+                resumed = [d["from"] for d in lines if d.get("event") == "resumed"]
+                names = sorted(p.name for p in save.iterdir()
+                               if p.name.startswith("checkpoint"))
+                expected = _expected_names(saves, keep_last=2, keep_best=1)
+                first = min(losses) if losses else None
+                row = {"phase": "train_cli", "max_update": max_update, "wall_s": wall,
+                       "updates": len(losses), "updates_per_s": len(losses) / wall,
+                       "losses": losses, "valid_loss": valid, "resumed_from": resumed,
+                       "first_update": first, "saves": saves[:], "names": names,
+                       "expected_names": expected,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "nvidia_smi": smi}
+                emit(row)
+                runs.append(row)
+                if not losses or not all(np.isfinite(v) for v in losses.values()):
+                    failures.append(f"run to {max_update}: a logged loss is not finite")
+                if names != expected:
+                    failures.append(f"run to {max_update}: names {names} != {expected}")
+                want_first = 1 if max_update == 4 else 5
+                if first != want_first or (max_update == 6 and not (
+                        resumed and resumed[-1].endswith("checkpoint_4"))):
+                    failures.append(f"run to {max_update} starts at update {first}, "
+                                    f"resumed from {resumed}")
+            launches = _read_counts()
+        finally:
+            train.save_checkpoint = real_save
+            os.environ.pop("STREAMSPEECH_PALLAS_TRAIN", None)
+        failures += _train_cli_routes(train, task, root)
+        # the last checkpoint, loaded and moved back to the card, equals the
+        # state the run ended with, bit for bit
+        last = ckpt.latest_checkpoint(str(save))
+        model = type(state.model)(state.model.cfg).to("cuda")
+        fresh = TrainState.create(model, make_optimizer(train.OptimizationConfig(
+            update_freq=2)))
+        ckpt.restore_state(fresh, ckpt.load_checkpoint(last))
+        differing = [n for n, p in state.params.items() if not torch.equal(fresh.params[n], p)]
+        differing += [n for n, b in state.batch_stats.items()
+                      if not torch.equal(fresh.batch_stats[n], b)]
+        for what in ("mu", "nu", "acc_grads"):
+            differing += [f"{what}[{i}]" for i, (a, b) in enumerate(zip(
+                getattr(fresh.opt_state, what), getattr(state.opt_state, what)))
+                if not torch.equal(a, b)]
+        counters = (fresh.step, fresh.opt_state.count, fresh.opt_state.mini_step)
+        if differing or counters != (state.step, state.opt_state.count,
+                                     state.opt_state.mini_step):
+            failures.append(f"load_checkpoint({last}) differs: {differing[:5]}, "
+                            f"{counters}")
+        emit({"phase": "train_cli_roundtrip", "checkpoint": Path(last).name,
+              "tensors": len(state.params) + len(state.batch_stats)
+              + 3 * len(state.opt_state.mu), "differing": len(differing),
+              "step_count_mini_step": list(counters),
+              "bytes": (Path(last) / ckpt.STATE_FILE).stat().st_size})
+        missing = [k for k in TRAIN_CLI_KERNELS if launches[k] < 1]
+        if missing or launches["mask_draws"] < 1:
+            failures.append(f"launched no time on the path: {missing}, "
+                            f"mask draws {launches['mask_draws']}")
+        del state, fresh, model
+        torch.cuda.empty_cache()
+        # the streaming evaluation CLI on the last checkpoint, the toy dev wavs
+        out = root / "s2tt"
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            simuleval.main(["--source", task["dev_wavs"], "--target", task["dev_text"],
+                            "--agent", "s2tt", "--checkpoint", last,
+                            "--src-dict", task["text_dict"], "--tgt-dict", task["text_dict"],
+                            "--target-code-size", "1000", "--batch", "4",
+                            "--output", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_wavs = len(Path(task["dev_wavs"]).read_text().split())
+        log = [json.loads(x) for x in (out / "instances.log").read_text().splitlines()]
+        emit({"phase": "train_cli_simuleval", "checkpoint": Path(last).name,
+              "wall_s": wall, "instances": len(log), "wavs": n_wavs,
+              "printed_lines": len(printed.getvalue().splitlines())})
+        if sorted(int(d["index"]) for d in log) != list(range(n_wavs)):
+            failures.append(f"simuleval --checkpoint logged {len(log)} instances for "
+                            f"{n_wavs} wavs")
+    emit({"phase": "train_cli_total", "launches": launches,
+          "wall_s": sum(r["wall_s"] for r in runs),
+          "updates_per_s": sum(r["updates"] for r in runs) / sum(r["wall_s"] for r in runs),
+          "peak_mem_gib": max(r["peak_mem_gib"] for r in runs), "nvidia_smi": smi,
+          "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def phase_reference():
     """The same model on the card (kernel route: T = 16*25 or 32*25, H=8,
     D=64) and on the CPU (plain version) over the same audio: ``full_config``
@@ -2795,6 +3043,7 @@ def main():
     phase_train_reference_bf16(cpu32_kernels, kernel_attention=True)
     phase_train_reference_bf16(cpu32_dropout, kernel_attention=True,
                                attention_dropout=ATTN_DROPOUT)
+    train_cli_launches = phase_train_cli(smi)
     train_shape = lambda r: r.get("ms") is not None and r["rate"] == ATTN_DROPOUT  # noqa: E731
     sources = {
         "masked_attention": ("pallas_attention.py:425", "masked_attention.cu",
@@ -2860,7 +3109,8 @@ def main():
              "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches,
              "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches,
-             "train_bf16": train_bf16_launches, "train_bf16_kernels": train_bf16_kernel_launches}
+             "train_bf16": train_bf16_launches, "train_bf16_kernels": train_bf16_kernel_launches,
+             "train_cli": train_cli_launches}
     kernels = []
     for name, (replaces, source, main_shape) in sources.items():
         row = next(r for r in rows[name] if main_shape(r))

@@ -13,9 +13,9 @@ and a target file → an agent → quality and latency scores, ``instances.log``
 Agents ``s2st`` (the fused tick where the engine has a vocoder), ``s2tt`` and
 ``asr``; ``--batch N`` evaluates N instances at a time through the batched
 evaluators. The model runs on the card; ``--cpu`` runs it on the CPU, and
-without a card and without ``--cpu`` the CLI raises. The ``t2t-*`` agents
-(``TextMTModel``, ``HMTModel``) are not ported yet (ROADMAP §A item 9), nor is
-``--checkpoint`` (ROADMAP §A item 5).
+without a card and without ``--cpu`` the CLI raises. ``--checkpoint`` takes a
+native checkpoint of the port's ``cli.train``. The ``t2t-*`` agents
+(``TextMTModel``, ``HMTModel``) are not ported yet (ROADMAP §A item 9).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--source", type=str, required=True, help="newline-separated wav paths")
     p.add_argument("--target", type=str, required=True)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="a native (orbax) checkpoint: not ported yet")
+                   help="a native checkpoint directory of cli.train")
     p.add_argument("--fairseq-checkpoint", type=str, default=None)
     p.add_argument("--agent", choices=["s2st", "s2tt", "asr", "t2t-waitk", "t2t-hmt",
                                        "t2t-hmt-beam"], default="s2st")
@@ -136,8 +136,8 @@ def _score_only(args):
 
 
 def build_engine(args) -> StreamSpeechEngine:
-    """The model of ``--fairseq-checkpoint`` and the ``--vocoder`` behind an
-    engine on the card (``--cpu``: the CPU)."""
+    """The model of ``--checkpoint`` or ``--fairseq-checkpoint`` and the
+    ``--vocoder`` behind an engine on the card (``--cpu``: the CPU)."""
     from streamspeech_tpu_torch.cli.generate import load_model
 
     device = _device(args)

@@ -1,14 +1,19 @@
-"""Model-architecture and training dataclasses, without any YAML loader.
+"""Model-architecture, data and training dataclasses.
 
 Field for field the same as ``streamspeech_tpu/config.py`` (a test holds names
-and defaults equal); the data/multitask YAML parsers stay in the JAX package.
+and defaults equal). The data configs (``S2SDataConfig``, ``MultitaskConfig``)
+read their YAML files through ``load_yaml``, a reader of the subset of YAML
+that fairseq's data configs use, since PyYAML is not a dependency of the port.
 ``full_config`` and ``tiny_config`` mirror ``streamspeech_tpu/train/synthetic.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import re
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass
@@ -120,6 +125,282 @@ class StreamSpeechConfig:
         return cfg
 
 
+# ---------------------------------------------------------------------------
+# Data configs (YAML)
+# ---------------------------------------------------------------------------
+
+
+class YamlSubsetError(ValueError):
+    """A YAML construct outside the subset that ``load_yaml`` reads."""
+
+
+# PyYAML's implicit resolvers (YAML 1.1) for the forms this reader accepts
+_NULL = re.compile(r"(?:~|null|Null|NULL)$")
+_BOOL = {**dict.fromkeys("yes Yes YES true True TRUE on On ON".split(), True),
+         **dict.fromkeys("no No NO false False FALSE off Off OFF".split(), False)}
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?)$")
+_INF = re.compile(r"([-+]?)\.(?:inf|Inf|INF)$")
+_NAN = re.compile(r"\.(?:nan|NaN|NAN)$")
+# forms PyYAML resolves that this reader does not: binary, octal, hex and
+# sexagesimal numbers
+_OTHER_NUMBER = re.compile(r"[-+]?(?:0b[0-1_]+|0[0-7_]+|0x[0-9a-fA-F_]+"
+                           r"|[0-9][0-9_]*(?::[0-5]?[0-9])+(?:\.[0-9_]*)?)$")
+
+
+def _strip_comment(line: str) -> str:
+    """The line without a ``#`` comment (a ``#`` at the start or after a
+    space, outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(text: str) -> Any:
+    """A plain, quoted, int, float, bool or null scalar, or a ``[a, b]`` flow
+    list of them, resolved as ``yaml.safe_load`` resolves them."""
+    t = text.strip()
+    if not t or _NULL.match(t):
+        return None
+    if t[0] in "&*!|>{%@`":
+        raise YamlSubsetError(f"unsupported YAML construct: {t!r}")
+    if t[0] == "[":
+        if not t.endswith("]"):
+            raise YamlSubsetError(f"unterminated flow list: {t!r}")
+        inner = t[1:-1].strip()
+        return [] if not inner else [_scalar(x) for x in _split_flow(inner)]
+    if t[0] in "'\"":
+        if len(t) < 2 or t[-1] != t[0]:
+            raise YamlSubsetError(f"unterminated quoted scalar: {t!r}")
+        body = t[1:-1]
+        if t[0] == "'":
+            return body.replace("''", "'")
+        if "\\" in body:
+            return body.encode("utf-8").decode("unicode_escape")
+        return body
+    if t in _BOOL:
+        return _BOOL[t]
+    if _INT.match(t):
+        return int(t.replace("_", ""))
+    if _FLOAT.match(t):
+        return float(t.replace("_", ""))
+    m = _INF.match(t)
+    if m:
+        return float("-inf") if m.group(1) == "-" else float("inf")
+    if _NAN.match(t):
+        return float("nan")
+    if _OTHER_NUMBER.match(t):
+        raise YamlSubsetError(f"unsupported number form: {t!r}")
+    return t
+
+
+def _split_flow(inner: str) -> List[str]:
+    parts, depth, quote, cur = [], 0, None, ""
+    for ch in inner:
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "[":
+            depth += 1
+        elif ch == "]":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            parts.append(cur)
+            cur = ""
+            continue
+        cur += ch
+    parts.append(cur)
+    return parts
+
+
+def _key_value(text: str) -> Optional[Tuple[str, str]]:
+    """``key: value`` → (key, value text); None when the text is not a mapping
+    entry. A colon counts only when followed by a space or the line's end."""
+    quote = None
+    for i, ch in enumerate(text):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"" and i == 0:
+            quote = ch
+        elif ch == ":" and (i + 1 == len(text) or text[i + 1] in " \t"):
+            key = text[:i].strip()
+            if key[:1] in "'\"":
+                key = _scalar(key)
+            return str(key), text[i + 1:].strip()
+    return None
+
+
+def load_yaml(text: str) -> Any:
+    """Parse the YAML subset of fairseq's data configs: block mappings nested
+    by indentation, ``- item`` lists, ``[a, b]`` flow lists, plain, quoted,
+    int, float, bool and null scalars, and ``#`` comments. Anything else
+    (anchors, aliases, tags, multi-line strings, flow mappings, documents)
+    raises ``YamlSubsetError``. An empty document is None, as in PyYAML."""
+    lines = []
+    for raw in text.splitlines():
+        if "\t" in raw[: len(raw) - len(raw.lstrip())]:
+            raise YamlSubsetError("tab in indentation")
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        if line.strip() in ("---", "...") or line.startswith("%"):
+            raise YamlSubsetError(f"unsupported YAML construct: {line.strip()!r}")
+        lines.append((len(line) - len(line.lstrip(" ")), line.strip()))
+    if not lines:
+        return None
+    value, pos = _block(lines, 0, lines[0][0])
+    if pos != len(lines):
+        raise YamlSubsetError(f"unexpected indentation at {lines[pos][1]!r}")
+    return value
+
+
+def _block(lines, pos: int, indent: int):
+    """The node whose lines start at ``pos`` with indentation ``indent``."""
+    if lines[pos][1].startswith("- ") or lines[pos][1] == "-":
+        out: List[Any] = []
+        while pos < len(lines) and lines[pos][0] == indent and (
+                lines[pos][1].startswith("- ") or lines[pos][1] == "-"):
+            rest = lines[pos][1][1:].strip()
+            pos += 1
+            if rest:
+                if _key_value(rest) is not None:
+                    # "- key: value" opens a mapping at the item's column
+                    sub = [(indent + 2, rest)]
+                    while pos < len(lines) and lines[pos][0] > indent:
+                        sub.append(lines[pos])
+                        pos += 1
+                    item, _ = _block(sub, 0, indent + 2)
+                    out.append(item)
+                else:
+                    out.append(_scalar(rest))
+            elif pos < len(lines) and lines[pos][0] > indent:
+                item, pos = _block(lines, pos, lines[pos][0])
+                out.append(item)
+            else:
+                out.append(None)
+        return out, pos
+    mapping: Dict[str, Any] = {}
+    while pos < len(lines) and lines[pos][0] == indent:
+        kv = _key_value(lines[pos][1])
+        if kv is None:
+            raise YamlSubsetError(f"expected 'key: value' at {lines[pos][1]!r}")
+        key, rest = kv
+        pos += 1
+        if rest:
+            mapping[key] = _scalar(rest)
+        elif pos < len(lines) and (lines[pos][0] > indent or (
+                lines[pos][0] == indent and lines[pos][1].startswith("-"))):
+            mapping[key], pos = _block(lines, pos, lines[pos][0])
+        else:
+            mapping[key] = None
+    return mapping, pos
+
+
+def _load_yaml(path: str) -> Dict[str, Any]:
+    with open(path, "r", encoding="utf-8") as f:
+        return load_yaml(f.read()) or {}
+
+
+@dataclass
+class S2SDataConfig:
+    """Parsed config_gcmvn.yaml. Paths are resolved relative to the yaml dir when
+    the absolute path recorded at preprocessing time does not exist (the reference
+    hardcodes the author's machine paths)."""
+
+    yaml_dir: Path = field(default_factory=Path)
+    input_feat_per_channel: int = 80
+    input_channels: int = 1
+    global_cmvn_stats_npz: Optional[str] = None
+    transforms: Dict[str, List[str]] = field(default_factory=dict)
+    specaugment: Dict[str, Any] = field(default_factory=dict)
+    vocoder_checkpoint: Optional[str] = None
+    vocoder_config: Optional[str] = None
+    vocoder_type: str = "code_hifigan"
+    target_sample_rate: int = 16000
+
+    def _resolve(self, p: Optional[str]) -> Optional[str]:
+        if p is None:
+            return None
+        if Path(p).exists():
+            return p
+        cand = self.yaml_dir / Path(p).name
+        return str(cand) if cand.exists() else p
+
+    @classmethod
+    def load(cls, path: str) -> "S2SDataConfig":
+        raw = _load_yaml(path)
+        cfg = cls(yaml_dir=Path(path).parent)
+        cfg.input_feat_per_channel = raw.get("input_feat_per_channel", 80)
+        cfg.input_channels = raw.get("input_channels", 1)
+        gc = raw.get("global_cmvn") or {}
+        cfg.global_cmvn_stats_npz = cfg._resolve(gc.get("stats_npz_path"))
+        cfg.transforms = raw.get("transforms", {})
+        cfg.specaugment = raw.get("specaugment", {})
+        voc = raw.get("vocoder") or {}
+        cfg.vocoder_checkpoint = cfg._resolve(voc.get("checkpoint"))
+        cfg.vocoder_config = cfg._resolve(voc.get("config"))
+        cfg.vocoder_type = voc.get("type", "code_hifigan")
+        return cfg
+
+    def get_transforms(self, split: str) -> List[str]:
+        # reference semantics (`data_cfg.py:35`): "_train" key for train splits,
+        # "*" for everything else.
+        key = "_train" if split.startswith("train") else "*"
+        return self.transforms.get(key, self.transforms.get("*", []))
+
+
+@dataclass
+class MultitaskConfig:
+    """Parsed config_mtl_asr_st_ctcst.yaml: one MultitaskTaskConfig per top-level key."""
+
+    tasks: Dict[str, MultitaskTaskConfig] = field(default_factory=dict)
+
+    @classmethod
+    def load(cls, path: str) -> "MultitaskConfig":
+        raw = _load_yaml(path)
+        yaml_dir = Path(path).parent
+        cfg = cls()
+        for name, body in raw.items():
+            dargs = body.get("decoder_args", {}) or {}
+            t = MultitaskTaskConfig(
+                task_name=name,
+                decoder_type=body.get("decoder_type", "ctc"),
+                dict_path=str(body.get("dict", "")),
+                data=str(body.get("data", "")),
+                loss_weight=float(body.get("loss_weight", 1.0)),
+                rdrop_alpha=float(body.get("rdrop_alpha", 0.0)),
+                label_smoothing=float(body.get("label_smoothing", 0.1)),
+                decoder_layers=int(dargs.get("decoder_layers", 0)),
+                decoder_embed_dim=int(dargs.get("decoder_embed_dim", 512)),
+                decoder_ffn_embed_dim=int(dargs.get("decoder_ffn_embed_dim", 2048)),
+                decoder_attention_heads=int(dargs.get("decoder_attention_heads", 8)),
+                input_from=body.get("input_from", "encoder"),
+                # reference convention: the transformer-decoder aux task is the
+                # first-pass MT decoder (`tasks/speech_to_speech.py:212-246`)
+                is_first_pass_decoder=body.get("decoder_type") == "transformer",
+            )
+            if t.dict_path and not Path(t.dict_path).exists():
+                cand = yaml_dir / Path(t.dict_path).parent.name / Path(t.dict_path).name
+                if cand.exists():
+                    t.dict_path = str(cand)
+            cfg.tasks[name] = t
+        return cfg
+
+
+# ---------------------------------------------------------------------------
+# Training config
+# ---------------------------------------------------------------------------
+
+
 @dataclass
 class OptimizationConfig:
     """train.simul-s2st.sh: Adam(0.9,0.98) lr 1e-3 inverse_sqrt warmup 10k, clip 10.
@@ -164,6 +445,10 @@ class TrainingConfig:
     # parallelism
     mesh_shape: Dict[str, int] = field(default_factory=lambda: {"data": 1})
     fsdp: bool = False
+
+
+def to_dict(cfg) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
 
 
 def tiny_config(vocab_text: int = 32, vocab_units: int = 24,

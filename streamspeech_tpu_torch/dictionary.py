@@ -44,6 +44,18 @@ class Dictionary:
         self.blank_index = self.add_symbol(symbol)
         return self.blank_index
 
+    def index(self, word: str) -> int:
+        return self.indices.get(word, self.unk_index)
+
+    def encode_line(self, line: str, append_eos: bool = True,
+                    add_if_not_exist: bool = False) -> List[int]:
+        """Whitespace-split symbols → ids (unknown → ``<unk>``, or added)."""
+        ids = [self.add_symbol(w) if add_if_not_exist else self.index(w)
+               for w in line.split()]
+        if append_eos:
+            ids.append(self.eos_index)
+        return ids
+
     def blank(self) -> int:
         if self.blank_index is None:
             raise ValueError("dictionary has no <blank>; call add_blank() first")

@@ -35,6 +35,7 @@ from streamspeech_tpu_torch.models.layers import (
     LayerNorm,
     RelPosMultiHeadAttention,
     dropout,
+    remat,
 )
 from streamspeech_tpu_torch.ops.masks import chunk_allowed, lengths_to_mask
 from streamspeech_tpu_torch.ops.pos_encoding import rel_pos_encoding
@@ -199,8 +200,12 @@ class ChunkConformerEncoder(nn.Module):
             allowed = chunk_allowed(t, chunk_size, device=x.device)
         key_valid = lengths_to_mask(out_lengths, t)
         for layer in self.layers():
-            x = layer(x, pos_emb, allowed, key_valid, conv_chunk_size, deterministic,
-                      use_running_stats, generator)
+            if self.cfg.remat:
+                x = remat(layer, generator, x, pos_emb, allowed, key_valid,
+                          conv_chunk_size, deterministic, use_running_stats)
+            else:
+                x = layer(x, pos_emb, allowed, key_valid, conv_chunk_size, deterministic,
+                          use_running_stats, generator)
         return x, out_lengths
 
     def init_stream_state(self, batch: int, max_frames: int,

@@ -99,6 +99,42 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
     return torch.where(keep.bool(), x / keep_prob, torch.zeros_like(x))
 
 
+def remat(layer: nn.Module, generator: Optional[torch.Generator], *args, **kwargs):
+    """``layer(*args, generator=..., **kwargs)`` recomputed in the backward
+    pass instead of keeping its activations (``torch.utils.checkpoint``,
+    non-reentrant): the counterpart of flax's ``nn.remat`` per layer
+    (`conformer.py:221-231`, `transformer.py:628`).
+
+    The recompute draws the masks of the first pass: ``preserve_rng_state``
+    restores only the global generators, so the recompute runs on a copy of
+    ``generator`` as it was before the first pass. It also writes back the
+    layer's BatchNorm buffers as they were, so batch statistics update once."""
+    from torch.utils.checkpoint import checkpoint
+
+    if not torch.is_grad_enabled():
+        return layer(*args, generator=generator, **kwargs)
+    start = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return layer(*a, generator=generator, **kwargs)
+        gen = None
+        if generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(start)
+        kept = [b.clone() for b in layer.buffers()]
+        try:    # the recompute may stop early, once it has what backward needs
+            return layer(*a, generator=gen, **kwargs)
+        finally:
+            with torch.no_grad():
+                for b, k in zip(layer.buffers(), kept):
+                    b.copy_(k)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis with flax ``nn.BatchNorm(momentum=0.9,
     epsilon=1e-5)`` semantics (`layers.py:781`, `:793-794`). With running

@@ -29,6 +29,7 @@ from streamspeech_tpu_torch.models.layers import (
     LayerNorm,
     MultiHeadAttention,
     dropout,
+    remat,
 )
 from streamspeech_tpu_torch.ops.masks import causal_allowed, waitk_allowed
 from streamspeech_tpu_torch.ops.pos_encoding import sinusoidal_embedding
@@ -306,10 +307,13 @@ class CTCTransformerUnitDecoder(nn.Module):
             allowed_cross = waitk_allowed(t_up, t_mt, src_wait or 0, src_step,
                                           src_step * up, device=enc.device)
         for i in range(self.cfg.layers):
-            x = getattr(self, f"layers_{i}")(x, enc, allowed_cross, self_valid,
-                                             enc_valid, self_causal=True,
-                                             deterministic=deterministic,
-                                             generator=generator)
+            layer = getattr(self, f"layers_{i}")
+            if self.cfg.remat:
+                x = remat(layer, generator, x, enc, allowed_cross, self_valid, enc_valid,
+                          self_causal=True, deterministic=deterministic)
+            else:
+                x = layer(x, enc, allowed_cross, self_valid, enc_valid, self_causal=True,
+                          deterministic=deterministic, generator=generator)
         x = self.layer_norm(x)
         return x @ self.embed_tokens.to(x.dtype).T, x
 

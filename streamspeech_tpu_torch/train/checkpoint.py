@@ -12,16 +12,28 @@ the port's model and vocoder, and back.
   38-41`): weight-norm ``weight_g`` / ``weight_v`` folded into plain weights,
   as the reference's remove_weight_norm after loading.
 
-NumPy and ``torch.load`` only. The native (orbax) checkpoints of the JAX
-package, ``load_checkpoint`` and the ``--checkpoint`` flag, are not ported
-yet (ROADMAP §A item 5)."""
+NumPy and ``torch.load`` only.
+
+The native checkpoints (the second half of this module) keep the JAX
+package's directory layout and rotation: ``checkpoint_<step>/``,
+``checkpoint.best_<repr(metric)>_<step>/`` as hard-link trees, ``config.json``
+and ``--keep-last``. The file inside is the port's own: the card machine has
+no orbax, so it cannot read JAX's. ``checkpoint_<step>/state.pt`` holds the
+parameters, the BatchNorm statistics, Adam's ``mu`` / ``nu``, ``count``,
+``mini_step``, the MultiSteps accumulator and ``step``, as CPU tensors under
+the flax names and layout (``weights.flax_tree``), loaded with
+``torch.load(..., weights_only=True)``; a port checkpoint compares with a JAX
+one by name, and ``weights.load_flax_variables`` restores its weights."""
 
 from __future__ import annotations
 
 import json
+import math
+import os
 import re
+import shutil
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -396,3 +408,273 @@ def export_hifigan_vocoder(variables: Dict, cfg: Dict) -> Dict[str, np.ndarray]:
         sd["dur_predictor.proj.weight"] = np.asarray(dp["proj"]["kernel"]).T
         sd["dur_predictor.proj.bias"] = np.asarray(dp["proj"]["bias"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# native checkpoints
+# ---------------------------------------------------------------------------
+
+STATE_FILE = "state.pt"
+
+
+def _tensors(tree):
+    """A tree of NumPy arrays → the same tree of CPU tensors."""
+    if isinstance(tree, Mapping):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(np.ascontiguousarray(tree))
+
+
+def state_payload(state) -> Dict[str, Any]:
+    """A port ``TrainState`` → the checkpoint's tree of CPU tensors under
+    the flax names: ``params``, ``batch_stats``, ``opt_state`` (``count``,
+    ``mini_step``, ``mu``, ``nu`` and, with update_freq > 1, ``acc_grads``)
+    and ``step``."""
+    from streamspeech_tpu_torch.weights import flax_tree
+
+    if state.model is None:
+        raise ValueError("the TrainState has no model (make it with TrainState.create)")
+    names = list(state.params)
+    opt = state.opt_state
+
+    def tree(tensors, collection="params"):
+        return _tensors(flax_tree(state.model, tensors, collection))
+
+    payload_opt = {"count": torch.tensor(opt.count, dtype=torch.int32),
+                   "mini_step": torch.tensor(opt.mini_step, dtype=torch.int32),
+                   "mu": tree(dict(zip(names, opt.mu))),
+                   "nu": tree(dict(zip(names, opt.nu)))}
+    if opt.acc_grads is not None:
+        payload_opt["acc_grads"] = tree(dict(zip(names, opt.acc_grads)))
+    return {"params": tree(state.params),
+            "batch_stats": tree(state.batch_stats, "batch_stats"),
+            "opt_state": payload_opt,
+            "step": torch.tensor(state.step, dtype=torch.int32)}
+
+
+def restore_state(state, payload: Mapping[str, Any]):
+    """Copy a checkpoint's payload into ``state`` in place (the model's
+    parameters and statistics, the optimizer state, the step); returns it."""
+    from streamspeech_tpu_torch.weights import load_flax_variables, named_from_flax
+
+    load_flax_variables(state.model, {"params": payload["params"],
+                                      "batch_stats": payload["batch_stats"]})
+    names = list(state.params)
+    opt = payload["opt_state"]
+
+    def as_list(tree):
+        named = named_from_flax(tree)
+        return [torch.from_numpy(named[n]).to(state.params[n].device) for n in names]
+
+    state.opt_state.count = int(opt["count"])
+    state.opt_state.mini_step = int(opt["mini_step"])
+    state.opt_state.mu = as_list(opt["mu"])
+    state.opt_state.nu = as_list(opt["nu"])
+    if "acc_grads" in opt:
+        state.opt_state.acc_grads = as_list(opt["acc_grads"])
+    state.step = int(payload["step"])
+    return state
+
+
+def _by_step(d: Path) -> List[Path]:
+    return sorted(d.glob("checkpoint_*"), key=lambda p: int(p.name.split("_")[-1]))
+
+
+def save_checkpoint(save_dir: str, step: int, state, config: Optional[dict] = None,
+                    keep_last: int = 10, keep_best: int = 0,
+                    val_metric: Optional[float] = None,
+                    maximize: bool = False) -> str:
+    """Write ``checkpoint_<step>/state.pt`` (and ``config.json``), enter the
+    best set when ``keep_best`` and a metric are given, then keep the newest
+    ``keep_last`` ``checkpoint_*`` (`streamspeech_tpu/train/checkpoint.py:33-64`)."""
+    d = Path(save_dir).absolute()
+    d.mkdir(parents=True, exist_ok=True)
+    path = d / f"checkpoint_{step}"
+    if path.exists():
+        shutil.rmtree(path)
+    save_payload(str(path), state_payload(state))
+    if config is not None:
+        (d / "config.json").write_text(json.dumps(config, indent=2))
+    if keep_best > 0 and val_metric is not None:
+        _rotate_best(d, path, step, float(val_metric), keep_best, maximize)
+    for old in _by_step(d)[:-keep_last]:
+        shutil.rmtree(old, ignore_errors=True)
+    return str(path)
+
+
+_BEST_RE = re.compile(r"checkpoint\.best_(-?[0-9.]+(?:e[+-]?\d+)?)_(\d+)$")
+
+
+def _scan_best(d: Path):
+    """[(metric, step, path)] of the kept best checkpoints in `d`."""
+    best = []
+    for p in d.glob("checkpoint.best_*"):
+        m = _BEST_RE.match(p.name)
+        if m:
+            best.append((float(m.group(1)), int(m.group(2)), p))
+    return best
+
+
+def would_enter_best(save_dir: str, val: Optional[float], keep_best: int,
+                     maximize: bool = False) -> bool:
+    """True iff a checkpoint with validation metric `val` would be admitted
+    to the --keep-best-checkpoints rotation right now; the train loop asks
+    before it writes a checkpoint that would be pruned at once."""
+    if keep_best <= 0 or val is None or not math.isfinite(float(val)):
+        return False
+    best = _scan_best(Path(save_dir)) if Path(save_dir).exists() else []
+    if len(best) < keep_best:
+        return True
+    worst = (min if maximize else max)(b[0] for b in best)
+    return val >= worst if maximize else val <= worst
+
+
+def _rotate_best(d: Path, src: Path, step: int, val: float, keep_best: int,
+                 maximize: bool) -> None:
+    """`--keep-best-checkpoints` (fairseq `checkpoint_utils.py:83-127`): the
+    new checkpoint is linked to checkpoint.best_<repr(metric)>_<step> when it
+    beats the worst kept best (or fewer than N are kept), then all but the N
+    best are removed; ties keep the newer step. A non-finite metric never
+    enters (its name would not parse back)."""
+    if not math.isfinite(val):
+        return
+    best = _scan_best(d)
+
+    def better(a: float, b: float) -> bool:
+        return a >= b if maximize else a <= b
+
+    if best:
+        worst = (min if maximize else max)(b[0] for b in best)
+        if len(best) >= keep_best and not better(val, worst):
+            return
+    dst = d / f"checkpoint.best_{val!r}_{step}"
+    if not dst.exists():
+        shutil.copytree(src, dst, copy_function=os.link)
+        best.append((val, step, dst))
+    best.sort(key=lambda t: (-t[0] if maximize else t[0], -t[1]))
+    for _, _, p in best[keep_best:]:
+        shutil.rmtree(p, ignore_errors=True)
+
+
+def best_checkpoint(save_dir: str, maximize: bool = False) -> Optional[str]:
+    """Path of the best kept checkpoint of the --keep-best-checkpoints
+    rotation (fairseq's checkpoint_best.pt), or None."""
+    d = Path(save_dir)
+    if not d.exists():
+        return None
+    best = _scan_best(d)
+    if not best:
+        return None
+    best.sort(key=lambda t: (-t[0] if maximize else t[0], -t[1]))
+    return str(best[0][2])
+
+
+def latest_checkpoint(save_dir: str) -> Optional[str]:
+    d = Path(save_dir)
+    if not d.exists():
+        return None
+    ckpts = _by_step(d)
+    return str(ckpts[-1]) if ckpts else None
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """A checkpoint directory (or its ``state.pt``) → its payload: nested
+    dicts of CPU tensors (``state_payload``'s tree)."""
+    p = Path(path)
+    if p.is_dir():
+        p = p / STATE_FILE
+    return torch.load(p, map_location="cpu", weights_only=True)
+
+
+def load_model_ensemble(paths) -> list:
+    """N native checkpoints as ensemble members (fairseq
+    `checkpoint_utils.py:288`): a ``{"params", "batch_stats"}`` tree each."""
+    out = []
+    for p in paths:
+        r = load_checkpoint(str(p))
+        out.append({"params": r["params"], "batch_stats": r.get("batch_stats", {})})
+    return out
+
+
+def _map_leaves(fn, *trees):
+    first = trees[0]
+    if isinstance(first, Mapping):
+        if any(not isinstance(t, Mapping) or set(t) != set(first) for t in trees[1:]):
+            raise KeyError("checkpoints have mismatched param trees "
+                           "(average_checkpoints.py:50 raises KeyError too)")
+        return {k: _map_leaves(fn, *(t[k] for t in trees)) for k in first}
+    if any(isinstance(t, Mapping) for t in trees[1:]):
+        raise KeyError("checkpoints have mismatched param trees")
+    return fn(*trees)
+
+
+def average_checkpoints(paths) -> Dict[str, Any]:
+    """Average the params across checkpoints (`fairseq/scripts/
+    average_checkpoints.py:17-65`): float params are the element-wise mean
+    (summed in float64), everything else (non-float leaves, batch_stats,
+    opt_state, step) is the FIRST checkpoint's."""
+    assert len(paths) >= 1
+    payloads = [load_checkpoint(str(p)) for p in paths]
+    n = len(payloads)
+
+    def avg(*leaves):
+        x0 = leaves[0]
+        if torch.is_floating_point(x0):
+            acc = torch.zeros(x0.shape, dtype=torch.float64)
+            for leaf in leaves:
+                acc += leaf.to(torch.float64)
+            return (acc / n).to(x0.dtype)
+        return x0
+
+    params = _map_leaves(avg, *[p["params"] for p in payloads])
+    return {**payloads[0], "params": params}
+
+
+def save_payload(path: str, payload: Mapping[str, Any]) -> str:
+    """Write a payload (``state_payload``'s or ``average_checkpoints``'s) as a
+    checkpoint directory, its file replaced at once."""
+    d = Path(path).absolute()
+    d.mkdir(parents=True, exist_ok=True)
+    tmp = d / f"{STATE_FILE}.tmp"
+    torch.save(dict(payload), tmp)
+    os.replace(tmp, d / STATE_FILE)
+    return str(d)
+
+
+def _key_paths(tree) -> set:
+    """The key paths of a tree: what JAX's treedef comparison sees (names and
+    nesting, not leaf shapes)."""
+    if isinstance(tree, Mapping):
+        return {(k,) + rest for k, v in tree.items() for rest in _key_paths(v)}
+    return {()}
+
+
+def load_pretrained_component(variables: Dict[str, Any], checkpoint_path: str,
+                              component: str, strict: bool = True) -> Dict[str, Any]:
+    """Graft one tower (e.g. "encoder", "mt_decoder", "unit_decoder") of a
+    saved checkpoint into a flax variables tree (fairseq's
+    `load_pretrained_component_from_model`, `checkpoint_utils.py:821-851`).
+    Takes a native checkpoint or a fairseq ``.pt``. ``strict`` raises unless
+    the component's tree (its names and nesting) is the one it replaces."""
+    if Path(checkpoint_path).is_file():  # reference .pt
+        params_src, bs_src, _ = import_fairseq_streamspeech(checkpoint_path)
+        payload = {"params": params_src, "batch_stats": bs_src}
+    else:
+        payload = load_checkpoint(checkpoint_path)
+    if component not in payload["params"]:
+        raise KeyError(f"checkpoint has no component {component!r}")
+    sub = payload["params"][component]
+    if strict:
+        want = _key_paths(variables["params"][component])
+        have = _key_paths(sub)
+        if want != have:
+            raise ValueError(f"component {component!r} structure mismatch: "
+                             f"{sorted(want ^ have)}")
+    out = {k: dict(v) if isinstance(v, dict) else v for k, v in variables.items()}
+    out["params"] = dict(variables["params"])
+    out["params"][component] = sub
+    bs = payload.get("batch_stats") or {}
+    if component in bs and "batch_stats" in variables:
+        out["batch_stats"] = dict(variables.get("batch_stats", {}))
+        out["batch_stats"][component] = bs[component]
+    return out
+

@@ -18,8 +18,8 @@ The NaN/Inf guard zeroes non-finite gradients and still runs the optimizer
 (`trainer.py:146-152`): the moments decay and the params move by the old
 momentum. Unlike the JAX package the port updates the model's parameters and
 BatchNorm buffers in place: the state is a view on the model's tensors.
-``make_train_step_scan`` and the mesh helpers (``create_sharded_state``,
-``batch_spec``) are not ported.
+``make_train_step_scan`` runs K steps a call as a plain loop; the mesh helpers
+(``create_sharded_state``, ``batch_spec``) are not ported (ROADMAP §A item 10).
 """
 
 from __future__ import annotations
@@ -146,13 +146,15 @@ class TrainState:
     batch_stats: Tensors
     opt_state: OptState
     step: int = 0
+    # the module whose tensors these are: a checkpoint names them by its layout
+    model: Optional[torch.nn.Module] = None
 
     @classmethod
     def create(cls, model: torch.nn.Module, tx: Optimizer) -> "TrainState":
         params = dict(model.named_parameters())
         stats = {n: b for n, b in model.named_buffers() if n.endswith(_STAT_NAMES)}
         return cls(params=params, batch_stats=stats,
-                   opt_state=tx.init(list(params.values())), step=0)
+                   opt_state=tx.init(list(params.values())), step=0, model=model)
 
 
 def rdrop_kl(logits1: torch.Tensor, logits2: torch.Tensor,
@@ -264,3 +266,57 @@ def make_train_step(model: StreamSpeechModel, tx: Optimizer, unit_blank: int,
         return state, metrics
 
     return train_step
+
+
+_M64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def fold_in_seed(seed0: int, i: int) -> int:
+    """The seed of step ``i`` of a block whose seed is ``seed0``: the
+    counterpart of ``jax.random.fold_in(jax.random.PRNGKey(seed0), i)``, one
+    reproducible stream per (seed0, i). splitmix64 mixes seed0, then the mix
+    xor i once more; the top 63 bits seed a ``torch.Generator``."""
+    return _splitmix64(_splitmix64(int(seed0) & _M64) ^ int(i)) >> 1
+
+
+def make_train_step_scan(model: StreamSpeechModel, tx: Optimizer, unit_blank: int,
+                         weights: CriterionWeights = CriterionWeights(),
+                         rdrop_alpha: float = 0.0,
+                         specaugment_cfg: Optional[Dict[str, Any]] = None,
+                         kernel_attention: bool = False) -> Callable:
+    """K train steps a call (`trainer.py:165-216`): ``step_k(state, batches,
+    seed0, chunk_size, conv_chunk_size) -> (state, stacked_metrics)``.
+
+    ``batches`` is the usual batch with a leading steps axis K on every
+    tensor (K loader batches of one shape stacked) and ``n2`` a length-K
+    sequence; the metrics come back stacked ``[K]`` on the device, so the
+    host reads one bundle a block. Step i draws from a ``torch.Generator`` on
+    the model's device seeded with ``fold_in_seed(seed0, i)`` (JAX's
+    ``fold_in(key(seed0), i)``). The steps run back to back as a plain loop
+    of ``make_train_step``'s step; capturing the block as one CUDA graph is
+    ROADMAP §A item 3."""
+    inner = make_train_step(model, tx, unit_blank, weights=weights,
+                            rdrop_alpha=rdrop_alpha, specaugment_cfg=specaugment_cfg,
+                            kernel_attention=kernel_attention)
+    device = next(model.parameters()).device
+
+    def train_step_k(state: TrainState, batches, seed0: int,
+                     chunk_size: Optional[int], conv_chunk_size: Optional[int]):
+        k = len(batches["n2"])
+        per_step = []
+        for i in range(k):
+            batch = {key: v[i] for key, v in batches.items()}
+            gen = torch.Generator(device=device).manual_seed(fold_in_seed(seed0, i))
+            state, metrics = inner(state, batch, gen, chunk_size, conv_chunk_size)
+            per_step.append(metrics)
+        return state, {key: torch.stack([m[key] for m in per_step])
+                       for key in per_step[0]}
+
+    return train_step_k

@@ -112,31 +112,50 @@ def _to_flax(module: nn.Module, leaf: str, x: np.ndarray) -> Tuple[str, np.ndarr
     return leaf, x
 
 
+def flax_tree(module: nn.Module, tensors: Mapping[str, torch.Tensor],
+              collection: str = "params") -> Dict[str, Dict]:
+    """Tensors keyed by ``module``'s parameter names (``collection="params"``:
+    the parameters, their gradients or optimizer moments) or BatchNorm
+    buffer names (``"batch_stats"``) → one flax collection tree of NumPy
+    arrays in the flax layout, of the tensors' own dtype (exact copies)."""
+    out: Dict[str, Dict] = {}
+    modules = dict(module.named_modules())
+    stat_of = {v: k for k, v in _STAT_NAMES.items()}
+    with torch.no_grad():
+        for name, t in tensors.items():
+            path, _, leaf = name.rpartition(".")
+            x = t.detach().cpu().numpy().copy()
+            if collection == "batch_stats":
+                leaf = stat_of[leaf]
+            else:
+                leaf, x = _to_flax(modules[path], leaf, x)
+            node = out
+            for part in path.split(".") if path else []:
+                node = node.setdefault(part, {})
+            node[leaf] = np.ascontiguousarray(x)
+    return out
+
+
+def named_from_flax(tree: Mapping, collection: str = "params") -> Dict[str, np.ndarray]:
+    """The inverse of ``flax_tree``: a flax collection tree (NumPy or CPU
+    tensor leaves) → arrays keyed by the port's names, in the port's layout."""
+    out: Dict[str, np.ndarray] = {}
+    for path, x in _flatten(tree):
+        name, arr = _convert(path, x, collection)
+        out[name] = np.ascontiguousarray(arr)
+    return out
+
+
 def flax_variables(module: nn.Module) -> Dict[str, Dict]:
     """The module's weights as a flax variables tree of float32 NumPy arrays
     ({"params": ..., "batch_stats": ...}), the inverse of
     ``load_flax_variables``: loading the tree back gives the same tensors."""
-    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
-    modules = dict(module.named_modules())
-
-    def put(collection: str, path: str, leaf: str, x: np.ndarray):
-        node = out[collection]
-        for part in path.split(".") if path else []:
-            node = node.setdefault(part, {})
-        node[leaf] = x
-
-    with torch.no_grad():
-        for name, t in module.named_parameters():
-            path, _, leaf = name.rpartition(".")
-            x = t.detach().float().cpu().numpy().copy()
-            put("params", path, *_to_flax(modules[path], leaf, x))
-        for name, t in module.named_buffers():
-            path, _, leaf = name.rpartition(".")
-            stat = {v: k for k, v in _STAT_NAMES.items()}.get(leaf)
-            if stat is not None:
-                put("batch_stats", path, stat, t.detach().float().cpu().numpy().copy())
-    if not out["batch_stats"]:
-        del out["batch_stats"]
+    params = {n: t.float() for n, t in module.named_parameters()}
+    stats = {n: t.float() for n, t in module.named_buffers()
+             if n.rsplit(".", 1)[-1] in _STAT_NAMES.values()}
+    out = {"params": flax_tree(module, params)}
+    if stats:
+        out["batch_stats"] = flax_tree(module, stats, "batch_stats")
     return out
 
 

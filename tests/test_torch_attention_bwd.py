@@ -27,6 +27,7 @@ from streamspeech_tpu.ops import pallas_attention as pa
 
 from streamspeech_tpu_torch.kernels import attention, build
 from streamspeech_tpu_torch.ops.masks import NEG_INF
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 JAX_RTOL = 2e-4       # port (plain fp32) vs Pallas interpret mode
 AUTOGRAD_RTOL = 1e-5  # plain backward vs autograd through the plain forward

@@ -15,6 +15,7 @@ import torch
 
 from streamspeech_tpu_torch.kernels import attention
 from streamspeech_tpu_torch.ops.masks import NEG_INF
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from streamspeech_tpu.ops import pallas_attention as pa
 from streamspeech_tpu_torch.kernels import attention
 from streamspeech_tpu_torch.ops.masks import NEG_INF
 from tests.test_torch_attention_tc import _mm1, _mm3
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 JAX_RTOL = 2e-4     # emulated kernel vs Pallas interpret mode, of max(1, |ref|)
 PLAIN_RTOL = 1e-5   # emulated 3xTF32 kernel vs the plain fp32 version, of max|ref|

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 from streamspeech_tpu.runtime.batched import BatchedStreamingSession as JaxBatched
+from tests.jax_init import shared_jax_init  # noqa: F401
 from tests.torch_serving_stack import build_stack
 from tests.torch_threads import one_torch_thread  # noqa: F401
 

@@ -35,7 +35,6 @@ import torch
 from streamspeech_tpu.models.layers import KVCache as JaxKVCache
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
 from streamspeech_tpu.models.streamspeech import ctc_not_blank_probs as jax_nb
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.ops import masks as jmasks
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
 
@@ -46,6 +45,7 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.models.streamspeech import ctc_not_blank_probs
 from streamspeech_tpu_torch.ops import masks as pmasks
 from streamspeech_tpu_torch.weights import load_flax_variables
+from tests.jax_init import init_variables, shared_jax_init  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DRIFT_FACTOR = 2.0
@@ -81,8 +81,7 @@ def _assert_drift(port16, jax16, jax32, name):
 def models():
     cfg = jax_tiny_config(vocab_text=TEXT_VOCAB, upsample=UPSAMPLE)
     j32, j16 = JaxModel(cfg), JaxModel(cfg, dtype=jnp.bfloat16)
-    variables = jax.tree.map(np.asarray, jax.jit(lambda k: init_params(j32, k))(
-        jax.random.PRNGKey(0)))
+    variables = init_variables(j32)
     rng = np.random.RandomState(11)
     for layer in variables["batch_stats"]["encoder"].values():   # non-trivial BN stats
         bn = layer["conv_module"]["batch_norm"]

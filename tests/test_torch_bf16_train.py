@@ -41,7 +41,7 @@ bit.
 Then: the fp32 step is bit for bit the step before bf16 dropout rounded its
 scale (the earlier ``dropout`` restored for comparison), on both routes with
 dropout on; a bf16 step with ``update_freq=2`` moves the parameters on its
-second call only. About 100 worker-seconds, most of it three JAX jits.
+second call only. Most of the file's time is its three JAX jits.
 """
 
 import contextlib
@@ -54,7 +54,6 @@ import torch
 
 from streamspeech_tpu.models import layers as jlayers
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.ops import pallas_attention as pa
 from streamspeech_tpu.train.criterion import streamspeech_loss as jax_loss
 from streamspeech_tpu.train.synthetic import synthetic_batch as jax_batch
@@ -69,6 +68,7 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.train import trainer as ptrain
 from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+from tests.jax_init import init_variables, shared_jax_init  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 OPT = dict(warmup_updates=10, lr=1e-3, clip_norm=1.0)
@@ -100,43 +100,49 @@ def _jax_kernel_route():
         yield
 
 
+# (route, name): the JAX losses the file reads; the fp32 step is the same on
+# both routes (to 2e-5 of the gradient's norm)
+JAX_RUNS = (("kernels", "bf16"), ("default", "bf16"), ("default", "fp32"))
+
+
+def _jax_run(route, name, variables):
+    """(loss components, gradients as a flax tree) of the JAX step's loss on
+    ``route`` at the dtype ``name``, one jitted ``value_and_grad``."""
+    jcfg = _no_dropout(jax_tiny_config())
+    jb = jax_batch(jcfg, **BATCH)
+    unit_blank = jcfg.unit_decoder.vocab_size - 1
+    model = JaxModel(jcfg, dtype=jnp.float32 if name == "fp32" else jnp.bfloat16)
+
+    def loss(params):
+        out, _ = model.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            jb["src_tokens"], jb["src_lengths"], jb["prev_output_tokens_mt"],
+            chunk_size=CHUNK, conv_chunk_size=CONV_CHUNK, k1=0, n1=1, k2=0,
+            n2=jb["n2"], streaming=True, deterministic=False,
+            use_running_stats=False, rngs={"dropout": jax.random.PRNGKey(0)},
+            mutable=["batch_stats"])
+        m = jax_loss(out, jb, unit_blank)
+        return m["loss"] / m["sample_size"].astype(jnp.float32), m
+
+    with _jax_kernel_route() if route == "kernels" else contextlib.nullcontext():
+        (_, metrics), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+            jax.tree.map(jnp.asarray, variables["params"]))
+    return ({k: float(metrics[k]) for k in LOSS_KEYS},
+            jax.tree.map(lambda g: np.asarray(g, np.float32), grads))
+
+
 @pytest.fixture(scope="module")
 def jax_runs():
     """Per route and dtype: (loss components, gradients as a port model's
     ``named_parameters``) of the JAX step's loss; fp32 on the default route."""
-    jcfg = _no_dropout(jax_tiny_config())
-    variables = jax.tree.map(np.asarray, jax.jit(lambda k: init_params(JaxModel(jcfg), k))(
-        jax.random.PRNGKey(0)))
-    jb = jax_batch(jcfg, **BATCH)
-    unit_blank = jcfg.unit_decoder.vocab_size - 1
+    variables = init_variables(JaxModel(_no_dropout(jax_tiny_config())))
     runs = {}
-    # the fp32 step is the same on both routes (to 2e-5 of the gradient's norm)
-    for route, name, dtype in (("default", "fp32", jnp.float32),
-                               ("default", "bf16", jnp.bfloat16),
-                               ("kernels", "bf16", jnp.bfloat16)):
-        model = JaxModel(jcfg, dtype=dtype)
-
-        def loss(params, model=model):
-            out, _ = model.apply(
-                {"params": params, "batch_stats": variables["batch_stats"]},
-                jb["src_tokens"], jb["src_lengths"], jb["prev_output_tokens_mt"],
-                chunk_size=CHUNK, conv_chunk_size=CONV_CHUNK, k1=0, n1=1, k2=0,
-                n2=jb["n2"], streaming=True, deterministic=False,
-                use_running_stats=False, rngs={"dropout": jax.random.PRNGKey(0)},
-                mutable=["batch_stats"])
-            m = jax_loss(out, jb, unit_blank)
-            return m["loss"] / m["sample_size"].astype(jnp.float32), m
-
-        with _jax_kernel_route() if route == "kernels" else contextlib.nullcontext():
-            (_, metrics), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-                jax.tree.map(jnp.asarray, variables["params"]))
-        grads = jax.tree.map(lambda g: np.asarray(g, np.float32), grads)
+    for key in JAX_RUNS:
+        metrics, grads = _jax_run(*key, variables)
         as_port = load_flax_variables(
             StreamSpeechModel(_no_dropout(tiny_config())),
             {"params": grads, "batch_stats": variables["batch_stats"]})
-        runs[route, name] = ({k: float(metrics[k]) for k in LOSS_KEYS},
-                             {n: p.detach().double()
-                              for n, p in as_port.named_parameters()})
+        runs[key] = (metrics, {n: p.detach().double() for n, p in as_port.named_parameters()})
     return variables, runs
 
 

@@ -12,8 +12,8 @@ Tolerances: alpha and the NLL within 1e-5 * max(1, |ref|), the gradient within
 1e-6 absolute (its values lie in [-1, 0]): the card's tolerances
 (``chip_smoke.py``). Against the plain versions the emulation runs the same
 torch arithmetic; against JAX, XLA's exp and log on the CPU differ from
-torch's in the last bits. About 35 s on one CPU worker, most of it JAX's
-interpret mode building the reference once."""
+torch's in the last bits. About 20 s on one CPU worker, most of it JAX's
+interpret mode building the reference once, one jitted program a case."""
 
 import jax
 import jax.numpy as jnp
@@ -244,6 +244,16 @@ def _jax_aux(parts):
                                           (b, t, s))}
 
 
+@jax.jit
+def _jax_reference(lp, aux):
+    """JAX's alpha, NLL and gradient (cotangent ones) in interpret mode, as one
+    jitted program a case: eager interpret mode dispatches each op of the
+    kernels' grid loops one by one."""
+    alpha = jpc._run_alpha(lp, aux, 8, True)
+    nll, vjp = jax.vjp(lambda x: jpc.ctc_nll_pallas(x, aux, 8, True), lp)
+    return alpha, nll, vjp(jnp.ones_like(nll))[0]
+
+
 @pytest.fixture(scope="module")
 def reference():
     """Per case: the inputs, the plain versions' alpha, NLL and gradient, and
@@ -257,10 +267,8 @@ def reference():
         nll, logz = kctc.nll_from_alpha(alpha, end)
         zbias = torch.where(logz > NNEG / 2, -logz, torch.full_like(logz, NNEG))
         grad = kctc.ctc_beta_grad_reference(lp, end, skip, zbias, valid, alpha)
-        aux, jlp = _jax_aux(p), jnp.asarray(lp.numpy())
-        j_alpha = np.asarray(jpc._run_alpha(jlp, aux, 8, True))
-        j_nll, vjp = jax.vjp(lambda x: jpc.ctc_nll_pallas(x, aux, 8, True), jlp)
-        j_grad = np.asarray(vjp(jnp.ones_like(j_nll))[0])
+        j_alpha, j_nll, j_grad = map(np.asarray, _jax_reference(jnp.asarray(lp.numpy()),
+                                                                _jax_aux(p)))
         out[name] = {"parts": p, "zbias": zbias, "alpha": alpha, "nll": nll, "grad": grad,
                      "jax_alpha": torch.tensor(j_alpha), "jax_nll": torch.tensor(np.asarray(j_nll)),
                      "jax_grad": torch.tensor(j_grad)}

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from streamspeech_tpu_torch.kernels import attention as A
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 M32 = 0xFFFFFFFF
 M0, M1, W0, W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85

@@ -9,6 +9,7 @@ Pallas gates are closed on the CPU); the port runs its kernel routes, which
 take the plain versions on CPU tensors, and counts them."""
 
 import inspect
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +22,6 @@ from streamspeech_tpu.models import conformer as jconf
 from streamspeech_tpu.models import layers as jl
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
 from streamspeech_tpu.models.streamspeech import ctc_not_blank_probs as jax_nb
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.ops import masks as jmasks
 from streamspeech_tpu.ops.pos_encoding import rel_pos_encoding
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
@@ -36,6 +36,7 @@ from streamspeech_tpu_torch.models.streamspeech import ctc_not_blank_probs
 from streamspeech_tpu_torch.ops import masks as pmasks
 from streamspeech_tpu_torch.runtime.session import StreamSpeechEngine
 from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+from tests.jax_init import init_variables, shared_jax_init  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-4
@@ -93,8 +94,7 @@ def route_counts(monkeypatch):
 @pytest.fixture(scope="module")
 def models():
     jmodel = JaxModel(jax_tiny_config(vocab_text=TEXT_VOCAB, upsample=UPSAMPLE))
-    variables = jax.jit(lambda k: init_params(jmodel, k))(jax.random.PRNGKey(0))
-    variables = _np_vars(variables)
+    variables = init_variables(jmodel)
     rng = np.random.RandomState(11)
     for layer in variables["batch_stats"]["encoder"].values():   # non-trivial BN stats
         bn = layer["conv_module"]["batch_norm"]
@@ -120,8 +120,8 @@ def _inputs(seed=0):
 def test_forward_matches_jax(models, route_counts, mode):
     jmodel, variables, pmodel = models
     src, lens, mt = _inputs()
-    want = jmodel.apply(variables, jnp.asarray(src), jnp.asarray(lens),
-                        jnp.asarray(mt), **MODES[mode])
+    want = jax.jit(partial(jmodel.apply, **MODES[mode]))(
+        variables, jnp.asarray(src), jnp.asarray(lens), jnp.asarray(mt))
     with torch.no_grad():
         got = pmodel(_t(src), _t(lens).long(), _t(mt).long(), **MODES[mode])
     assert route_counts == ROUTES[mode]
@@ -168,8 +168,9 @@ def test_training_options_raise(models):
 def test_encode_matches_jax(models):
     jmodel, variables, pmodel = models
     src, lens, _ = _inputs(1)
-    jenc, jlen = jmodel.apply(variables, jnp.asarray(src[:, :400]), jnp.asarray(lens // 3),
-                              4, 8, method=JaxModel.encode)
+    jenc, jlen = jax.jit(partial(jmodel.apply, chunk_size=4, conv_chunk_size=8,
+                                 method=JaxModel.encode))(
+        variables, jnp.asarray(src[:, :400]), jnp.asarray(lens // 3))
     with torch.no_grad():
         penc, plen = pmodel.encode(_t(src[:, :400]), _t(lens // 3).long(), 4, 8)
     _close(penc, jenc)
@@ -298,9 +299,11 @@ def test_encoder_offline_matches_jax(route_counts):
     jmod = jconf.ChunkConformerEncoder(jcfg)
     src = rng.randn(2, 1024, 80).astype(np.float32)
     lens = np.array([1024, 700])
-    jvars = jmod.init(jax.random.PRNGKey(5), jnp.zeros((1, 64, 80)), jnp.array([64]), 8, 8)
+    jvars = jax.jit(lambda k: jmod.init(k, jnp.zeros((1, 64, 80)), jnp.array([64]), 8, 8))(
+        jax.random.PRNGKey(5))
     pmod = load_flax_variables(pconf.ChunkConformerEncoder(pcfg), _np_vars(jvars))
-    want, wlen = jmod.apply(jvars, jnp.asarray(src), jnp.asarray(lens), 8, 8)
+    want, wlen = jax.jit(lambda v, x, n: jmod.apply(v, x, n, 8, 8))(
+        jvars, jnp.asarray(src), jnp.asarray(lens))
     with torch.no_grad():
         got, glen = pmod(_t(src), _t(lens), 8, 8)
     assert route_counts["relpos"] == 1

@@ -28,6 +28,7 @@ from tests.test_torch_batched_eval import (
     _same_scores,
     _sources,
 )
+from tests.jax_init import shared_jax_init  # noqa: F401
 from tests.torch_serving_stack import build_stack
 from tests.torch_threads import one_torch_thread  # noqa: F401
 

@@ -95,28 +95,50 @@ _TRAIN_STEP_BF16 = _TRAIN_STEP.replace(
     "specaugment_cfg={}, rdrop_alpha=0.5)", "kernel_attention=True)")
 
 
-def _run_alone(script):
+@pytest.fixture(scope="module")
+def alone():
+    """The file's fresh-interpreter scripts, all started at once when the
+    first test asks (each is a separate process; together they take the time
+    of the longest): ``alone(script)`` waits for that script's process and
+    returns (returncode, stdout + stderr)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "FOREIGN []" in proc.stdout
+    scripts = (_SESSION_STEP, _TRAIN_STEP, _TRAIN_STEP_BF16, _IMPORT_ALL)
+    procs = {script: subprocess.Popen([sys.executable, "-c", script], cwd=REPO, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for script in scripts}
+
+    def wait(script):
+        proc = procs[script]
+        out, _ = proc.communicate(timeout=300)
+        return proc.returncode, out
+
+    yield wait
+    for proc in procs.values():
+        proc.kill()
+        proc.communicate()
 
 
-def test_port_runs_without_jax_or_the_jax_package():
-    _run_alone(_SESSION_STEP)
+def _run_alone(alone, script):
+    rc, out = alone(script)
+    assert rc == 0, out
+    assert "FOREIGN []" in out
+    return out
 
 
-def test_port_trains_without_jax_or_the_jax_package():
+def test_port_runs_without_jax_or_the_jax_package(alone):
+    _run_alone(alone, _SESSION_STEP)
+
+
+def test_port_trains_without_jax_or_the_jax_package(alone):
     """A train step with SpecAugment and R-Drop imports nothing of JAX."""
-    _run_alone(_TRAIN_STEP)
+    _run_alone(alone, _TRAIN_STEP)
 
 
-def test_port_trains_bf16_without_jax_or_the_jax_package():
+def test_port_trains_bf16_without_jax_or_the_jax_package(alone):
     """A bf16 step on the kernel route imports nothing of JAX."""
     assert "dtype=torch.bfloat16" in _TRAIN_STEP_BF16 and "kernel_attention" in \
         _TRAIN_STEP_BF16
-    _run_alone(_TRAIN_STEP_BF16)
+    _run_alone(alone, _TRAIN_STEP_BF16)
 
 
 _IMPORT_ALL = r"""
@@ -134,19 +156,15 @@ sys.exit(1 if bad else 0)
 """
 
 
-def test_every_port_module_imports_without_jax():
-    """Every module of the port (the CLI, the scorers, the checkpoint import,
-    the service, the data helpers among them) imports, and together they
-    import nothing of JAX."""
+def test_every_port_module_imports_without_jax(alone):
+    """Every module of the port (the CLIs, the scorers, the checkpoints, the
+    dataset and batcher, the toy task, the service, the data helpers among
+    them) imports, and together they import nothing of JAX."""
     expected = {p.relative_to(REPO / "streamspeech_tpu_torch").with_suffix("")
                 for p in (REPO / "streamspeech_tpu_torch").rglob("*.py")
                 if p.name != "__init__.py"}
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "FOREIGN []" in proc.stdout
-    n = int(proc.stdout.split("MODULES")[1].split()[0])
+    out = _run_alone(alone, _IMPORT_ALL)
+    n = int(out.split("MODULES")[1].split()[0])
     assert n >= len(expected), (n, sorted(map(str, expected)))
 
 
@@ -154,7 +172,8 @@ def test_port_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|streamspeech_tpu)\b",
                          re.M)
     files = sorted((REPO / "streamspeech_tpu_torch").rglob("*.py")) + \
-        [REPO / "chip_smoke.py"] + sorted((REPO / "tools").glob("profile_torch_*.py"))
+        [REPO / "chip_smoke.py", REPO / "tools" / "run_learnability_golden.py"] + \
+        sorted((REPO / "tools").glob("profile_torch_*.py"))
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
 
@@ -162,7 +181,8 @@ def test_port_sources_import_no_jax():
 @pytest.mark.parametrize("name", ["EncoderConfig", "DecoderConfig",
                                   "UnitDecoderConfig", "MultitaskTaskConfig",
                                   "StreamSpeechConfig", "OptimizationConfig",
-                                  "TrainingConfig"])
+                                  "TrainingConfig", "S2SDataConfig",
+                                  "MultitaskConfig"])
 def test_config_fields_and_defaults_match(name):
     port_cls, jax_cls = getattr(port_config, name), getattr(jax_config, name)
     port_fields = [(f.name, f.type) for f in dataclasses.fields(port_cls)]

@@ -33,6 +33,7 @@ from streamspeech_tpu_torch.ops import fbank as pfbank
 from streamspeech_tpu_torch.ops import masks as pmasks
 from streamspeech_tpu_torch.ops.cmvn import GlobalCMVN
 from streamspeech_tpu_torch.weights import load_flax_variables
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 2e-4
 D, H = 32, 2

@@ -14,6 +14,7 @@ from streamspeech_tpu.ops.pallas_attention import (
 
 from streamspeech_tpu_torch.kernels import attention
 from streamspeech_tpu_torch.ops.masks import NEG_INF
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5  # fp32 both sides; the sums run in a different order
 

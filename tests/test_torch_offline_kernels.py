@@ -18,6 +18,7 @@ from streamspeech_tpu.ops import pallas_policy as jpp
 from streamspeech_tpu_torch.kernels import attention, policy
 from streamspeech_tpu_torch.models import layers as port_layers
 from streamspeech_tpu_torch.ops.masks import NEG_INF
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5     # fp32 both sides; the sums run in a different order
 NB_ATOL = 1e-6  # the not-blank posterior (values in [0, 1])

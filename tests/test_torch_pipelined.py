@@ -30,6 +30,7 @@ from streamspeech_tpu.agents.streamspeech import StreamSpeechAgentConfig as JaxA
 from streamspeech_tpu.agents.streamspeech import StreamSpeechS2STAgent as JaxAgent
 from streamspeech_tpu.dictionary import Dictionary as JaxDictionary
 from streamspeech_tpu.eval.evaluator import SentenceLevelEvaluator as JaxEvaluator
+from tests.jax_init import shared_jax_init  # noqa: F401
 from tests.torch_serving_stack import ENGINE_SIZES, build_stack
 from tests.torch_threads import one_torch_thread  # noqa: F401
 

@@ -9,6 +9,7 @@ tests/test_fused_policy.py); the port implements that host path.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -17,13 +18,14 @@ from streamspeech_tpu.agents.streamspeech import (
     StreamSpeechS2STAgent as JaxAgent,
 )
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.models.vocoder import CodeGenerator as JaxVocoder
 from streamspeech_tpu.runtime.session import StreamSpeechEngine as JaxEngine
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
+from tests.jax_init import init_variables, shared_jax_init  # noqa: F401
 from tests.test_batched_eval import doctor_params, make_dicts
 from tests.test_torch_vocoder import numpy_vocoder_variables
 from tests.test_vocoder import tiny_cfg as tiny_vocoder_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from streamspeech_tpu_torch.agents.base import stream_utterance
 from streamspeech_tpu_torch.agents.streamspeech import (
@@ -67,8 +69,7 @@ def agents():
     pcfg = tiny_config()
     pcfg.encoder.embed_dim = 24
     jmodel = JaxModel(cfg)
-    jvars = doctor_params(jax.jit(lambda k: init_params(jmodel, k))(
-        jax.random.PRNGKey(0)))
+    jvars = doctor_params(jax.tree.map(jnp.asarray, init_variables(jmodel)))
     voc_cfg = tiny_vocoder_cfg()
     voc_cfg["num_embeddings"] = cfg.unit_decoder.vocab_size - 4
     jvoc = JaxVocoder(voc_cfg)

@@ -27,8 +27,9 @@ against the JAX package's, run in process on the CPU on the same files:
 - the ``--slurm`` script equals JAX's but for the module name;
 - the fairseq import, config inference and export, and the vocoder import,
   equal JAX's on the same files;
-- ``--checkpoint``, the ``t2t-*`` agents and ``WHISPER_ASR_BLEU`` raise and
-  name what is missing; without ``--cpu`` and without a card the CLI raises;
+- an ensemble ``--checkpoint a,b``, the ``t2t-*`` agents and
+  ``WHISPER_ASR_BLEU`` raise and name what is missing; without ``--cpu`` and
+  without a card the CLI raises;
 - ``python -m streamspeech_tpu_torch.cli.simuleval`` in a fresh interpreter
   writes the same log and imports nothing of JAX.
 
@@ -338,7 +339,9 @@ def test_unported_paths_raise(files, tmp_path):
     root = files[0]
     argv = _argv(root, "s2st", 1, tmp_path / "x")
     ckpt = [a if a != "--fairseq-checkpoint" else "--checkpoint" for a in argv]
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 5"):
+    at = ckpt.index("--checkpoint") + 1
+    ckpt[at] = f"{ckpt[at]},{ckpt[at]}"                 # an ensemble of two
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 7"):
         port_cli.main(ckpt)
     with pytest.raises(NotImplementedError, match="ROADMAP §A item 9"):
         port_cli.main(argv[:argv.index("--agent") + 1] + ["t2t-waitk"] +

@@ -32,6 +32,7 @@ from streamspeech_tpu.eval import quality as jax_quality
 from streamspeech_tpu.eval.batched_evaluator import BatchedASREvaluator as JaxBatchedASR
 from streamspeech_tpu.eval.batched_evaluator import BatchedS2TTEvaluator as JaxBatchedS2TT
 from streamspeech_tpu.eval.evaluator import SentenceLevelEvaluator as JaxEvaluator
+from tests.jax_init import shared_jax_init  # noqa: F401
 from tests.torch_serving_stack import build_stack
 from tests.torch_threads import one_torch_thread  # noqa: F401
 

@@ -17,7 +17,6 @@ import torch
 
 from streamspeech_tpu.config import OptimizationConfig as JaxOptimizationConfig
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.train.synthetic import synthetic_batch as jax_batch
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
 from streamspeech_tpu.train.trainer import TrainState as JaxTrainState
@@ -31,6 +30,7 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.train import trainer as ptrain
 from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+from tests.jax_init import init_variables, shared_jax_init  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CHUNK, CONV_CHUNK = 4, 8
@@ -47,28 +47,45 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _jax_model():
+    jcfg = _no_dropout(jax_tiny_config())
+    return jcfg, JaxModel(jcfg), jax_batch(jcfg, batch=4)
+
+
+def _jax_history(update_freq, calls, variables):
+    """``calls`` calls of the JAX train step at ``update_freq`` from
+    ``variables``: each call's metrics and batch statistics, the final
+    params, batch statistics and step count, and the MultiSteps accumulator
+    after the first call (with update_freq 2: its micro-step's gradient as
+    it is)."""
+    jcfg, jmodel, jbatch = _jax_model()
+    jtx = jax_make_optimizer(JaxOptimizationConfig(update_freq=update_freq, **OPT))
+    jstep = jax_make_train_step(jmodel, jtx, unit_blank=jcfg.unit_decoder.vocab_size - 1)
+    jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, variables), jtx)
+    history, first_acc = [], None
+    for i in range(calls):
+        jstate, jm = jstep(jstate, jbatch, jax.random.PRNGKey(i), chunk_size=CHUNK,
+                           conv_chunk_size=CONV_CHUNK)
+        history.append((_np(jm), _np(jstate.batch_stats)))
+        if i == 0 and update_freq > 1:
+            first_acc = _np(jstate.opt_state.acc_grads)
+    return {"history": history, "params": _np(jstate.params),
+            "batch_stats": _np(jstate.batch_stats), "step": int(jstate.step),
+            "first_acc_grads": first_acc}
+
+
 @pytest.fixture(scope="module")
 def jax_setup():
-    jcfg = _no_dropout(jax_tiny_config())
-    jmodel = JaxModel(jcfg)
-    variables = _np(jax.jit(lambda k: init_params(jmodel, k))(jax.random.PRNGKey(0)))
-    return jcfg, jmodel, variables, jax_batch(jcfg, batch=4)
+    jcfg, jmodel, jbatch = _jax_model()
+    return jcfg, jmodel, init_variables(jmodel), jbatch
 
 
 @pytest.fixture(scope="module")
-def jax_steps(jax_setup):
-    """The JAX optimizer and jitted train step per ``update_freq``, made once
-    for the file: each new step would compile again."""
-    jcfg, jmodel, _, _ = jax_setup
-    steps = {}
-
-    def get(update_freq):
-        if update_freq not in steps:
-            jtx = jax_make_optimizer(JaxOptimizationConfig(update_freq=update_freq, **OPT))
-            steps[update_freq] = jtx, jax_make_train_step(
-                jmodel, jtx, unit_blank=jcfg.unit_decoder.vocab_size - 1)
-        return steps[update_freq]
-    return get
+def jax_runs(jax_setup):
+    """The JAX step's runs the file reads, each compiled once: update_freq 1
+    for 3 calls and update_freq 2 for 4."""
+    variables = jax_setup[2]
+    return {1: _jax_history(1, 3, variables), 2: _jax_history(2, 4, variables)}
 
 
 def _port_model(variables):
@@ -83,24 +100,17 @@ def _close_metrics(got, want):
                                    atol=1e-6, err_msg=key)
 
 
-def _run_both(jax_setup, jax_steps, update_freq, calls):
-    jcfg, jmodel, variables, jbatch = jax_setup
-    unit_blank = jcfg.unit_decoder.vocab_size - 1
-    jtx, jstep = jax_steps(update_freq)
-    jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, variables), jtx)
+def _run_port(variables, update_freq, calls, unit_blank):
     pmodel = _port_model(variables)
     ptx = ptrain.make_optimizer(OptimizationConfig(update_freq=update_freq, **OPT))
     pstep = ptrain.make_train_step(pmodel, ptx, unit_blank=unit_blank)
     pstate = ptrain.TrainState.create(pmodel, ptx)
     pbatch = batch_to_tensors(synthetic_batch(tiny_config(), batch=4), device="cpu")
     history = []
-    for i in range(calls):
-        jstate, jm = jstep(jstate, jbatch, jax.random.PRNGKey(i), chunk_size=CHUNK,
-                           conv_chunk_size=CONV_CHUNK)
+    for _ in range(calls):
         pstate, pm = pstep(pstate, pbatch, None, CHUNK, CONV_CHUNK)
-        history.append((_np(jm), pm, _np(jstate.batch_stats),
-                        {n: b.clone() for n, b in pstate.batch_stats.items()}))
-    return jstate, pstate, pmodel, history
+        history.append((pm, {n: b.clone() for n, b in pstate.batch_stats.items()}))
+    return pstate, pmodel, history
 
 
 def _lr_sum(updates):
@@ -109,39 +119,43 @@ def _lr_sum(updates):
 
 
 @pytest.mark.parametrize("update_freq,calls", [(1, 3), (2, 4)])
-def test_train_steps_match_jax(jax_setup, jax_steps, update_freq, calls):
+def test_train_steps_match_jax(jax_setup, jax_runs, update_freq, calls):
     """Loss components, ``grad_norm`` and ``overflow`` of every call within
     rtol 1e-4, BatchNorm stats after every call within 1e-5, and the params
     after the last call within 2·Σ lr of the updates made. With update_freq 2
     the params move on calls 2 and 4 only, while the step counts every call."""
-    jstate, pstate, pmodel, history = _run_both(jax_setup, jax_steps, update_freq, calls)
-    for jm, pm, jstats, pstats in history:
+    jcfg, _, variables, _ = jax_setup
+    jrun = jax_runs[update_freq]
+    pstate, pmodel, history = _run_port(variables, update_freq, calls,
+                                        jcfg.unit_decoder.vocab_size - 1)
+    for (jm, jstats), (pm, pstats) in zip(jrun["history"], history):
         assert sorted(pm) == sorted(jm)
         _close_metrics(pm, jm)
         assert not bool(pm["overflow"])
-        want_stats = dict(_port_model({"params": _np(jstate.params),
-                                    "batch_stats": jstats}).named_buffers())
+        want_stats = dict(_port_model({"params": jrun["params"],
+                                       "batch_stats": jstats}).named_buffers())
         for name, buf in pstats.items():
             np.testing.assert_allclose(buf.numpy(), want_stats[name].numpy(), rtol=0,
                                        atol=1e-5, err_msg=name)
-    assert pstate.step == int(jstate.step) == calls
+    assert len(history) == len(jrun["history"]) == calls
+    assert pstate.step == jrun["step"] == calls
     assert pstate.opt_state.count == calls // update_freq
-    want = dict(_port_model({"params": _np(jstate.params),
-                          "batch_stats": _np(jstate.batch_stats)}).named_parameters())
+    want = dict(_port_model({"params": jrun["params"],
+                             "batch_stats": jrun["batch_stats"]}).named_parameters())
     atol = 2 * _lr_sum(calls // update_freq)
     for name, p in pstate.params.items():
         np.testing.assert_allclose(p.detach().numpy(), want[name].detach().numpy(),
                                    rtol=0, atol=atol, err_msg=name)
 
 
-def test_batch_stats_of_a_port_step_load_back_beside_jaxs(jax_setup, jax_steps):
+def test_batch_stats_of_a_port_step_load_back_beside_jaxs(jax_setup, jax_runs):
     """The running stats one port train step writes equal JAX's
     ``mutated["batch_stats"]`` carried across the weights bridge, every
     BatchNorm of the encoder, within 1e-5, and differ from the initial ones."""
-    jstate, pstate, _, _ = _run_both(jax_setup, jax_steps, 1, 1)
-    _, _, variables, _ = jax_setup
-    bridged = _port_model({"params": _np(jstate.params),
-                        "batch_stats": _np(jstate.batch_stats)})
+    jcfg, _, variables, _ = jax_setup
+    jstats = jax_runs[1]["history"][0][1]
+    pstate, _, _ = _run_port(variables, 1, 1, jcfg.unit_decoder.vocab_size - 1)
+    bridged = _port_model({"params": variables["params"], "batch_stats": jstats})
     before = dict(_port_model(variables).named_buffers())
     names = [n for n, _ in bridged.named_buffers()
              if n.endswith(("running_mean", "running_var"))]
@@ -153,22 +167,18 @@ def test_batch_stats_of_a_port_step_load_back_beside_jaxs(jax_setup, jax_steps):
         assert not torch.allclose(pstate.batch_stats[name], before[name])
 
 
-def test_step_one_gradients_match_jax(jax_setup, jax_steps):
+def test_step_one_gradients_match_jax(jax_setup, jax_runs):
     """Per-tensor gradients of the first step: the gradient of the JAX step's
     loss (``jax.value_and_grad`` of `trainer.py:114-130`) against the guarded
     ``.grad`` the port's step leaves, within 1e-4·max|g| + 1e-7. The JAX
-    gradient is read from the file's shared update_freq-2 step, whose
+    gradient is read from the file's shared update_freq-2 run, whose
     ``optax.MultiSteps`` state holds its first micro-step's gradient as it
     is, so no third JAX program is compiled."""
-    jcfg, jmodel, variables, jbatch = jax_setup
+    jcfg, _, variables, _ = jax_setup
     unit_blank = jcfg.unit_decoder.vocab_size - 1
-    jtx, jstep = jax_steps(2)
-    jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, variables), jtx)
-    jstate, _ = jstep(jstate, jbatch, jax.random.PRNGKey(0), chunk_size=CHUNK,
-                      conv_chunk_size=CONV_CHUNK)
-    jgrads = _np(jstate.opt_state.acc_grads)
+    jgrads = jax_runs[2]["first_acc_grads"]
     want = dict(_port_model({"params": jgrads,
-                          "batch_stats": variables["batch_stats"]}).named_parameters())
+                             "batch_stats": variables["batch_stats"]}).named_parameters())
     pmodel = _port_model(variables)
     ptx = ptrain.make_optimizer(OptimizationConfig(update_freq=1, **OPT))
     pstep = ptrain.make_train_step(pmodel, ptx, unit_blank=unit_blank)

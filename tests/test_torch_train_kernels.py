@@ -26,9 +26,7 @@ import torch
 from streamspeech_tpu.config import OptimizationConfig as JaxOptimizationConfig
 from streamspeech_tpu.models import layers as jlayers
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.ops import pallas_attention as pa
-from streamspeech_tpu.train.criterion import streamspeech_loss as jax_loss
 from streamspeech_tpu.train.synthetic import synthetic_batch as jax_batch
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
 from streamspeech_tpu.train.trainer import TrainState as JaxTrainState
@@ -47,6 +45,7 @@ from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
 from streamspeech_tpu_torch.train import trainer as ptrain
 from streamspeech_tpu_torch.train.synthetic import batch_to_tensors, synthetic_batch
 from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+from tests.jax_init import init_variables, shared_jax_init  # noqa: F401
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 OPT = dict(warmup_updates=10, lr=1e-3, clip_norm=1.0)
@@ -219,32 +218,24 @@ def _np(tree):
 
 
 def test_kernel_train_step_matches_jax_pallas_train(monkeypatch, entries):
+    """The JAX step runs with ``update_freq=2``: its ``optax.MultiSteps``
+    state holds the first micro-step's gradient as it is (the running mean of
+    one gradient), so the step's metrics and its gradient come from one JAX
+    program instead of the step and a separate ``jax.grad``."""
     jcfg = _no_dropout(jax_tiny_config())
     jmodel = JaxModel(jcfg)
-    variables = _np(jax.jit(lambda k: init_params(jmodel, k))(jax.random.PRNGKey(0)))
+    variables = init_variables(jmodel)
     jbatch = jax_batch(jcfg, batch=2, frames=64, mt_len=8)
     unit_blank = jcfg.unit_decoder.vocab_size - 1
 
-    def loss(params):
-        out, _ = jmodel.apply(
-            {"params": params, "batch_stats": variables["batch_stats"]},
-            jbatch["src_tokens"], jbatch["src_lengths"], jbatch["prev_output_tokens_mt"],
-            chunk_size=CHUNK, conv_chunk_size=CONV_CHUNK, k1=0, n1=1, k2=0,
-            n2=jbatch["n2"], streaming=True, deterministic=False,
-            use_running_stats=False, rngs={"dropout": jax.random.PRNGKey(0)},
-            mutable=["batch_stats"])
-        m = jax_loss(out, jbatch, unit_blank)
-        return m["loss"] / m["sample_size"].astype(jnp.float32)
-
     with jax_forced_gates(monkeypatch) as hits:
-        jtx = jax_make_optimizer(JaxOptimizationConfig(update_freq=1, **OPT))
+        jtx = jax_make_optimizer(JaxOptimizationConfig(**dict(OPT, update_freq=2)))
         jstep = jax_make_train_step(jmodel, jtx, unit_blank=unit_blank)
         jstate = JaxTrainState.create(jax.tree.map(jnp.asarray, variables), jtx)
-        _, jmetrics = jstep(jstate, jbatch, jax.random.PRNGKey(0), chunk_size=CHUNK,
-                            conv_chunk_size=CONV_CHUNK)
+        jstate, jmetrics = jstep(jstate, jbatch, jax.random.PRNGKey(0), chunk_size=CHUNK,
+                                 conv_chunk_size=CONV_CHUNK)
         jmetrics = _np(jmetrics)
-        jgrads = _np(jax.jit(jax.grad(loss))(jax.tree.map(jnp.asarray,
-                                                          variables["params"])))
+        jgrads = _np(jstate.opt_state.acc_grads)
     assert all(hits[f] > 0 for f in FAMILIES), hits
 
     pcfg = _no_dropout(tiny_config())

@@ -12,6 +12,7 @@ import torch
 
 from streamspeech_tpu.models.vocoder import CodeGenerator as JaxCodeGenerator
 from tests.test_emit_tail import rf_vocoder_cfg
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from streamspeech_tpu_torch.models.vocoder import (
     CodeGenerator,

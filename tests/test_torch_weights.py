@@ -5,14 +5,16 @@ residual-branch outputs scaled."""
 import copy
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
+from tests.jax_init import init_variables, shared_jax_init  # noqa: F401
 from tests.test_batched_eval import doctor_params as jax_doctor_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 from streamspeech_tpu_torch.config import tiny_config
 from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
@@ -26,10 +28,9 @@ from streamspeech_tpu_torch.weights import (
 
 @pytest.fixture(scope="module")
 def jax_variables():
-    model = JaxModel(jax_tiny_config())
-    variables = jax.jit(lambda k: init_params(model, k))(jax.random.PRNGKey(0))
-    doctored = jax_doctor_params(jax.tree.map(lambda x: x, variables))
-    return jax.tree.map(np.asarray, variables), jax.tree.map(np.asarray, doctored)
+    variables = init_variables(JaxModel(jax_tiny_config()))
+    doctored = jax_doctor_params(jax.tree.map(jnp.asarray, variables))
+    return variables, jax.tree.map(np.asarray, doctored)
 
 
 def _state(module):

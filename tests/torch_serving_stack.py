@@ -2,16 +2,19 @@
 batched serving tests: one doctored JAX StreamSpeech model and vocoder and the
 port's counterparts on the same weights (``weights.load_flax_variables`` /
 ``load_flax_vocoder``), each behind its own engine; the encoder at 24 wide,
-narrower than the decoders, as in ``full_config``."""
+narrower than the decoders, as in ``full_config``. A module that builds it
+imports ``tests.jax_init.shared_jax_init``, so the JAX weights are computed
+once per run."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 from streamspeech_tpu.models.streamspeech import StreamSpeechModel as JaxModel
-from streamspeech_tpu.models.streamspeech import init_params
 from streamspeech_tpu.models.vocoder import CodeGenerator as JaxVocoder
 from streamspeech_tpu.runtime.session import StreamSpeechEngine as JaxEngine
 from streamspeech_tpu.train.synthetic import tiny_config as jax_tiny_config
+from tests.jax_init import init_variables
 from tests.test_batched_eval import doctor_params, make_dicts
 from tests.test_torch_vocoder import numpy_vocoder_variables
 from tests.test_vocoder import tiny_cfg as tiny_vocoder_cfg
@@ -37,7 +40,7 @@ def build_stack(port_dtype=None):
     pcfg = tiny_config()
     pcfg.encoder.embed_dim = 24
     jmodel = JaxModel(cfg)
-    jvars = doctor_params(jax.jit(lambda k: init_params(jmodel, k))(jax.random.PRNGKey(0)))
+    jvars = doctor_params(jax.tree.map(jnp.asarray, init_variables(jmodel)))
     voc_cfg = tiny_vocoder_cfg()
     voc_cfg["num_embeddings"] = cfg.unit_decoder.vocab_size - 4
     jvoc = JaxVocoder(voc_cfg)
