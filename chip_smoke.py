@@ -238,6 +238,47 @@ Phase 19 runs after phase 5c:
             written 16-bit wav within 2 LSB); B3 launched on the ``s2st``
             runs. A line a run: wall s, seconds of audio, launches, scores
             (ASR_BLEU is NaN: no ASR backend), the ``nvidia-smi`` line.
+19b. generate_cli  the offline generation CLI (``streamspeech_tpu_torch.cli.
+            generate.main``) in process on the card over phase 19's ``.pt``
+            and vocoder and four ``_babble`` wavs (3, 4.5, 6 s and one of
+            exactly 1024 fbank frames: T_enc 256, B1): ``--beam 10`` with
+            the vocoder (a wav and a ``units.txt`` line an utterance),
+            ``--beam 1`` and ``--beam 1 --batch-size 4`` at ``--max-len 64``
+            over them and over four wavs of 1000-1024 frames (all padded to
+            1024, as the batch pads them), and an ensemble of two native
+            checkpoints of ``full_config`` from two seeds at ``--beam 4``
+            (``--max-len 64``).
+            Every run prints an ``A-``/``D-``/``U-`` line each an utterance;
+            B1 and B3 launched. A batched row padded as in its single run
+            equals that run's lines; a row padded further is reported (the
+            encoder's states depend on the padding, in JAX too: ROADMAP §C).
+            Then the same CLI with ``--cpu``: the 3 s and the 1024-frame
+            utterances at ``--beam 1``, the 3 s one at ``--beam 10``. Where
+            lines differ: the first differing MT step and the CPU's top-2
+            log-prob margin there (``--beam 1``) or the gap of the two
+            searches' best scores (``--beam 10``), and the CPU unit logits'
+            smallest margin; a difference where these are above
+            ``GENERATE_TIE`` fails. And the CPU's ``--beam 10`` unit pass
+            (T = 208 x 25 = 5200) on the card and the CPU from one encoder
+            output: B3 launched, unit logits within ``FORWARD_RTOL`` (these
+            launches are not the path's). A line a run: wall s an utterance,
+            MT steps a wall s, launches (B1, B3), the ``nvidia-smi`` line.
+19c. t2t_cli  ``cli.simuleval --agent t2t-waitk|t2t-hmt|t2t-hmt-beam`` on
+            the card over eight synthetic parallel sentences and native
+            checkpoints of the text models at the CLI's defaults (seeded
+            weights, the decoder table's special rows zeroed so they write),
+            and ``t2t-hmt`` again from a checkpoint whose ``config.json`` sets
+            K = 8 (``T2T_RUNS``): eight log lines each with a write, BLEU and
+            AL finite. The agents' prefixes stop at 100 tokens, so at K = 4
+            the HMT decoder's S·K stays under B5's gate and those runs launch
+            no kernel; the K = 8 run must launch B5. Each run's first sentence
+            again through ``python -m ...cli.simuleval --cpu`` (four fresh
+            interpreters at once, the dictionaries passed): the same
+            prediction and delays. Meanwhile one ``HMTModel`` forward at a
+            128-token target (S·K 512: B5 in both attentions of its 4 layers)
+            on the card and the CPU, within ``FORWARD_RTOL`` (these launches
+            are not the path's). A line a run: wall s, sentences a wall s,
+            BLEU, AL, launches.
 Phase 20 runs after phase 18:
 20. train_cli  the port's training CLI (``streamspeech_tpu_torch.cli.train.main``)
             in process on the card, on a toy task the port writes
@@ -2268,6 +2309,471 @@ def phase_simuleval_cli(smi: str):
     return total
 
 
+
+# the generate_cli phase's wavs: three of these lengths and one of exactly 1024
+# fbank frames (T_enc 256, B1's gate)
+GENERATE_SECONDS = (3.0, 4.5, 6.0)
+GENERATE_B1_SAMPLES = 400 + 1023 * 160
+# a second list: four wavs whose fbank frames all pad to 1024 (the batch's padding)
+GENERATE_SAME_PAD_FRAMES = (1000, 1008, 1016, 1024)
+GENERATE_MAX_LEN = 64                    # the single and batched greedy runs' --max-len
+GENERATE_TIE = 1e-3     # a card/CPU difference at a CPU top-2 log-prob margin below this
+                        # is reported as a near-tie; above it the phase fails
+
+
+def _generate_lines(printed: str) -> dict:
+    """The CLI's ``A-``/``D-``/``U-`` lines → {utterance id: {kind: text}}."""
+    out = {}
+    for line in printed.splitlines():
+        m = re.match(r"([ADU])-(\S+)\t(.*)$", line)
+        if m:
+            out.setdefault(m.group(2), {})[m.group(1)] = m.group(3)
+    return out
+
+
+def _ids(text: str) -> list:
+    return [int(x) for x in text.split()]
+
+
+def _top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def _cpu_encode(model, feats: np.ndarray):
+    """One utterance's offline encoder output on the CPU, as ``generate``
+    pads it: (enc [1, T, C], enc_len [1])."""
+    from streamspeech_tpu_torch.generation import NO_CHUNK, OfflineGenerator
+
+    gen = OfflineGenerator(model, beam=1, device="cpu")
+    t = feats.shape[0]
+    src = np.zeros((1, -(-t // 32) * 32, feats.shape[1]), np.float32)
+    src[0, :t] = feats
+    (enc,), lens, _, _ = gen._encode(src, np.asarray([t]), NO_CHUNK, NO_CHUNK)
+    return enc, torch.tensor([int(lens[0])])
+
+
+def _unit_prev(mt: list) -> torch.Tensor:
+    """``generate``'s unit-pass input: EOS and the MT tokens, padded to a
+    multiple of 8."""
+    from streamspeech_tpu_torch.generation import EOS, PAD
+
+    s = len(mt) + 1
+    prev = torch.full((1, -(-s // 8) * 8), PAD, dtype=torch.long)
+    prev[0, 0] = EOS
+    prev[0, 1:s] = torch.tensor(mt, dtype=torch.long)
+    return prev
+
+
+def _generate_cpu_margins(model, feats: np.ndarray, cpu_mt: list, card_mt: list) -> dict:
+    """Where the card's lines differ from the CPU's: the first differing MT
+    step and the CPU's top-2 log-prob margin there, and the smallest top-2
+    margin of the CPU's unit logits over its prefix."""
+    from streamspeech_tpu_torch.generation import EOS, PAD
+    from streamspeech_tpu_torch.ops.masks import lengths_to_mask
+
+    enc, enc_len = _cpu_encode(model, feats)
+    step = next((i for i, (a, b) in enumerate(zip(cpu_mt + [EOS], card_mt + [EOS]))
+                 if a != b), None)
+    prev = torch.tensor([[EOS] + cpu_mt], dtype=torch.long)
+    with torch.no_grad():
+        logits, _ = model.mt_decoder(prev, enc, lengths_to_mask(enc_len, enc.shape[1]))
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        lp[..., PAD] = -float("inf")
+        _, unit_logits = model.synthesize_units(_unit_prev(cpu_mt), enc, enc_len)
+    up = model.cfg.unit_decoder.ctc_upsample_rate
+    return {"first_differing_mt_step": step,
+            "cpu_top2_margin_there": (None if step is None or step >= lp.shape[1]
+                                      else float(_top2_margin(lp[0, step]))),
+            "cpu_unit_min_top2_margin": float(
+                _top2_margin(unit_logits[0, :prev.shape[1] * up]).min())}
+
+
+def _unit_logits_card_vs_cpu(model, feats: np.ndarray, mt: list) -> dict:
+    """The unit pass (``synthesize_units``) over ``mt`` on the card and on
+    the CPU from the same CPU encoder output: B3 at that pass's shape (T =
+    the padded prefix x the upsample rate) held to the plain route, within
+    FORWARD_RTOL * max(1, |ref|). Launches here are not a path's."""
+    enc, enc_len = _cpu_encode(model, feats)
+    prev = _unit_prev(mt)
+    with torch.no_grad():
+        ref = model.synthesize_units(prev, enc, enc_len)[1].float()
+        model.cuda()
+        b3 = _read_counts()["masked_attention"]
+        got = model.synthesize_units(prev.cuda(), enc.cuda(), enc_len.cuda())[1].float().cpu()
+        b3 = _read_counts()["masked_attention"] - b3
+        model.cpu()
+    return {"unit_t": prev.shape[1] * model.cfg.unit_decoder.ctc_upsample_rate,
+            "unit_logits_b3_launches": b3,
+            "unit_logits_scaled_err": float((got - ref).abs().max()
+                                            / max(1.0, float(ref.abs().max())))}
+
+
+def phase_generate_cli(smi: str):
+    """The offline generation CLI on the card (phase 19b of the docstring).
+    Returns the launches of the path: the counts set to 0 before the first
+    run and read after the last."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from streamspeech_tpu_torch.cli import generate
+    from streamspeech_tpu_torch.config import full_config
+    from streamspeech_tpu_torch.data.dataset import load_audio_or_features
+    from streamspeech_tpu_torch.eval.instance import write_wav
+    from streamspeech_tpu_torch.models.streamspeech import StreamSpeechModel
+    from streamspeech_tpu_torch.ops.fbank import logmelfbank
+    from streamspeech_tpu_torch.train.checkpoint import save_payload, tensor_tree
+    from streamspeech_tpu_torch.weights import doctor_params, flax_variables, random_init_
+
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        args = _write_cli_inputs(root)
+        pt, voc = args["common"][args["common"].index("--fairseq-checkpoint") + 1], \
+            args["vocoder"]
+        rng = np.random.RandomState(SEED + 11)
+        wavs = [_babble(rng, s) for s in GENERATE_SECONDS]
+        wavs.append(_babble(rng, GENERATE_B1_SAMPLES / 16000)[:GENERATE_B1_SAMPLES])
+        for n in GENERATE_SAME_PAD_FRAMES[:-1]:
+            samples = 400 + (n - 1) * 160
+            wavs.append(_babble(rng, samples / 16000)[:samples])
+        for n, w in enumerate(wavs):
+            write_wav(root / f"gen{n}.wav", w, 16000)
+        n_list = len(GENERATE_SECONDS) + 1
+        (root / "gen_list.txt").write_text("".join(f"gen{n}.wav\n" for n in range(n_list)))
+        (root / "gen_same_pad.txt").write_text("".join(
+            f"gen{n}.wav\n" for n in range(n_list - 1, len(wavs))))
+        (root / "gen_one.txt").write_text("gen0.wav\n")
+        frames = [logmelfbank(load_audio_or_features(str(root / f"gen{n}.wav"))).shape[0]
+                  for n in range(len(wavs))]
+        if frames[n_list - 1:] != [1024, *GENERATE_SAME_PAD_FRAMES[:-1]]:
+            failures.append(f"the wavs have {frames} fbank frames")
+        # two native checkpoints of full_config from two seeds, config.json beside
+        ens = root / "ens"
+        for seed in (SEED, SEED + 5):
+            tree = flax_variables(doctor_params(random_init_(StreamSpeechModel(full_config()),
+                                                             seed)))
+            save_payload(str(ens / f"checkpoint_{seed}"), tensor_tree(tree))
+        (ens / "config.json").write_text(json.dumps(dataclasses.asdict(full_config())))
+        emit({"phase": "generate_cli_inputs", "seconds": time.perf_counter() - t0,
+              "fbank_frames": frames})
+
+        greedy = ["--fairseq-checkpoint", pt, "--beam", "1", "--max-len", str(GENERATE_MAX_LEN)]
+        runs = [("beam10", ["--fairseq-checkpoint", pt, "--manifest", str(root / "gen_list.txt"),
+                            "--beam", "10", "--output", str(root / "beam10"), *voc]),
+                ("beam1", greedy + ["--manifest", str(root / "gen_list.txt")]),
+                ("batch4", greedy + ["--manifest", str(root / "gen_list.txt"),
+                                     "--batch-size", "4"]),
+                ("beam1_same_pad", greedy + ["--manifest", str(root / "gen_same_pad.txt")]),
+                ("batch4_same_pad", greedy + ["--manifest", str(root / "gen_same_pad.txt"),
+                                              "--batch-size", "4"]),
+                ("ensemble2", ["--checkpoint", f"{ens}/checkpoint_{SEED},{ens}/checkpoint_"
+                               f"{SEED + 5}", "--manifest", str(root / "gen_list.txt"),
+                               "--beam", "4", "--max-len", str(GENERATE_MAX_LEN)])]
+        lines, results_by_run = {}, {}
+        _zero_counts()
+        before = _read_counts()
+        for name, argv in runs:
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                results = generate.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+            launches = {k: counts[k] - before[k] for k in counts if counts[k] != before[k]}
+            before = counts
+            lines[name] = got = _generate_lines(printed.getvalue())
+            results_by_run[name] = results
+            mt_steps = sum(len(r["mt_tokens"]) + 1 for r in results.values())
+            row = {"phase": "generate_cli", "run": name, "argv_flags": [
+                       a for a in argv if a.startswith("--")],
+                   "utterances": len(got), "wall_s": wall, "wall_s_per_utterance":
+                       wall / max(len(got), 1),
+                   "mt_tokens": [len(r["mt_tokens"]) for r in results.values()],
+                   "units": [len(r["units"]) for r in results.values()],
+                   "mt_steps_per_s": mt_steps / wall,
+                   "launches": launches, "relpos_attention_launches":
+                       launches.get("relpos_attention", 0),
+                   "masked_attention_launches": launches.get("masked_attention", 0),
+                   "nvidia_smi": smi}
+            if name == "beam10":
+                row["wavs_written"] = len(list((root / "beam10").glob("*_pred.wav")))
+                row["units_txt_lines"] = len((root / "beam10" / "units.txt")
+                                             .read_text().splitlines())
+                if row["wavs_written"] != 4 or row["units_txt_lines"] != 4:
+                    failures.append(f"beam10 wrote {row['wavs_written']} wavs and "
+                                    f"{row['units_txt_lines']} units.txt lines")
+            if name.startswith("batch4"):
+                # each utterance against its single run: A-, D-, U- lines that differ
+                single = lines[name.replace("batch4", "beam1")]
+                row["differing_from_beam1"] = {u: [k for k in "ADU" if got[u][k] != single[u][k]]
+                                               for u in got if got[u] != single[u]}
+                # the encoder's states of an utterance's frames depend on how far it
+                # is padded (JAX's too; ROADMAP §C): a row padded as in its single
+                # run must equal it, a row padded further is reported
+                same_pad = [u for u in got if name.endswith("same_pad") or u == "3"]
+                row["padded_as_single_run"] = same_pad
+                bad = [u for u in row["differing_from_beam1"] if u in same_pad]
+                if bad:
+                    failures.append(f"{name}: utterances {bad}, padded as in their single "
+                                    "runs, differ from them")
+            emit(row)
+            if len(got) != 4 or any(set(v) != {"A", "D", "U"} for v in got.values()):
+                failures.append(f"{name}: lines for {sorted(got)}")
+            torch.cuda.empty_cache()
+        total = _read_counts()
+        for kernel, path in (("relpos_attention", "B1"), ("masked_attention", "B3")):
+            if total[kernel] < 1:
+                failures.append(f"{path} ({kernel}) never launched")
+
+        # the 3 s and the 1024-frame utterances' --beam 1 lines, and the 3 s
+        # utterance's --beam 10 lines, against the same CLI on the CPU
+        (root / "gen_cpu.tsv").write_text("id\tsrc_audio\n0\tgen0.wav\n3\tgen3.wav\n")
+        (root / "gen_one.tsv").write_text("id\tsrc_audio\n0\tgen0.wav\n")
+        cpu_runs = [("beam1", greedy + ["--manifest", str(root / "gen_cpu.tsv")]),
+                    ("beam10", ["--fairseq-checkpoint", pt, "--manifest",
+                                str(root / "gen_one.tsv"), "--beam", "10"])]
+        model = None
+        for name, argv in cpu_runs:
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                cpu_results = generate.main(argv + ["--cpu"])
+            wall = time.perf_counter() - t0
+            for utt, cpu in _generate_lines(printed.getvalue()).items():
+                card = lines[name][utt]
+                row = {"phase": "generate_cli_cpu", "run": name, "utterance": utt,
+                       "cpu_wall_s": wall, "same_A": cpu["A"] == card["A"],
+                       "same_D": cpu["D"] == card["D"], "same_U": cpu["U"] == card["U"],
+                       "mt_tokens": len(_ids(cpu["D"])), "units": len(_ids(cpu["U"])),
+                       "nvidia_smi": smi}
+                if model is None:
+                    class _Args:
+                        fairseq_checkpoint, checkpoint = pt, None
+                    model, _ = generate.load_model(_Args)
+                feats = logmelfbank(load_audio_or_features(str(root / f"gen{utt}.wav")))
+                if not (row["same_D"] and row["same_U"]):
+                    row.update(_generate_cpu_margins(model, feats, _ids(cpu["D"]),
+                                                     _ids(card["D"])))
+                    # a beam's pick differs where the two searches' best
+                    # hypotheses score alike (their pruning met a near-tie)
+                    if name == "beam1":
+                        gap = row["cpu_top2_margin_there"] or 0.0
+                    else:
+                        gap = row["score_gap"] = abs(cpu_results[utt]["mt_score"]
+                                                     - results_by_run[name][utt]["mt_score"])
+                    d_tie = row["same_D"] or gap < GENERATE_TIE
+                    near_tie = d_tie and (row["same_U"] or not row["same_D"]
+                                          or row["cpu_unit_min_top2_margin"] < GENERATE_TIE)
+                    row["near_tie"] = near_tie
+                    if not near_tie:
+                        failures.append(f"the card's --{name} lines of utterance {utt} "
+                                        "differ from the CPU's")
+                if name == "beam10":
+                    # B3 at the --beam 10 unit pass's shape, card vs CPU
+                    row.update(_unit_logits_card_vs_cpu(model, feats, _ids(cpu["D"])))
+                    if row["unit_logits_b3_launches"] < 1 or \
+                            row["unit_logits_scaled_err"] > FORWARD_RTOL:
+                        failures.append(f"--beam 10 unit logits: {row}")
+                emit(row)
+    emit({"phase": "generate_cli_total", "runs": [n for n, _ in runs], "launches": total,
+          "nvidia_smi": smi, "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
+
+
+T2T_CPU_TIMEOUT = 300       # s, the t2t CPU runs' wait each
+T2T_SENTENCES = 8
+T2T_HMT_TARGET = 128        # the HMT forward's target: S*K = 512 with K = 4, B5's gate
+# the t2t_cli runs: (name, agent, checkpoint, OMP threads of its CPU run).
+# The agents' prefixes stop at 100 tokens (bucket 104), so at the default K = 4
+# the HMT decoder's S*K stays at or below 416, under B5's gate of 512; the
+# "t2t-hmt K8" run's checkpoint sets cands_per_token 8 in its config.json,
+# where S*K reaches 512 once the bucketed prefix is 64
+T2T_RUNS = (("t2t-waitk", "t2t-waitk", "text_mt", 1), ("t2t-hmt", "t2t-hmt", "hmt", 1),
+            ("t2t-hmt-beam", "t2t-hmt-beam", "hmt", 4), ("t2t-hmt K8", "t2t-hmt", "hmt_k8", 2))
+
+
+def _t2t_inputs(root: Path):
+    """Eight synthetic parallel sentences (10-17 source words, a target of
+    about the same length from its own vocabulary), seeded; the first of them
+    alone with the dictionaries the CLI builds from all eight (the CPU runs'
+    inputs); and a native checkpoint of each text model at the CLI's defaults
+    (``config.json`` of no keys: ``DecoderConfig()``, 6 encoder layers,
+    ``first_read`` 3, K = 4) over those dictionaries, with the HMT weights
+    again beside a ``config.json`` of K = 8: the port's seeded weights with
+    the decoder table's special rows zeroed, so that the random models write
+    (undoctored, they end every sentence at once)."""
+    from streamspeech_tpu_torch.cli.simuleval import _text_dict
+    from streamspeech_tpu_torch.config import DecoderConfig
+    from streamspeech_tpu_torch.models.hmt import HMTModel
+    from streamspeech_tpu_torch.models.text_mt import TextMTModel
+    from streamspeech_tpu_torch.train.checkpoint import save_payload, tensor_tree
+    from streamspeech_tpu_torch.weights import flax_variables, random_init_
+
+    rng = np.random.RandomState(SEED + 13)
+    src, tgt = [], []
+    for _ in range(T2T_SENTENCES):
+        n = int(rng.randint(10, 18))
+        src.append(" ".join(f"s{w}" for w in rng.randint(0, 400, n)))
+        tgt.append(" ".join(f"t{w}" for w in rng.randint(0, 400, n + int(rng.randint(-2, 3)))))
+    (root / "src.txt").write_text("\n".join(src) + "\n")
+    (root / "tgt.txt").write_text("\n".join(tgt) + "\n")
+    (root / "src1.txt").write_text(src[0] + "\n")
+    (root / "tgt1.txt").write_text(tgt[0] + "\n")
+    d_src, d_tgt = _text_dict(None, src), _text_dict(None, tgt)
+    d_src.save(str(root / "src_dict.txt"))
+    d_tgt.save(str(root / "tgt_dict.txt"))
+    checkpoints = {}
+    for name, model, cfg in (
+            ("text_mt", TextMTModel(len(d_src), DecoderConfig(vocab_size=len(d_tgt))), {}),
+            ("hmt", HMTModel(len(d_src), DecoderConfig(vocab_size=len(d_tgt))), {}),
+            ("hmt_k8", HMTModel(len(d_src), DecoderConfig(vocab_size=len(d_tgt))),
+             {"cands_per_token": 8})):
+        random_init_(model, SEED)
+        with torch.no_grad():
+            model.decoder.embed_tokens[:4] = 0.0
+        save_payload(str(root / name / "checkpoint_1"),
+                     tensor_tree({"params": flax_variables(model)["params"]}))
+        (root / name / "config.json").write_text(json.dumps(cfg))
+        checkpoints[name] = str(root / name / "checkpoint_1")
+    return checkpoints
+
+
+def phase_t2t_cli(smi: str):
+    """The text-to-text agents through the streaming evaluation CLI on the
+    card, each also over the first sentence on the CPU, and one HMT forward
+    at S*K = 512 card vs CPU (phase 19c of the docstring). Returns the
+    launches of the path: the counts set to 0 before the first CLI run on
+    the card and read after the last."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+    import tempfile
+
+    from streamspeech_tpu_torch.cli import simuleval
+    from streamspeech_tpu_torch.config import DecoderConfig
+    from streamspeech_tpu_torch.models.hmt import HMTModel
+    from streamspeech_tpu_torch.weights import random_init_
+
+    failures, procs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        checkpoints = _t2t_inputs(root)
+        _zero_counts()
+        before = _read_counts()
+        for name, agent, ckpt, _ in T2T_RUNS:
+            out = root / name.replace(" ", "_")
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                scores = simuleval.main([
+                    "--source", str(root / "src.txt"), "--target", str(root / "tgt.txt"),
+                    "--agent", agent, "--checkpoint", checkpoints[ckpt],
+                    "--output", str(out)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _read_counts()
+            launches = {k: counts[k] - before[k] for k in counts if counts[k] != before[k]}
+            before = counts
+            log = _cli_log(out)
+            emit({"phase": "t2t_cli", "run": name, "agent": agent, "wall_s": wall,
+                  "sentences": len(log), "sentences_per_s": len(log) / wall,
+                  "target_words": [len(x["prediction"].split()) for x in log],
+                  "BLEU": scores.get("BLEU"), "AL": scores.get("AL"),
+                  "launches": launches, "bias_attention_launches":
+                      launches.get("bias_attention", 0), "nvidia_smi": smi})
+            if len(log) != T2T_SENTENCES or not all(x["delays"] for x in log):
+                failures.append(f"{name}: {len(log)} log lines, some with no write")
+            if not all(np.isfinite(scores[k]) for k in ("BLEU", "AL")):
+                failures.append(f"{name}: BLEU/AL {scores.get('BLEU')}/{scores.get('AL')}")
+        total = _read_counts()
+        if total["bias_attention"] < 1:
+            failures.append("B5 (bias_attention) never launched on the t2t CLI path")
+
+        # each run's first sentence again on the CPU, in a fresh interpreter
+        # each, all four at once: the same prediction and delays
+        try:
+            for name, agent, ckpt, threads in T2T_RUNS:
+                out = root / ("cpu_" + name.replace(" ", "_"))
+                procs.append((name, out, time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "streamspeech_tpu_torch.cli.simuleval", "--cpu",
+                     "--source", str(root / "src1.txt"), "--target", str(root / "tgt1.txt"),
+                     "--src-dict", str(root / "src_dict.txt"),
+                     "--tgt-dict", str(root / "tgt_dict.txt"), "--agent", agent,
+                     "--checkpoint", checkpoints[ckpt], "--output", str(out)],
+                    cwd=str(Path(__file__).resolve().parent), stdout=subprocess.DEVNULL,
+                    stderr=open(root / f"{out.name}.err", "w"),
+                    env={**os.environ, "OMP_NUM_THREADS": str(threads)})))
+
+            # meanwhile one HMT forward at the CLI's sizes with a 128-token
+            # target, card vs CPU: B5 at S*K 512 held to the plain route
+            dec = DecoderConfig(vocab_size=404)
+            model = random_init_(HMTModel(404, dec, encoder_layers=6), SEED).eval()
+            rng = np.random.RandomState(SEED + 17)
+            src = torch.from_numpy(rng.randint(4, 404, (2, 40))).long()
+            src[1, 31:] = 1
+            src_len = torch.tensor([40, 31])
+            prev = torch.from_numpy(rng.randint(4, 404, (2, T2T_HMT_TARGET))).long()
+            prev[:, 0] = 2
+            prev[1, 100:] = 1
+            with torch.no_grad():
+                ref = [x.clone() for x in model(src, src_len, prev)[:2]]
+                model.cuda()
+                b5 = _read_counts()["bias_attention"]
+                got = [x.cpu() for x in model(src.cuda(), src_len.cuda(), prev.cuda())[:2]]
+            b5 = _read_counts()["bias_attention"] - b5
+            errs = {k: float((g - r).abs().max() / max(1.0, float(r.abs().max())))
+                    for k, g, r in zip(("emission", "transition"), got, ref)}
+            emit({"phase": "t2t_hmt_forward", "s_times_k": T2T_HMT_TARGET * 4,
+                  "bias_attention_launches": b5, "scaled_err": errs, "rtol": FORWARD_RTOL,
+                  "nvidia_smi": smi})
+            if b5 < 1 or max(errs.values()) > FORWARD_RTOL:
+                failures.append(f"HMT forward: {b5} B5 launches, scaled errors {errs}")
+            del model
+            torch.cuda.empty_cache()
+
+            for name, out, t0, proc in procs:
+                proc.wait(timeout=T2T_CPU_TIMEOUT)
+                row = {"phase": "t2t_cli_cpu", "run": name, "rc": proc.returncode,
+                       "cpu_wall_s": time.perf_counter() - t0}
+                if proc.returncode != 0:
+                    err = (root / f"{out.name}.err").read_text()[-2000:]
+                    failures.append(f"{name} on the CPU exited {proc.returncode}: {err}")
+                    emit(row)
+                    continue
+                cpu = _cli_log(out)[0]
+                card = _cli_log(root / name.replace(" ", "_"))[0]
+                words = [cpu["prediction"].split(), card["prediction"].split()]
+                row.update({"words": len(words[0]), "same_prediction":
+                                cpu["prediction"] == card["prediction"],
+                            "same_delays": cpu["delays"] == card["delays"],
+                            "first_differing_word": next(
+                                (i for i, (a, b) in enumerate(zip(*words)) if a != b),
+                                None if len(words[0]) == len(words[1])
+                                else min(map(len, words)))})
+                emit(row)
+                if _cli_same([card], [cpu], speech=False)["differing"]:
+                    failures.append(f"{name}: the card's first sentence differs from "
+                                    f"the CPU's ({row})")
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    emit({"phase": "t2t_cli_total", "runs": [n for n, *_ in T2T_RUNS], "launches": total,
+          "bias_attention_launches": total["bias_attention"], "nvidia_smi": smi,
+          "failures": failures})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return total
+
 # phase 20's toy task: 22 words of 7300 samples an utterance (1002 fbank
 # frames, padded to 1024: T_enc 256, the rel-pos gate; 23 MT tokens: unit T
 # 575, the causal and bias gates) and 508 words (512 text symbols: the
@@ -3026,6 +3532,8 @@ def main():
     del agent
     torch.cuda.empty_cache()
     simuleval_cli_launches = phase_simuleval_cli(smi)
+    generate_cli_launches = phase_generate_cli(smi)
+    t2t_cli_launches = phase_t2t_cli(smi)
     forward_launches, times32, model32, ref32, card32 = phase_forward()
     forward_bf16_launches = phase_forward_bf16(model32, ref32, card32, times32)
     del model32, ref32, card32
@@ -3106,6 +3614,7 @@ def main():
              "serving_batched_fused": batched_fused_launches,
              "serving_bf16_batched_fused": bf16_fused_launches,
              "simuleval_cli": simuleval_cli_launches,
+             "generate_cli": generate_cli_launches, "t2t_cli": t2t_cli_launches,
              "forward": forward_launches,
              "train": train_launches, "train_kernels": train_kernel_launches,
              "serving_bf16": serving_bf16_launches, "forward_bf16": forward_bf16_launches,

@@ -14,8 +14,20 @@ Agents ``s2st`` (the fused tick where the engine has a vocoder), ``s2tt`` and
 ``asr``; ``--batch N`` evaluates N instances at a time through the batched
 evaluators. The model runs on the card; ``--cpu`` runs it on the CPU, and
 without a card and without ``--cpu`` the CLI raises. ``--checkpoint`` takes a
-native checkpoint of the port's ``cli.train``. The ``t2t-*`` agents
-(``TextMTModel``, ``HMTModel``) are not ported yet (ROADMAP §A item 9).
+native checkpoint of the port's ``cli.train``.
+
+The text-to-text agents ``t2t-waitk`` (``TextMTModel``), ``t2t-hmt`` and
+``t2t-hmt-beam`` (``HMTModel``) read ``--source`` and ``--target`` as text,
+one sentence a line, one source token a read:
+
+    python -m streamspeech_tpu_torch.cli.simuleval --source src.txt \\
+        --target tgt.txt --agent t2t-hmt --checkpoint ck/checkpoint_100 --output res/
+
+Their dictionaries come from ``--src-dict`` / ``--tgt-dict`` or are built from
+the text; ``--checkpoint`` is a native checkpoint of the text model with the
+``config.json`` beside it. Without a checkpoint the weights are
+``weights.random_init_`` at seed 0, which JAX's ``PRNGKey(0)`` init does not
+reproduce: those outputs differ from the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,7 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--source", type=str, required=True, help="newline-separated wav paths")
     p.add_argument("--target", type=str, required=True)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="a native checkpoint directory of cli.train")
+                   help="a native checkpoint directory of cli.train (t2t-*: of the text "
+                        "model, config.json beside it; without one the t2t-* weights are "
+                        "weights.random_init_ at seed 0, which JAX's PRNGKey(0) init does "
+                        "not reproduce, so those outputs differ from the JAX CLI's)")
     p.add_argument("--fairseq-checkpoint", type=str, default=None)
     p.add_argument("--agent", choices=["s2st", "s2tt", "asr", "t2t-waitk", "t2t-hmt",
                                        "t2t-hmt-beam"], default="s2st")
@@ -142,6 +158,9 @@ def build_engine(args) -> StreamSpeechEngine:
 
     device = _device(args)
     model, _ = load_model(args)
+    if isinstance(model, list):
+        raise ValueError("the streaming engine serves one model: decode an ensemble "
+                         "(comma-separated --checkpoint paths) offline with cli.generate")
     vocoder = None
     if args.vocoder:
         from streamspeech_tpu_torch.models.vocoder import CodeGenerator
@@ -167,9 +186,9 @@ def main(argv=None):
         _print_scores(scores)
         return scores
     if args.agent.startswith("t2t-"):
-        raise NotImplementedError(
-            f"--agent {args.agent}: the text-to-text agents (TextMTModel, HMTModel) "
-            "are not ported yet (ROADMAP §A item 9)")
+        scores = _run_t2t(args)
+        _print_scores(scores)
+        return scores
     if args.remote_eval:
         # an agent served elsewhere (--standalone): no local model
         from streamspeech_tpu_torch.eval.service import RemoteAgent
@@ -236,6 +255,76 @@ def main(argv=None):
     scores = ev(sources, references, continue_unfinished=args.continue_unfinished)
     _print_scores(scores)
     return scores
+
+
+def _text_dict(path: Optional[str], lines) -> Dictionary:
+    """``path``'s dictionary, or one built from the words of ``lines``."""
+    if path:
+        return Dictionary.load(path)
+    d = Dictionary()
+    for line in lines:
+        for w in line.split():
+            d.add_symbol(w)
+    return d
+
+
+def _run_t2t(args):
+    """Text-to-text simultaneous evaluation (`cli/simuleval.py:295-378`; the
+    reference's t2t dataloader + TextToTextInstance path, `SimulEval/
+    simuleval/data/dataloader/t2t_dataloader.py` + `evaluator/instance.py:426`):
+    source and target are text files, one token is sent per read, AL/AP are
+    measured in tokens. Returns the scores."""
+    import json
+
+    from streamspeech_tpu_torch.config import DecoderConfig
+    from streamspeech_tpu_torch.weights import load_flax_variables, random_init_
+
+    device = _device(args)
+    sources = [line for line in Path(args.source).read_text().splitlines() if line.strip()]
+    references = list(Path(args.target).read_text().splitlines())
+    src_dict = _text_dict(args.src_dict, sources)
+    tgt_dict = _text_dict(args.tgt_dict, references)
+
+    restored = cfg_raw = None
+    if args.checkpoint:
+        from streamspeech_tpu_torch.train.checkpoint import load_checkpoint
+
+        restored = load_checkpoint(args.checkpoint)
+        cfg_path = Path(args.checkpoint).parent / "config.json"
+        cfg_raw = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
+    cfg_raw = cfg_raw or {}
+    dec = DecoderConfig(vocab_size=len(tgt_dict))
+    for k, v in cfg_raw.get("decoder", {}).items():
+        if hasattr(dec, k):
+            setattr(dec, k, v)
+    enc_layers = cfg_raw.get("encoder_layers", 6)
+
+    if args.agent in ("t2t-hmt", "t2t-hmt-beam"):
+        from streamspeech_tpu_torch.models.hmt import HMTAgent, HMTModel, HMTSimBeamAgent
+
+        model = HMTModel(len(src_dict), dec, encoder_layers=enc_layers,
+                         first_read=cfg_raw.get("first_read", 3),
+                         cands_per_token=cfg_raw.get("cands_per_token", 4))
+    else:
+        from streamspeech_tpu_torch.models.text_mt import TextMTModel, WaitkTextAgent
+
+        model = TextMTModel(len(src_dict), dec, encoder_layers=enc_layers)
+    if restored is not None:
+        load_flax_variables(model, {"params": restored["params"]})
+    else:
+        random_init_(model, 0)
+    if args.agent == "t2t-hmt-beam":
+        agent = HMTSimBeamAgent(model, src_dict, tgt_dict, beam_size=5, device=device)
+    elif args.agent == "t2t-hmt":
+        agent = HMTAgent(model, src_dict, tgt_dict, device=device)
+    else:
+        agent = WaitkTextAgent(model, src_dict, tgt_dict, waitk=args.waitk, device=device)
+
+    ev = SentenceLevelEvaluator(
+        agent, source_segment_size=args.source_segment_size,
+        latency_metrics=args.latency_metrics, quality_metrics=args.quality_metrics,
+        output_dir=args.output)
+    return ev(sources, references, continue_unfinished=args.continue_unfinished)
 
 
 def submit_slurm_job(args, argv=None) -> str:

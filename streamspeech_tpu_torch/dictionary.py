@@ -47,6 +47,18 @@ class Dictionary:
     def index(self, word: str) -> int:
         return self.indices.get(word, self.unk_index)
 
+    def bos(self) -> int:
+        return self.bos_index
+
+    def pad(self) -> int:
+        return self.pad_index
+
+    def eos(self) -> int:
+        return self.eos_index
+
+    def unk(self) -> int:
+        return self.unk_index
+
     def encode_line(self, line: str, append_eos: bool = True,
                     add_if_not_exist: bool = False) -> List[int]:
         """Whitespace-split symbols → ids (unknown → ``<unk>``, or added)."""

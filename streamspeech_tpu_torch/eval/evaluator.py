@@ -6,8 +6,8 @@ by skipping the indices already in the log (``continue_unfinished``).
 
 Quality is scored by ``eval/quality.py``'s scorers (BLEU, ASR_BLEU, WER),
 by default ASR_BLEU for a speech-output agent and BLEU for a text one, as in
-JAX; ``quality_metrics=[]`` scores latency alone. Text-source agents
-(``TextToTextInstance``) come with the text agents.
+JAX; ``quality_metrics=[]`` scores latency alone. A text-source agent
+(``source_type == "text"``) is fed ``TextToTextInstance``s, one token a read.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from streamspeech_tpu_torch.eval.instance import (
     Instance,
     SpeechOutputInstance,
     TextOutputInstance,
+    TextToTextInstance,
 )
 from streamspeech_tpu_torch.eval import quality as _quality  # noqa: F401 (registers the scorers)
 from streamspeech_tpu_torch.eval.latency import build_scorers
@@ -53,9 +54,6 @@ class SentenceLevelEvaluator:
         quality_metrics: Optional[List[str]] = None,
         output_dir: Optional[str] = None,
     ):
-        if getattr(agent, "source_type", "speech") == "text":
-            raise NotImplementedError("text-source agents (TextToTextInstance) are "
-                                      "not ported yet")
         self.agent = agent
         self.source_segment_size = source_segment_size
         self.output_dir = output_dir
@@ -71,7 +69,12 @@ class SentenceLevelEvaluator:
             Path(output_dir).mkdir(parents=True, exist_ok=True)
 
     def _make_instance(self, index, source, reference, sample_rate) -> Instance:
-        cls = SpeechOutputInstance if self.speech_output else TextOutputInstance
+        if getattr(self.agent, "source_type", "speech") == "text":
+            # t2t evaluation (instance.py:426 TextToTextInstance): delays in
+            # source tokens
+            cls = TextToTextInstance
+        else:
+            cls = SpeechOutputInstance if self.speech_output else TextOutputInstance
         return cls(index, source, reference, sample_rate=sample_rate,
                    output_dir=self.output_dir)
 

@@ -6,9 +6,9 @@ reference `SimulEval/simuleval/evaluator/instance.py:26-419`):
   latency twin;
 - speech output: per-emission durations, the waveform stitched on the source
   timeline with silence at discontinuities (`instance.py:344-371`), intervals,
-  and a wav file.
-
-``TextToTextInstance`` is not ported yet: it comes with the text agents.
+  and a wav file;
+- text input (``TextToTextInstance``): one source token a read, delays in
+  tokens.
 """
 
 from __future__ import annotations
@@ -20,7 +20,12 @@ from typing import List, Optional
 
 import numpy as np
 
-from streamspeech_tpu_torch.agents.base import EmptySegment, Segment, SpeechSegment
+from streamspeech_tpu_torch.agents.base import (
+    EmptySegment,
+    Segment,
+    SpeechSegment,
+    TextSegment,
+)
 
 
 def write_wav(path, samples: np.ndarray, sample_rate: int):
@@ -140,6 +145,44 @@ class TextOutputInstance(Instance):
             "source_length": self.source_length,
             "reference": self.reference,
         }
+
+
+class TextToTextInstance(TextOutputInstance):
+    """Text-input instance (`instance.py:141-175`; reference
+    `SimulEval/simuleval/evaluator/instance.py:149-175` TextInputInstance +
+    `:426` TextToTextInstance): the source is a token list, one token is sent
+    per ``send_source`` call, delays are measured in tokens and the elapsed
+    (computation-aware) axis is 0 by the reference's convention."""
+
+    def __init__(self, index: int, source, reference: Optional[str],
+                 sample_rate: int = 16000, latency_unit: str = "word",
+                 output_dir: Optional[str] = None):
+        if isinstance(source, str):
+            source = source.split()
+        super().__init__(index, list(source), reference, sample_rate=sample_rate,
+                         latency_unit=latency_unit, output_dir=output_dir)
+
+    @property
+    def source_length(self) -> float:
+        return float(len(self.samples))
+
+    def step_to_delay(self) -> float:
+        return float(self.step)
+
+    def step_to_elapsed(self, current_time: float) -> float:
+        return 0.0  # instance.py:157-158
+
+    def send_source(self, segment_size_ms: int = 0) -> Segment:
+        if self.start_time is None:
+            self.start_time = time.time()
+        if self.step >= len(self.samples):
+            self.source_finished_reading = True
+            return EmptySegment(index=self.index, finished=True)
+        word = self.samples[self.step]
+        self.step += 1
+        finished = self.step >= len(self.samples)
+        self.source_finished_reading = finished
+        return TextSegment(index=self.index, content=word, finished=finished)
 
 
 class SpeechOutputInstance(Instance):

@@ -185,6 +185,16 @@ class StreamSpeechModel(nn.Module):
         st_ids = torch.argmax(self.ctc_target_unigram_head(enc), dim=-1)
         return enc, state, asr_ids, st_ids
 
+    def mt_decoder_step(self, tokens_new: torch.Tensor, position_offset: int,
+                        self_caches: List[KVCache], cross_caches: List[KVCache]):
+        """One (or a few) MT decoder steps over the self- and cross-caches
+        (`streamspeech.py:199-205`): tokens_new [B, S_new] after
+        ``position_offset`` fed tokens. The self caches are appended in place.
+        Returns (logits [B, S_new, V], self_caches)."""
+        logits, _ = self.mt_decoder.step(tokens_new, position_offset, self_caches,
+                                         cross_caches)
+        return logits, self_caches
+
     def mt_decode_greedy(self, first: torch.Tensor, offset: torch.Tensor,
                          budget: torch.Tensor, self_caches: List[StreamKVCache],
                          cross_caches: List[KVCache], max_steps: int,

@@ -109,6 +109,42 @@ class UniTransformerEncoder(nn.Module):
         return self.layer_norm(x)
 
 
+class UniTransformerEncoderWithEmb(nn.Module):
+    """Token encoder: a token embedding scaled by sqrt(d), the fairseq
+    sinusoidal positions, pre-norm encoder layers (causal when
+    ``unidirectional``, through the [T, T] mask as in JAX, so T >= 512 takes
+    the bias kernel route) and a final LayerNorm (`transformer.py:222-262`;
+    reference `researches/ctc_unity/modules/transformer_encoder.py:147-240`).
+    The text-to-text models' source encoder."""
+
+    def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, num_layers: int,
+                 vocab_size: int, dropout: float = 0.0, unidirectional: bool = True,
+                 max_positions: int = 1024, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_layers, self.dropout, self.unidirectional = num_layers, dropout, unidirectional
+        self.embed_tokens = nn.Parameter(torch.zeros(vocab_size, embed_dim))
+        self.register_buffer("pos_table", _pos_table(max_positions, embed_dim),
+                             persistent=False)
+        self.embed_scale = math.sqrt(embed_dim)
+        for i in range(num_layers):
+            self.add_module(f"layers_{i}", TransformerEncoderLayer(
+                embed_dim, ffn_dim, num_heads, dropout, dtype))
+        self.layer_norm = LayerNorm(embed_dim, dtype)
+
+    def forward(self, tokens, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        x = self.embed_scale * self.embed_tokens[tokens] + \
+            self.pos_table[fairseq_positions(tokens)]
+        x = dropout(x, self.dropout, deterministic, generator)
+        key_valid = tokens != PAD
+        allowed = (causal_allowed(tokens.shape[1], device=tokens.device)
+                   if self.unidirectional else None)
+        for i in range(self.num_layers):
+            x = getattr(self, f"layers_{i}")(x, allowed, key_valid, deterministic,
+                                             generator)
+        return self.layer_norm(x)
+
+
 class TransformerDecoderLayer(nn.Module):
     """fairseq decoder layer (`transformer_layer.py`; `transformer.py:265-333`),
     pre- or post-norm. ``dropout`` follows each attention sublayer and the
@@ -139,11 +175,15 @@ class TransformerDecoderLayer(nn.Module):
                 enc_valid=None, self_cache: Optional[KVCache] = None,
                 cross_cache: Optional[KVCache] = None, self_causal: bool = False,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                allowed_self: Optional[torch.Tensor] = None):
+        """``allowed_self`` [S, S] is a self-attention mask other than
+        causality (the HMT decoder's state mask); ``self_causal`` declares
+        pure causality, which the causal kernel route takes."""
         drop = dict(deterministic=deterministic, generator=generator)
 
         def self_attn(y):
-            y, _ = self.self_attn(y, None, None, self_valid, self_cache,
+            y, _ = self.self_attn(y, None, allowed_self, self_valid, self_cache,
                                   causal=self_causal, **drop)
             return dropout(y, self.dropout, **drop)
 

@@ -417,10 +417,11 @@ def export_hifigan_vocoder(variables: Dict, cfg: Dict) -> Dict[str, np.ndarray]:
 STATE_FILE = "state.pt"
 
 
-def _tensors(tree):
-    """A tree of NumPy arrays → the same tree of CPU tensors."""
+def tensor_tree(tree):
+    """A tree of NumPy arrays → the same tree of CPU tensors (a payload for
+    ``save_payload``)."""
     if isinstance(tree, Mapping):
-        return {k: _tensors(v) for k, v in tree.items()}
+        return {k: tensor_tree(v) for k, v in tree.items()}
     return torch.from_numpy(np.ascontiguousarray(tree))
 
 
@@ -437,7 +438,7 @@ def state_payload(state) -> Dict[str, Any]:
     opt = state.opt_state
 
     def tree(tensors, collection="params"):
-        return _tensors(flax_tree(state.model, tensors, collection))
+        return tensor_tree(flax_tree(state.model, tensors, collection))
 
     payload_opt = {"count": torch.tensor(opt.count, dtype=torch.int32),
                    "mini_step": torch.tensor(opt.mini_step, dtype=torch.int32),

@@ -27,9 +27,10 @@ against the JAX package's, run in process on the CPU on the same files:
 - the ``--slurm`` script equals JAX's but for the module name;
 - the fairseq import, config inference and export, and the vocoder import,
   equal JAX's on the same files;
-- an ensemble ``--checkpoint a,b``, the ``t2t-*`` agents and
-  ``WHISPER_ASR_BLEU`` raise and name what is missing; without ``--cpu`` and
-  without a card the CLI raises;
+- an ensemble ``--checkpoint a,b`` raises (the streaming engine serves one
+  model; ensembles decode offline in ``cli.generate``), ``WHISPER_ASR_BLEU``
+  raises and names what is missing; without ``--cpu`` and without a card the
+  CLI raises (the ``t2t-*`` agents: ``tests/test_torch_text_mt.py``);
 - ``python -m streamspeech_tpu_torch.cli.simuleval`` in a fresh interpreter
   writes the same log and imports nothing of JAX.
 
@@ -338,14 +339,17 @@ def test_checkpoint_import_export_match_jax(files):
 def test_unported_paths_raise(files, tmp_path):
     root = files[0]
     argv = _argv(root, "s2st", 1, tmp_path / "x")
+    # an ensemble (comma-separated native checkpoints) decodes offline only
+    params, stats, _ = port_ckpt.import_fairseq_streamspeech(str(root / "model.pt"))
+    port_ckpt.save_payload(str(tmp_path / "ck" / "a"),
+                           port_ckpt.tensor_tree({"params": params, "batch_stats": stats}))
+    (tmp_path / "ck" / "config.json").write_text(json.dumps(dataclasses.asdict(
+        port_ckpt.infer_config_from_params(params, stats))))
     ckpt = [a if a != "--fairseq-checkpoint" else "--checkpoint" for a in argv]
     at = ckpt.index("--checkpoint") + 1
-    ckpt[at] = f"{ckpt[at]},{ckpt[at]}"                 # an ensemble of two
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 7"):
+    ckpt[at] = f"{tmp_path}/ck/a,{tmp_path}/ck/a"       # an ensemble of two
+    with pytest.raises(ValueError, match="offline with cli.generate"):
         port_cli.main(ckpt)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 9"):
-        port_cli.main(argv[:argv.index("--agent") + 1] + ["t2t-waitk"] +
-                      argv[argv.index("--agent") + 2:])
     with pytest.raises(NotImplementedError, match="WHISPER_ASR_BLEU"):
         port_cli.main(argv + ["--quality-metrics", "WHISPER_ASR_BLEU"])
     if torch.cuda.is_available():
